@@ -1,0 +1,117 @@
+"""The port's attention against the JAX package's Pallas kernel, on the CPU.
+
+``attention_reference`` (the plain version of the CUDA kernel, which the
+port runs on CPU tensors) must compute what
+``vla_adapter_tpu/ops/pallas_attention.py:fused_attention`` computes; the
+Pallas side runs in interpret mode as the JAX package's own tests run it.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vla_adapter_tpu.ops.pallas_attention import fused_attention as jax_fused
+from vla_adapter_torch.ops import cuda_lib
+from vla_adapter_torch.ops.attention import dot_product_attention
+from vla_adapter_torch.ops.attention_kernel import (
+    KERNEL_NAME,
+    attention_reference,
+    fused_attention,
+)
+
+# (batch, heads, kv heads, seq, head dim, key padding, causal)
+CASES = {
+    "bidir_padded": (2, 4, 2, 40, 16, True, False),
+    "causal": (2, 4, 2, 40, 16, True, True),
+    "gqa_14_2": (1, 14, 2, 64, 64, True, False),
+    "gqa_14_2_causal": (2, 14, 2, 48, 64, False, True),
+    "head_dim_72": (2, 16, 16, 32, 72, False, False),
+    "odd_seq_37": (2, 4, 2, 37, 16, True, True),
+}
+
+
+def _inputs(b, h, hkv, s, d, padded, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, s, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, s, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, s, d)).astype(np.float32)
+    valid = np.ones((b, s), np.int32)
+    if padded:
+        valid[0, s - s // 4:] = 0
+    return q, k, v, valid
+
+
+def _valid_rows(x: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """(B, H, S, D) -> the rows of real query tokens."""
+    return x.transpose(0, 2, 1, 3)[valid.astype(bool)]
+
+
+@pytest.mark.parametrize("case", CASES.values(), ids=list(CASES))
+def test_reference_matches_pallas_fp32(case):
+    """fp32: the bf16 rounding of p is the identity, so the two agree to
+    fp32 summation order (atol = rtol = 1e-5, the JAX package's own
+    tolerance for its kernel against XLA)."""
+    b, h, hkv, s, d, padded, causal = case
+    q, k, v, valid = _inputs(b, h, hkv, s, d, padded)
+    want = np.asarray(jax_fused(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid),
+        causal=causal, interpret=True))
+    got = attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(valid), causal=causal).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(_valid_rows(got, valid),
+                               _valid_rows(want, valid), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["bidir", "causal"])
+def test_reference_matches_pallas_bf16(causal):
+    """bf16 inputs: both round the unnormalised p to bf16 before p @ v and
+    sum l from the rounded p. fp32 score sums in another order can flip a
+    rounding of p by one bf16 ulp, and the bf16 output is one ulp of
+    |out| <= ~3, so the bound is 2e-2."""
+    q, k, v, valid = _inputs(2, 14, 2, 80, 64, True, seed=3)
+    bf = jnp.bfloat16
+    want = np.asarray(jax_fused(
+        jnp.asarray(q, bf), jnp.asarray(k, bf), jnp.asarray(v, bf),
+        jnp.asarray(valid), causal=causal, interpret=True).astype(jnp.float32))
+    tb = torch.bfloat16
+    got = attention_reference(
+        torch.from_numpy(q).to(tb), torch.from_numpy(k).to(tb),
+        torch.from_numpy(v).to(tb), torch.from_numpy(valid),
+        causal=causal).float().numpy()
+    np.testing.assert_allclose(_valid_rows(got, valid),
+                               _valid_rows(want, valid), atol=2e-2, rtol=0)
+
+
+def test_fully_masked_rows_stay_finite():
+    q, k, v, _ = _inputs(1, 2, 1, 9, 8, False)
+    valid = torch.zeros(1, 9, dtype=torch.int32)
+    out = attention_reference(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), valid)
+    assert torch.isfinite(out).all()
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """The wrapper runs the plain version on a CPU tensor and counts no
+    launch; the (B, S, H, D) dispatcher gives the same result either way."""
+    q, k, v, valid = (torch.from_numpy(a) for a in _inputs(2, 4, 2, 21, 16, True))
+    before = cuda_lib.LAUNCHES[KERNEL_NAME]
+    got = fused_attention(q, k, v, valid, causal=True)
+    assert cuda_lib.LAUNCHES[KERNEL_NAME] == before
+    assert torch.equal(got, attention_reference(q, k, v, valid, causal=True))
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    kern = dot_product_attention(t(q), t(k), t(v), valid, causal=True)
+    plain = dot_product_attention(t(q), t(k), t(v), valid, causal=True,
+                                  impl="plain")
+    assert torch.equal(kern, plain)
+    assert torch.equal(t(kern), got)
+    with pytest.raises(ValueError):
+        dot_product_attention(t(q), t(k), t(v), impl="sdpa")
+
+
+def test_other_devices_are_refused():
+    q = torch.empty(1, 2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        fused_attention(q, q, q)

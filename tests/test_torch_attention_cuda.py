@@ -1,0 +1,91 @@
+"""The CUDA attention kernel against its plain version, on the card.
+
+Imports no JAX, so it also runs on a machine with only PyTorch and CUDA:
+``python -m pytest tests/test_torch_attention_cuda.py -m cuda``. Without a
+card every test here skips.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vla_adapter_torch.ops import cuda_lib
+from vla_adapter_torch.ops.attention_kernel import (
+    KERNEL_NAME,
+    attention_reference,
+    fused_attention,
+)
+
+pytestmark = pytest.mark.cuda
+
+# bf16 output: the kernel and the plain version differ only in fp32
+# summation order and exp rounding, i.e. by about one bf16 ulp of |out| <= 4.
+ATOL = 2e-2
+
+# (batch, heads, kv heads, seq, head dim, key padding, causal): the main
+# path's LLM (bidirectional with padding, and causal), DINOv2 and so400m
+# shapes, plus an odd length.
+SHAPES = [
+    (1, 14, 2, 640, 64, True, False),
+    (2, 14, 2, 640, 64, True, True),
+    (2, 16, 16, 261, 64, False, False),
+    (4, 16, 16, 256, 72, False, False),
+    (2, 4, 2, 37, 16, True, True),
+]
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _inputs(b, h, hkv, s, d, padded, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(b, hkv, s, d)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(b, hkv, s, d)).astype(np.float32))
+    valid = np.ones((b, s), np.int32)
+    if padded:
+        valid[0, s - s // 5:] = 0
+    return (q.to(dev, torch.bfloat16), k.to(dev, torch.bfloat16),
+            v.to(dev, torch.bfloat16),
+            torch.from_numpy(valid).to(dev) if padded else None)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernel_matches_plain(device, shape):
+    b, h, hkv, s, d, padded, causal = shape
+    q, k, v, valid = _inputs(b, h, hkv, s, d, padded, device)
+    before = cuda_lib.LAUNCHES[KERNEL_NAME]
+    got = fused_attention(q, k, v, valid, causal=causal)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[KERNEL_NAME] == before + 1
+    want = attention_reference(q, k, v, valid, causal=causal)
+    assert torch.isfinite(got.float()).all()
+    rows = torch.ones(b, s, dtype=torch.bool, device=device)
+    if valid is not None:
+        rows = valid.bool()
+    diff = (got.float() - want.float()).abs().transpose(1, 2)[rows]
+    assert diff.max().item() <= ATOL, diff.max().item()
+
+
+def test_kernel_takes_model_layout(device):
+    """(B, S, H, D) buffers viewed as (B, H, S, D), as the model passes."""
+    q, k, v, valid = _inputs(2, 14, 2, 96, 64, True, device, seed=1)
+    qs, ks, vs = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    got = fused_attention(qs, ks, vs, valid)
+    want = fused_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got.transpose(1, 2).is_contiguous()
+
+
+def test_kernel_rejects_what_it_does_not_take(device):
+    q, k, v, _ = _inputs(1, 4, 2, 32, 16, False, device)
+    with pytest.raises(TypeError):
+        fused_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):
+        fused_attention(q[..., :12], k[..., :12], v[..., :12])

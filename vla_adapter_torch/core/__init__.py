@@ -1,0 +1,1 @@
+"""core layer of the PyTorch port (mirrors vla_adapter_tpu/core)."""

@@ -1,0 +1,117 @@
+"""Qwen2-family decoder forward (counterpart of
+vla_adapter_tpu/models/qwen2.py: ``Qwen2Model.__call__``).
+
+Bidirectional or causal attention over the whole sequence, with per-key
+validity. Returns every hidden state: index 0 the embeddings, i in 1..L-1
+the output of layer i, index L the final-norm output (the HF convention the
+action head indexes). Cached decoding is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from vla_adapter_torch.core.config import Qwen2Config
+from vla_adapter_torch.models.layers import Dense, RMSNorm, Runtime, normal_init_
+from vla_adapter_torch.ops.attention import dot_product_attention
+from vla_adapter_torch.ops.rope import apply_rope_half, rope_cos_sin
+
+
+class Qwen2Attention(nn.Module):
+    """Bias on q/k/v, none on o; half-layout RoPE on q and k."""
+
+    def __init__(self, cfg: Qwen2Config, rt: Runtime, device=None):
+        super().__init__()
+        self.cfg, self.rt = cfg, rt
+        d, hd = cfg.hidden_size, cfg.head_dim
+        bias = cfg.attention_bias
+        self.q_proj = Dense(d, cfg.num_heads * hd, bias, rt=rt, device=device)
+        self.k_proj = Dense(d, cfg.num_kv_heads * hd, bias, rt=rt, device=device)
+        self.v_proj = Dense(d, cfg.num_kv_heads * hd, bias, rt=rt, device=device)
+        self.o_proj = Dense(cfg.num_heads * hd, d, False, rt=rt, device=device)
+
+    def forward(self, x, cos, sin, valid, causal: bool) -> torch.Tensor:
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q = self.q_proj(x).view(b, s, cfg.num_heads, cfg.head_dim)
+        k = self.k_proj(x).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = self.v_proj(x).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = apply_rope_half(q, cos, sin)
+        k = apply_rope_half(k, cos, sin)
+        out = dot_product_attention(q, k, v, valid, causal=causal,
+                                    impl=self.rt.attn_impl)
+        return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+
+
+class Qwen2MLP(nn.Module):
+    def __init__(self, cfg: Qwen2Config, rt: Runtime, device=None):
+        super().__init__()
+        d, f = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = Dense(d, f, False, rt=rt, device=device)
+        self.up_proj = Dense(d, f, False, rt=rt, device=device)
+        self.down_proj = Dense(f, d, False, rt=rt, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gate = torch.nn.functional.silu(self.gate_proj(x))
+        return self.down_proj(gate * self.up_proj(x))
+
+
+class Qwen2DecoderLayer(nn.Module):
+    def __init__(self, cfg: Qwen2Config, rt: Runtime, device=None):
+        super().__init__()
+        eps = cfg.rms_norm_eps
+        self.input_layernorm = RMSNorm(cfg.hidden_size, eps, rt=rt, device=device)
+        self.self_attn = Qwen2Attention(cfg, rt, device)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps, rt=rt,
+                                                device=device)
+        self.mlp = Qwen2MLP(cfg, rt, device)
+
+    def forward(self, x, cos, sin, valid, causal: bool) -> torch.Tensor:
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin, valid, causal)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class Qwen2Model(nn.Module):
+    """Decoder stack with a tied embedding table (``embed``)."""
+
+    def __init__(self, cfg: Qwen2Config, rt: Runtime, device=None):
+        super().__init__()
+        self.cfg, self.rt = cfg, rt
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                  device=device, dtype=rt.param_dtype)
+        self.embed.weight.requires_grad_(False)
+        self.layers = nn.ModuleList(
+            Qwen2DecoderLayer(cfg, rt, device) for _ in range(cfg.num_layers))
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, rt=rt,
+                            device=device)
+
+    def init_params_(self, gen: torch.Generator) -> None:
+        normal_init_(self.embed.weight, 0.02, gen)
+
+    def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """(B, S) ids -> (B, S, D) in rt.dtype."""
+        return self.embed(input_ids).to(self.rt.dtype)
+
+    def forward(
+        self,
+        inputs_embeds: torch.Tensor,
+        valid: Optional[torch.Tensor] = None,
+        causal: bool = True,
+        output_hidden_states: bool = False,
+    ) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        x = inputs_embeds.to(self.rt.dtype)
+        cos, sin = rope_cos_sin(x.shape[1], cfg.head_dim, cfg.rope_theta,
+                                dtype=self.rt.dtype, device=x.device)
+        layer_inputs = []
+        for layer in self.layers:
+            layer_inputs.append(x)
+            x = layer(x, cos, sin, valid, causal)
+        final = self.norm(x)
+        out = {"last_hidden_state": final}
+        if output_hidden_states:
+            out["hidden_states"] = torch.stack(layer_inputs + [final], dim=1)
+        return out

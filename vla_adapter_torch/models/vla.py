@@ -1,0 +1,145 @@
+"""The full VLA policy forward (counterpart of vla_adapter_tpu/models/vla.py).
+
+fused dual-ViT -> projector -> Qwen2 decoder (bidirectional) -> per-layer
+hidden states -> bridge-attention action head. Fixed shapes: text is padded
+to ``cfg.max_text_tokens`` and each row carries ``prompt_len``, the real
+prompt tokens before the action-query block.
+
+Reference quirks kept on purpose:
+  * the multimodal sequence is [text token 0 | vision patches | text 1:];
+  * the action-query embeddings (zero-init in a checkpoint) replace the
+    placeholder embeddings at [prompt_len, prompt_len + Q);
+  * the action-state window starts ONE position before the action block:
+    multimodal index ``num_patches + prompt_len - 1``;
+  * the "task" stream is multimodal positions [0, num_patches);
+  * the proprio token goes only into the head.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from vla_adapter_torch.core.config import VLAConfig
+from vla_adapter_torch.models.action_head import L1RegressionActionHead
+from vla_adapter_torch.models.layers import Runtime, new_param, normal_init_
+from vla_adapter_torch.models.projector import (
+    FusedProjector,
+    Projector,
+    ProprioProjector,
+)
+from vla_adapter_torch.models.qwen2 import Qwen2Model
+from vla_adapter_torch.models.vit import VisionTransformer
+
+
+class FusedVisionBackbone(nn.Module):
+    """pixel_values (B, n_img, H, W, C) NHWC, C = 6 ([3 primary | 3 fused])
+    or 3 -> (B, n_img * patches, primary_dim + fused_dim). Images fold into
+    the batch, so each tower runs once."""
+
+    def __init__(self, cfg: VLAConfig, rt: Runtime, device=None):
+        super().__init__()
+        vcfg = cfg.vision
+        if vcfg.use_film:
+            raise NotImplementedError("FiLM vision towers are not ported yet")
+        self.featurizer = VisionTransformer(vcfg.primary, rt, device)
+        self.fused_featurizer = (VisionTransformer(vcfg.fused, rt, device)
+                                 if vcfg.fused is not None else None)
+
+    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        b, n_img, h, w, c = pixel_values.shape
+        flat = pixel_values.reshape(b * n_img, h, w, c)
+        feats = self.featurizer(flat[..., 0:3])
+        if self.fused_featurizer is not None:
+            feats = torch.cat([feats, self.fused_featurizer(flat[..., 3:6])],
+                              dim=-1)
+        return feats.reshape(b, n_img * feats.shape[1], feats.shape[2])
+
+
+class VLAModel(nn.Module):
+    """End-to-end policy.
+
+    forward inputs (fixed shapes):
+      input_ids    (B, T) int — [prompt | Q queries (any ids) | stop | pad]
+      prompt_len   (B,) int — real prompt tokens before the action block
+      text_valid   (B, T) — nonzero on prompt + queries (+ stop)
+      pixel_values (B, n_img, H, W, C) NHWC float
+      proprio      (B, proprio_dim) float or None
+    Returns {"actions": (B, chunk, action_dim) normalized} and, with
+    return_hidden_states, the head input (B, L+1, num_patches + Q, D).
+    """
+
+    def __init__(self, cfg: VLAConfig, rt: Runtime = Runtime(), device=None):
+        super().__init__()
+        self.cfg, self.rt = cfg, rt
+        consts = cfg.constants
+        d = cfg.llm.hidden_size
+        self.language_model = Qwen2Model(cfg.llm, rt, device)
+        self.action_queries = new_param(
+            (consts.num_action_query_tokens, d), rt, device)
+        self.vision_backbone = FusedVisionBackbone(cfg, rt, device)
+        proj_cls = FusedProjector if cfg.vision.fused is not None else Projector
+        self.projector = proj_cls(cfg.vision.embed_dim, d, rt, device)
+        self.proprio_projector = (
+            ProprioProjector(consts.proprio_dim, d, rt, device)
+            if cfg.use_proprio else None)
+        self.action_head = L1RegressionActionHead(
+            cfg.head, d, consts.action_dim, consts.num_actions_chunk,
+            cfg.num_patches, rt, device)
+
+    def init_params_(self, gen: torch.Generator) -> None:
+        normal_init_(self.action_queries, 0.02, gen)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        prompt_len: torch.Tensor,
+        text_valid: torch.Tensor,
+        pixel_values: torch.Tensor,
+        proprio: Optional[torch.Tensor] = None,
+        return_hidden_states: bool = False,
+    ) -> Dict[str, torch.Tensor]:
+        cfg, dt = self.cfg, self.rt.dtype
+        num_q = cfg.num_action_query_tokens
+        num_patches = cfg.num_patches
+        b = input_ids.shape[0]
+        dev = input_ids.device
+        llm = self.language_model
+
+        # --- text embeddings + query splice ---
+        text_embeds = llm.embed_tokens(input_ids)
+        q_pos = prompt_len.long()[:, None] + torch.arange(num_q, device=dev)
+        rows = torch.arange(b, device=dev)[:, None]
+        text_embeds[rows, q_pos] = self.action_queries.to(dt)
+
+        # --- vision + multimodal splice [tok0 | patches | text 1:] ---
+        projected = self.projector(self.vision_backbone(pixel_values))
+        mm_embeds = torch.cat(
+            [text_embeds[:, :1], projected.to(dt), text_embeds[:, 1:]], dim=1)
+        text_valid = (text_valid != 0).to(torch.int32)
+        mm_valid = torch.cat(
+            [text_valid[:, :1],
+             torch.ones((b, num_patches), dtype=torch.int32, device=dev),
+             text_valid[:, 1:]], dim=1)
+
+        hs = llm(mm_embeds, valid=mm_valid,
+                 causal=not cfg.bidirectional_attention,
+                 output_hidden_states=True)["hidden_states"]
+
+        # --- extraction (note the deliberate off-by-one) ---
+        task_states = hs[:, :, :num_patches]
+        start = num_patches + prompt_len.long() - 1
+        idx = start[:, None] + torch.arange(num_q, device=dev)   # (B, Q)
+        idx = idx[:, None, :, None].expand(-1, hs.shape[1], -1, hs.shape[3])
+        action_states = torch.gather(hs, 2, idx)                 # (B, L+1, Q, D)
+        head_input = torch.cat([task_states, action_states], dim=2)
+
+        proprio_features = None
+        if self.proprio_projector is not None and proprio is not None:
+            proprio_features = self.proprio_projector(proprio)[:, None, :]
+        out = {"actions": self.action_head(head_input, proprio_features)}
+        if return_hidden_states:
+            out["hidden_states"] = head_input
+        return out

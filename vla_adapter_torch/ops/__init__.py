@@ -1,0 +1,1 @@
+"""ops layer of the PyTorch port (mirrors vla_adapter_tpu/ops)."""

@@ -1,0 +1,140 @@
+"""Fused attention: the hand-written CUDA kernel and its plain version.
+
+Counterpart of ``vla_adapter_tpu/ops/pallas_attention.py:fused_attention``.
+The kernel (``csrc/fused_attention.cu``) is single-pass attention for the
+short VLA sequences (S <= 1024): fp32 scores from bf16 q/k, an additive
+0 / -2e9 key bias from ``valid``, an optional causal mask, probabilities
+``exp(s - max)`` rounded to bf16 *unnormalised* before ``p @ v``, and the
+1/l normalisation (l summed from the rounded p) applied to the output.
+
+:func:`attention_reference` repeats that arithmetic in plain PyTorch. The
+CPU tests and CPU runs use it; :func:`fused_attention` takes it only for a
+tensor on the CPU. A CUDA tensor always goes to the kernel, or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from vla_adapter_torch.ops import cuda_lib
+
+NEG_INF = -2.0e9  # the Pallas kernel's large negative (no inf - inf NaNs)
+KERNEL_NAME = "fused_attention"
+_SOURCE = "fused_attention.cu"
+_MAX_HEAD_DIM = 128
+
+
+def attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version. q (B, H, S, D); k, v (B, Hkv, S, D); valid (B, S)
+    nonzero for real tokens (None = all). Returns (B, H, S, D) in q.dtype."""
+    b, h, s, d = q.shape
+    groups = h // k.shape[1]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    kx = k.repeat_interleave(groups, dim=1).float()
+    vx = v.repeat_interleave(groups, dim=1)
+    scores = torch.matmul(q.float(), kx.transpose(-1, -2)) * sm_scale
+    if valid is not None:
+        bias = torch.where(valid > 0, 0.0, NEG_INF).to(torch.float32)
+        scores = scores + bias[:, None, None, :]
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        scores = torch.where(pos[None, :] <= pos[:, None], scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m).to(v.dtype)          # unnormalised, rounded
+    l = p.float().sum(dim=-1, keepdim=True)
+    out = torch.matmul(p.float(), vx.float()) / l  # deferred normalisation
+    return out.to(q.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_lib.load_library(_SOURCE)
+    fn = lib.vla_fused_attention_bf16
+    if not fn.argtypes:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([p] * 5 + [i] * 5 + [ll] * 13
+                       + [ctypes.c_float, i, p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_operand(name: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"fused_attention: {name} must be bfloat16, "
+                        f"got {t.dtype}")
+    if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]):
+        raise ValueError(
+            f"fused_attention: {name} needs a contiguous head dim and "
+            f"strides that are multiples of 8, got {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"fused_attention: {name} is not 16-byte aligned")
+
+
+def fused_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """q (B, H, S, D); k, v (B, Hkv, S, D) with H % Hkv == 0; valid (B, S).
+
+    On a CUDA tensor this launches the kernel (bf16, D % 8 == 0, D <= 128;
+    any layout whose head dim is contiguous). The output is (B, H, S, D)
+    viewed over a (B, S, H, D) buffer, so ``out.transpose(1, 2)`` is
+    contiguous for the model's (B, S, H*D) projections. On a CPU tensor it
+    returns :func:`attention_reference`."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, valid, causal=causal,
+                                   sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention: unsupported device {q.device}")
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    if k.shape != (b, hkv, s, d) or v.shape != k.shape or h % hkv:
+        raise ValueError(f"fused_attention: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if d % 8 or d > _MAX_HEAD_DIM or s < 1:
+        raise ValueError(f"fused_attention: head dim {d} must be a multiple "
+                         f"of 8 and <= {_MAX_HEAD_DIM}; seq {s} >= 1")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"fused_attention: {name} on {t.device}")
+        _check_operand(name, t)
+    if valid is not None:
+        if valid.shape != (b, s) or valid.device != q.device:
+            raise ValueError(f"fused_attention: valid {tuple(valid.shape)} "
+                             f"on {valid.device}")
+        valid = valid.to(torch.int32).contiguous()
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    out = torch.empty((b, s, h, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    lib = _lib()
+    with torch.cuda.device(q.device):  # the launch goes to the current device
+        err = lib.vla_fused_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if valid is None else valid.data_ptr(), out.data_ptr(),
+            b, h, hkv, s, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], 0 if valid is None else valid.stride(0),
+            float(sm_scale), int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_attention: kernel launch failed "
+                           f"(cudaError {err})")
+    cuda_lib.LAUNCHES[KERNEL_NAME] += 1
+    return out

@@ -1,0 +1,78 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel source under ``vla_adapter_torch/csrc/`` exposes a plain C
+function. At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library under ``vla_adapter_torch/_build/`` (named by a hash of the
+source and flags, so an edit rebuilds) and loaded with ``ctypes``. No
+PyTorch headers are included, so a build takes seconds, not minutes.
+
+``LAUNCHES`` counts kernel launches by kernel name: every wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that its
+main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+LAUNCHES: collections.Counter = collections.Counter()
+BUILD_LOGS: dict = {}
+_LIBS: dict = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the port's CUDA kernels are "
+            "compiled at first use")
+    return found
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` (once per content hash) and load it."""
+    with _LOCK:
+        if source in _LIBS:
+            return _LIBS[source]
+        src = CSRC_DIR / source
+        digest = hashlib.sha256(
+            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        lib_path = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+        if not lib_path.exists():
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                capture_output=True, text=True, check=False)
+            BUILD_LOGS[source] = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, lib_path)
+        lib = ctypes.CDLL(str(lib_path))
+        _LIBS[source] = lib
+        return lib

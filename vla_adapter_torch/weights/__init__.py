@@ -1,0 +1,1 @@
+"""weights layer of the PyTorch port (mirrors vla_adapter_tpu/weights)."""
