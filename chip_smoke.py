@@ -1,23 +1,41 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--out FILE]
+    python3 chip_smoke.py [--out FILE] [--profile]
 
 Phases, in order; any failure exits non-zero:
 
-1. build: compile every CUDA kernel of the serving path from
-   ``vla_adapter_torch/csrc`` with nvcc (sm_90a) and print the card.
-2. kernel vs plain: at the shapes one serving forward gives the attention
-   kernel (Qwen2 14/2 heads, S=640, D=64, key padding, and causal; DINOv2
-   16 heads, S=261, D=64; so400m 16 heads, S=256, D=72; for B=1 and B=2),
+1. build: compile every CUDA kernel of the serving paths from
+   ``vla_adapter_torch/csrc`` with nvcc (sm_90a), one nvcc per source, all
+   started together, and print ptxas' register and spill lines.
+2. attention kernel vs plain: at the shapes one serving forward gives it
+   (Qwen2 14/2 heads, S=640, D=64, key padding, and causal; DINOv2 16
+   heads, S=261, D=64; so400m 16 heads, S=256, D=72; for B=1 and B=2),
    hold the kernel against its plain PyTorch version and time the kernel,
    the plain version and ``scaled_dot_product_attention`` (a yardstick
    only: the port never calls it).
-3. flagship forward: ``VLAConfig()`` at full width and depth (DINOv2-L +
-   so400m @224, 2 images, Qwen2.5-0.5B, a 24-block Pro head, 640 LLM
+3. w8a8 kernels vs plain: at the shapes one w8a8 serving forward gives
+   them (derived from ``VLAConfig()`` by :func:`w8a8_shapes`, B=1 and B=4):
+   the fused MLPs (Qwen2; DINOv2, so400m, projector), the w8a8 matmul at
+   every distinct non-MLP shape and the head's stacked matmul. The matmuls
+   must equal their plain versions bit for bit, the fused MLPs agree within
+   :func:`mlp_tolerance`. Times: kernel, plain version, and
+   ``torch._int_mm`` for the matmuls (the int8 product alone, a yardstick:
+   the port never calls it).
+4. quantizer: the on-card weight quantizer against the JAX package's numpy
+   ``quantize_kernel`` (copied below) on flagship weight matrices, bit for
+   bit.
+5. flagship bf16 forward: ``VLAConfig()`` at full width and depth (DINOv2-L
+   + so400m @224, 2 images, Qwen2.5-0.5B, a 24-block Pro head, 640 LLM
    tokens), random bf16 weights from a seeded CUDA generator, served
    through ``Predictor``: predict_action (B=1) and predict_action_batch
    (B=4), with launch counts read around exactly those requests. The same
    rows then go through the plain attention for an end-to-end comparison.
+6. flagship w8a8 forward: ``Predictor(act_int8=True)`` over the same
+   weights quantized on the card, each backend ("fused", "dense", "auto")
+   driven at B=1 and B=4 with the launch counts reset before and read after
+   it and checked against the counts :func:`w8a8_shapes` derives; actions
+   against the all-plain path and against bf16; then
+   ``Predictor(int8=True)`` (weight-only) once.
 
 Prints the card's name and power limit, one JSON line per kernel shape, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -28,6 +46,7 @@ the ``vla_adapter_torch`` package beside this script is missing.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import os
@@ -43,7 +62,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published dense peaks (NVIDIA data sheet): bf16 tensor-core
 # rate and HBM3 bandwidth; a power limit below 700 W lowers what is reached.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
+
+SOURCES = ("fused_attention.cu", "w8a8_matmul.cu", "fused_mlp_w8a8.cu")
 
 # kernel vs plain: bf16 output of |out| < 4, the two differ in fp32
 # summation order and exp rounding, so by about one bf16 ulp (2^-6 at 2-4).
@@ -51,8 +73,32 @@ KERNEL_ATOL = 2e-2
 # flagship, kernel vs plain attention, normalized actions: 73 attention
 # calls in bf16 through 24+23+26 random-weight layers and a 24-block head.
 FLAGSHIP_ACTIONS_ATOL = 1e-1
+# flagship w8a8, kernel path vs all-plain path, normalized actions: the
+# w8a8 kernels equal their plain versions bit for bit, but the attention
+# kernel's bf16 differences (0.027 in the bf16 forward) reach per-token
+# int8 quantizations downstream, where one bf16 ulp of an activation near
+# its row's absmax is as large as an int8 step and flips roundings.
+W8A8_ACTIONS_ATOL = 0.3
+# w8a8 (and weight-only int8) vs bf16 on the same weights, normalized
+# actions, max abs over the chunk (the JAX package's forward_error_report
+# quantity): a quarter of the [-1, 1] action range. The random flagship
+# reads 0.16-0.20 here (PERF.md); beyond 0.5 a quantized tier no longer
+# serves the same policy.
+QUANTIZED_VS_BF16_LIMIT = 0.5
 
 INSTRUCTION = "put both the alphabet soup and the tomato sauce in the basket"
+
+
+def numpy_quantize_kernel(kernel: np.ndarray):
+    """The JAX package's numpy ``quantize_kernel`` (models/quantize.py), the
+    reference for the port's on-card weight quantizer: (..., in, out)
+    float -> int8 and the float32 per-out-channel scale."""
+    k = np.asarray(kernel, np.float32)
+    absmax = np.max(np.abs(k), axis=-2, keepdims=True)
+    scale = (absmax * np.float32(1.0 / 127.0)).astype(np.float32)
+    scale = np.where(scale == 0, 1.0, scale)
+    q = np.clip(np.round(k / scale), -127, 127).astype(np.int8)
+    return q, np.squeeze(scale, axis=-2)
 
 
 def card_line() -> str:
@@ -298,7 +344,7 @@ def phase_flagship(predictor, rng, card: str):
     rows = [predictor.preprocess(im, INSTRUCTION, p) for im, p in batch]
     kernel_actions = predictor.normalized_actions(rows)
     plain = predictor.with_runtime(
-        dataclasses.replace(predictor.rt, attn_impl="plain"))
+        dataclasses.replace(predictor.rt, kernels="plain"))
     plain_actions = plain.normalized_actions(rows)
     if cuda_lib.LAUNCHES["fused_attention"] != launches["fused_attention"] \
             + per_forward:
@@ -330,7 +376,7 @@ def phase_flagship(predictor, rng, card: str):
     return rec, launches
 
 
-def profile_request(predictor, rng):
+def profile_request(predictor, rng, label: str = "bf16"):
     """One B=1 predict_action under torch.profiler: the device's busy time
     (sum of kernel durations on the card) against the request's host wall
     time, and the kernels that take most of it."""
@@ -357,12 +403,16 @@ def profile_request(predictor, rng):
     for e in kernels:
         by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
-    rec = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    rec = {"tier": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": 1 - busy_ms / wall_ms,
            "device_kernels": len(kernels),
            "attention_kernel_ms": sum(v for k, v in by_name.items()
                                       if "fused_attention" in k),
-           "top": [[k, v] for k, v in by_name.most_common(8)]}
+           "w8a8_kernel_ms": {name: sum(v for k, v in by_name.items()
+                                        if name in k)
+                              for name in ("fused_mlp_kernel",
+                                           "w8a8_matmul_kernel")},
+           "top": [[k, v] for k, v in by_name.most_common(10)]}
     print("profile " + json.dumps(rec), flush=True)
     return rec
 
@@ -396,6 +446,490 @@ def kernel_summary(records, launches):
     }]
 
 
+def w8a8_shapes(cfg, tokenize, min_dim: int = 256):
+    """Every w8a8 kernel call of one serving forward, for B=1 and B=4, as
+    dicts: kernel, shape name(s), forward batch, dims and launches per
+    forward under the "fused" backend (for an MLP also ``dense_matmuls``,
+    the w8a8 matmuls it becomes under "dense"). Widths below ``min_dim``
+    (``Runtime.act_int8_min_dim``) take the weight-only upcast, as the
+    models gate them; matmuls of one shape are merged."""
+    from vla_adapter_torch.data.transform import inference_ids
+    from vla_adapter_torch.ops import fused_mlp, w8a8_matmul
+
+    _, _, text_valid = inference_ids(cfg, tokenize, INSTRUCTION)
+    s_llm = len(text_valid) + cfg.num_patches
+    llm, head, consts = cfg.llm, cfg.head, cfg.constants
+    d, hd = llm.hidden_size, llm.num_heads * llm.head_dim
+    kv = llm.num_kv_heads * llm.head_dim
+    towers = [("dinov2", cfg.vision.primary), ("so400m", cfg.vision.fused)]
+    n_img = cfg.vision.num_images
+    shapes = []
+    for b in (1, 4):
+        mats = {}
+
+        def mm(name, m, k, n, per):
+            if min(k, n) >= min_dim:
+                rec = mats.setdefault((b * m, k, n), {
+                    "kernel": w8a8_matmul.KERNEL_NAME, "shape": [],
+                    "forward_batch": b, "m": b * m, "k": k, "n": n,
+                    "launches_per_forward": 0})
+                rec["shape"].append(name)
+                rec["launches_per_forward"] += per
+
+        def mlp(name, m, k, f, dd, act, gated, per):
+            if min(k, f, dd) >= min_dim:
+                shapes.append({
+                    "kernel": (fused_mlp.GATED_KERNEL_NAME if gated
+                               else fused_mlp.KERNEL_NAME),
+                    "shape": [name], "forward_batch": b, "m": b * m, "k": k,
+                    "f": f, "d": dd, "act": act, "gated": gated,
+                    "launches_per_forward": per,
+                    "dense_matmuls": (3 if gated else 2) * per})
+
+        n_llm = llm.num_layers
+        mm("qwen2_q", s_llm, d, hd, n_llm)
+        mm("qwen2_k_v", s_llm, d, kv, 2 * n_llm)
+        mm("qwen2_o", s_llm, hd, d, n_llm)
+        mlp("qwen2_mlp", s_llm, d, llm.intermediate_size, d, "silu", True,
+            n_llm)
+        for name, v in towers:
+            if v is None:
+                continue
+            tokens = n_img * (v.num_patches + v.num_prefix_tokens)
+            layers = v.resolved_feature_layer + 1
+            mm(f"{name}_q_k_v_out", tokens, v.hidden_size, v.hidden_size,
+               4 * layers)
+            mlp(f"{name}_mlp", tokens, v.hidden_size, v.mlp_dim,
+                v.hidden_size, v.mlp_activation, False, layers)
+        e = cfg.vision.embed_dim
+        if cfg.vision.fused is not None:  # FusedProjector
+            mlp("projector_fc1_fc2", cfg.num_patches, e, 4 * e, d, "gelu",
+                False, 1)
+            mm("projector_fc3", cfg.num_patches, d, d, 1)
+        else:
+            mlp("projector_fc1_fc2", cfg.num_patches, e, d, d, "gelu",
+                False, 1)
+        if cfg.use_proprio:
+            mm("proprio_fc1", 1, consts.proprio_dim, d, 1)
+            mm("proprio_fc2", 1, d, d, 1)
+        chunk, hh = consts.num_actions_chunk, head.hidden_dim
+        mm("head_fc_in", chunk, consts.action_dim * d, hh, 1)
+        mm("head_q_kself_vself_o_ffn", chunk, hh, hh, 5 * head.num_blocks)
+        mm("head_fc_out", chunk, hh, consts.action_dim, 1)
+        shapes += list(mats.values())
+        adapter = consts.num_action_query_tokens + int(cfg.use_proprio)
+        for name, m in (("head_k_v_adapter", adapter),
+                        ("head_k_v_task", cfg.num_patches)):
+            if min(d, hh) >= min_dim:
+                shapes.append({
+                    "kernel": w8a8_matmul.STACKED_KERNEL_NAME, "shape": [name],
+                    "forward_batch": b, "layers": head.num_blocks, "m": b * m,
+                    "k": d, "n": hh, "launches_per_forward": 2})
+    return shapes
+
+
+def expected_w8a8_launches(shapes, impl: str) -> dict:
+    """Launches of each w8a8 kernel in one forward under a backend."""
+    from vla_adapter_torch.ops import w8a8_matmul
+
+    counts = collections.Counter()
+    for sh in shapes:
+        if sh["forward_batch"] != 1:
+            continue
+        if "f" in sh and impl == "dense":
+            counts[w8a8_matmul.KERNEL_NAME] += sh["dense_matmuls"]
+        else:
+            counts[sh["kernel"]] += sh["launches_per_forward"]
+    return dict(counts)
+
+
+def w8a8_bound(sh):
+    """(bound ms, bound_by, ops, bytes) of one call: int8 ops over the int8
+    tensor-core peak against x, the int8 weights, scales, biases and the
+    bf16 output, each counted once, over the HBM rate."""
+    m, k = sh["m"], sh["k"]
+    if "f" in sh:
+        f, d = sh["f"], sh["d"]
+        ops = 2 * m * k * f * (2 if sh["gated"] else 1) + 2 * m * f * d
+        nbytes = (2 * m * k + k * f * (2 if sh["gated"] else 1) + f * d
+                  + 4 * (2 * f + d) + (0 if sh["gated"] else 4 * (f + d))
+                  + 2 * m * d)
+    else:
+        n, layers = sh["n"], sh.get("layers", 1)
+        ops = 2 * layers * m * k * n
+        nbytes = layers * (m * k + 4 * m + n * k + 4 * n + 2 * m * n)
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def mlp_tolerance(want, h_max: float, w2, s2) -> tuple:
+    """The fused MLP kernel against its plain version, bf16 output: every
+    output within one int8 step of h through the down projection (the
+    panel scale is at most h_max / 127, times the largest |w2| * s2) plus
+    two bf16 ulps of the largest output, which covers an int8 rounding of h
+    that flips where the card's expf/tanhf and PyTorch's land an ulp apart;
+    and at most 2% of the rows (a flip moves its row only) differ by more
+    than two bf16 ulps of an output. Returns (max abs err bound, row
+    share)."""
+    step = h_max / 127.0 * float((w2.float().abs() * s2[:, None]).max())
+    return step + 2 * 2.0 ** -7 * float(want.float().abs().max()), 0.02
+
+
+def _int_mm_ms(xq, w):
+    """torch._int_mm (the int8 x int8 -> int32 product alone, no dequant)
+    on the same operands, or None where it refuses them (M <= 16)."""
+    import torch
+
+    if xq.shape[-2] <= 16:
+        return None
+    if xq.dim() == 2:
+        return device_ms(lambda: torch._int_mm(xq, w.t()))
+    return device_ms(lambda: [torch._int_mm(xq[i], w[i].t())
+                              for i in range(xq.shape[0])])
+
+
+def phase_w8a8_kernels(shapes):
+    """Each w8a8 kernel at each shape against its plain version, timed."""
+    import torch
+
+    from vla_adapter_torch.models.quantize import quantize_weight
+    from vla_adapter_torch.ops import fused_mlp, w8a8_matmul
+    from vla_adapter_torch.ops.w8a8_matmul import int_matmul, quantize_rows
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def weight(n, k, layers=None):  # lecun-normal, quantized on the card
+        lead = () if layers is None else (layers,)
+        return quantize_weight(randn(*lead, n, k) / k ** 0.5)
+
+    records = []
+    for sh in shapes:
+        m, k = sh["m"], sh["k"]
+        rec = dict(sh)
+        if "f" in sh:
+            f, d, act = sh["f"], sh["d"], sh["act"]
+            x = randn(m, k).bfloat16()
+            w1, s1 = weight(f, k)
+            w2, s2 = weight(d, f)
+            up = weight(f, k) if sh["gated"] else (None, None)
+            b1 = None if sh["gated"] else 0.02 * randn(f)
+            b2 = None if sh["gated"] else 0.02 * randn(d)
+            if sh["gated"]:
+                def kernel():
+                    return fused_mlp.w8a8_gated_mlp(x, w1, s1, *up, w2, s2,
+                                                    act=act)
+            else:
+                def kernel():
+                    return fused_mlp.w8a8_mlp(x, w1, s1, b1, w2, s2, b2,
+                                              act=act)
+
+            def plain():
+                return fused_mlp.fused_mlp_reference(
+                    x, w1, s1, w2, s2, up_q=up[0], up_scale=up[1], b1=b1,
+                    b2=b2, act=act)
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            xq, rs = quantize_rows(x)
+            g = int_matmul(xq, w1).float() * rs * s1
+            h = fused_mlp.kernel_activation(act)(g if b1 is None else g + b1)
+            if sh["gated"]:
+                h = h * (int_matmul(xq, up[0]).float() * rs * up[1])
+            bound_err, row_share = mlp_tolerance(want, float(h.abs().max()),
+                                                 w2, s2)
+            err = (got.float() - want.float()).abs()
+            flipped = (err > 2 * 2.0 ** -7 * want.float().abs()).any(dim=-1)
+            rec.update(max_abs_err=float(err.max()), err_bound=bound_err,
+                       rows_beyond_2ulp=int(flipped.sum()), bitwise_equal=bool(
+                           torch.equal(got, want)))
+            if not (torch.isfinite(got.float()).all()
+                    and rec["max_abs_err"] <= bound_err
+                    and float(flipped.float().mean()) <= row_share):
+                raise AssertionError(f"{sh['kernel']} {sh['shape']} B="
+                                     f"{sh['forward_batch']}: {rec}")
+            lib_ms = None
+        else:
+            layers = sh.get("layers")
+            lead = () if layers is None else (layers,)
+            n = sh["n"]
+            xq, rs = quantize_rows(randn(*lead, m, k).bfloat16())
+            w, ws = weight(n, k, layers)
+            fn = (w8a8_matmul.w8a8_matmul if layers is None
+                  else w8a8_matmul.w8a8_matmul_stacked)
+
+            def kernel():
+                return fn(xq, rs, w, ws)
+
+            def plain():
+                return w8a8_matmul.w8a8_matmul_reference(xq, rs, w, ws)
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            rec.update(max_abs_err=float((got.float() - want.float())
+                                         .abs().max()),
+                       bitwise_equal=bool(torch.equal(got, want)))
+            if not rec["bitwise_equal"]:
+                raise AssertionError(f"{sh['kernel']} {sh['shape']} B="
+                                     f"{sh['forward_batch']}: not bit-exact "
+                                     f"with its plain version: {rec}")
+            lib_ms = _int_mm_ms(xq, w)
+        bound, bound_by, ops, nbytes = w8a8_bound(sh)
+        rec.update(ms=device_ms(kernel), plain_ms=device_ms(plain, reps=5),
+                   int_mm_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
+                   ops=ops, bytes=nbytes)
+        print("w8a8_shape " + json.dumps(rec), flush=True)
+        records.append(rec)
+    return records
+
+
+def phase_quantizer(params):
+    """The on-card weight quantizer (what ``Predictor(int8=...)`` runs)
+    against the numpy ``quantize_kernel`` on flagship weights, bit for
+    bit."""
+    from vla_adapter_torch.models.quantize import quantize_kernel
+
+    names = ["language_model.layers.0.mlp.gate_proj.weight",
+             "language_model.layers.0.self_attn.q_proj.weight",
+             "vision_backbone.featurizer.blocks.0.mlp.fc1.weight",
+             "vision_backbone.fused_featurizer.blocks.0.mlp.fc2.weight",
+             "projector.fc1.weight", "action_head.fc_in.weight",
+             "action_head.k_task.kernel"]
+    checked = []
+    for name in names:
+        w = params[name]
+        # the port's Dense weight is (out, in); a BatchedDense kernel and
+        # the numpy quantizer's input are (..., in, out)
+        in_axis = -2 if name.endswith(".kernel") else -1
+        q, s = quantize_kernel(w, in_axis=in_axis)
+        host = w.float().cpu().numpy()
+        if in_axis == -1:
+            host = np.swapaxes(host, -1, -2)
+        want_q, want_s = numpy_quantize_kernel(host)
+        got_q = q.cpu().numpy()
+        if in_axis == -1:
+            got_q = np.swapaxes(got_q, -1, -2)
+        if not (np.array_equal(got_q, want_q) and np.array_equal(
+                s.cpu().numpy().view(np.int32), want_s.view(np.int32))):
+            raise AssertionError(f"on-card quantizer differs from numpy on "
+                                 f"{name}")
+        checked.append([name, list(w.shape)])
+    print("quantizer " + json.dumps({"bit_exact": checked}), flush=True)
+    return checked
+
+
+def _requests(cfg, rng, n):
+    size = cfg.vision.primary.image_size
+    return [([rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8)
+              for _ in range(cfg.vision.num_images)],
+             rng.normal(size=cfg.constants.proprio_dim)) for _ in range(n)]
+
+
+def _serve(pred, requests, batch):
+    """B=1 requests one by one, then one B=4 batch: (per-request seconds,
+    batch seconds), the outputs checked."""
+    chunk_s = []
+    for images, proprio in requests:
+        t0 = time.perf_counter()
+        out = pred.predict_action(images, INSTRUCTION, proprio)
+        chunk_s.append(time.perf_counter() - t0)
+        if out.shape != (8, 7) or not np.isfinite(out).all():
+            raise AssertionError(f"predict_action gave {out.shape}, finite="
+                                 f"{np.isfinite(out).all()}")
+    t0 = time.perf_counter()
+    out_b = pred.predict_action_batch([im for im, _ in batch],
+                                      [INSTRUCTION] * len(batch),
+                                      [p for _, p in batch])
+    batch_s = time.perf_counter() - t0
+    if out_b.shape != (len(batch), 8, 7) or not np.isfinite(out_b).all():
+        raise AssertionError(f"predict_action_batch gave {out_b.shape}")
+    return chunk_s, batch_s
+
+
+def _latency(chunk_s, batch_s, n_batch):
+    timed = chunk_s[1:]  # the first request pays one-time set-up
+    return {"b1_ms_median": 1e3 * statistics.median(timed),
+            "b1_ms_min": 1e3 * min(timed), "b1_ms_max": 1e3 * max(timed),
+            "b1_first_ms": 1e3 * chunk_s[0], "b4_ms": 1e3 * batch_s,
+            "b4_ms_per_chunk": 1e3 * batch_s / n_batch}
+
+
+def phase_w8a8(bf16_pred, shapes, rng, card: str, profile: bool = False):
+    """The w8a8 main path: Predictor(act_int8=True) over the bf16
+    predictor's weights, quantized on the card; each backend driven at B=1
+    and B=4 between a reset and a read of the launch counts."""
+    import torch
+
+    from vla_adapter_torch.infer.predict import Predictor
+    from vla_adapter_torch.models.layers import resolve_w8a8_impl
+    from vla_adapter_torch.ops import attention_kernel, cuda_lib
+
+    cfg = bf16_pred.cfg
+    attn_per_forward = (cfg.llm.num_layers
+                        + cfg.vision.primary.resolved_feature_layer + 1
+                        + cfg.vision.fused.resolved_feature_layer + 1)
+    kernels = sorted({sh["kernel"] for sh in shapes})
+    common = dict(cfg=cfg, params=bf16_pred.params,
+                  tokenize=bf16_pred.tokenize, norm_stats=bf16_pred.norm_stats,
+                  center_crop=False, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    auto = Predictor(act_int8=True, **common)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    backends = {"fused": auto.with_runtime(auto.rt, w8a8_impl="fused"),
+                "dense": auto.with_runtime(auto.rt, w8a8_impl="dense"),
+                "auto": auto}
+    requests, batch = _requests(cfg, rng, 6), _requests(cfg, rng, 4)
+    rec = {"card": card, "quantize_on_card_s": quantize_s,
+           "int8_bytes": sum(v.numel() for v in auto.params.values()
+                             if v.dtype == torch.int8)}
+    launches = collections.Counter()
+    for name, pred in backends.items():
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        chunk_s, batch_s = _serve(pred, requests, batch)
+        counts = dict(cuda_lib.LAUNCHES)
+        impls = [resolve_w8a8_impl(pred.w8a8_impl, 1)] * len(requests) \
+            + [resolve_w8a8_impl(pred.w8a8_impl, len(batch))]
+        want = collections.Counter(
+            {attention_kernel.KERNEL_NAME: attn_per_forward * len(impls)})
+        for impl in impls:
+            want.update(expected_w8a8_launches(shapes, impl))
+        if {k: v for k, v in counts.items() if v} != \
+                {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"w8a8 {name}: launches {counts}, expected "
+                                 f"{dict(want)}")
+        launches.update(counts)
+        rec[name] = {"impl_b1": impls[0], "impl_b4": impls[-1],
+                     **_latency(chunk_s, batch_s, len(batch)),
+                     "launches": counts, "forwards": len(impls),
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    for kernel in kernels:
+        if not launches[kernel]:
+            raise AssertionError(f"{kernel} was never launched on the w8a8 "
+                                 f"main path")
+
+    # --- the "auto" crossover: fused against dense in turns at B=1, 2, 4
+    # (same preprocessed rows, forward + unnormalization) ---
+    rec["crossover"] = {}
+    for b, pairs in ((1, 8), (2, 6), (4, 4)):
+        rows_b = [auto.preprocess(im, INSTRUCTION, p)
+                  for im, p in _requests(cfg, rng, b)]
+        times = {"fused": [], "dense": []}
+        for i in range(pairs):
+            for name in (("fused", "dense") if i % 2 == 0
+                         else ("dense", "fused")):
+                t0 = time.perf_counter()
+                backends[name].predict_action_rows(rows_b)
+                times[name].append(time.perf_counter() - t0)
+        rec["crossover"][b] = {
+            **{f"{name}_ms_median": 1e3 * statistics.median(v)
+               for name, v in times.items()},
+            "fused_faster_pairs": sum(f < d for f, d in zip(times["fused"],
+                                                            times["dense"])),
+            "pairs": pairs}
+
+    # --- outside the counted runs: actions against plain and bf16 ---
+    rows = [bf16_pred.preprocess(im, INSTRUCTION, p) for im, p in batch]
+    a_bf16 = bf16_pred.normalized_actions(rows)
+    for name in ("fused", "dense"):
+        pred = backends[name]
+        a_kernel = pred.normalized_actions(rows)
+        plain = pred.with_runtime(dataclasses.replace(pred.rt,
+                                                      kernels="plain"))
+        before = dict(cuda_lib.LAUNCHES)
+        a_plain = plain.normalized_actions(rows)
+        if any(cuda_lib.LAUNCHES[k] != before.get(k, 0) for k in kernels):
+            raise AssertionError(f"the plain {name} runtime launched a w8a8 "
+                                 f"kernel")
+        vs_bf16 = np.abs(a_kernel - a_bf16)
+        rec[name].update(
+            max_abs_diff_normalized_actions_kernel_vs_plain=float(
+                np.abs(a_kernel - a_plain).max()),
+            max_abs_diff_vs_bf16=float(vs_bf16.max()),
+            mean_abs_diff_vs_bf16=float(vs_bf16.mean()))
+    rec["max_abs_normalized_action_bf16"] = float(np.abs(a_bf16).max())
+    if profile:
+        rec["profiles"] = [profile_request(backends[name], rng, f"w8a8 {name}")
+                           for name in ("fused", "dense")]
+    del backends, auto, pred, plain
+
+    # --- the weight-only tier, once ---
+    torch.cuda.reset_peak_memory_stats()
+    int8 = Predictor(int8=True, **common)
+    cuda_lib.reset_launches()
+    chunk_s, batch_s = _serve(int8, requests[:4], batch)
+    if dict(cuda_lib.LAUNCHES) != {attention_kernel.KERNEL_NAME:
+                                   attn_per_forward * 5}:
+        raise AssertionError(f"int8: launches {dict(cuda_lib.LAUNCHES)}")
+    vs_bf16 = np.abs(int8.normalized_actions(rows) - a_bf16)
+    rec["int8"] = {**_latency(chunk_s, batch_s, len(batch)),
+                   "max_abs_diff_vs_bf16": float(vs_bf16.max()),
+                   "mean_abs_diff_vs_bf16": float(vs_bf16.mean()),
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print("flagship_w8a8 " + json.dumps(rec), flush=True)
+    for name in ("fused", "dense", "int8"):
+        if name != "int8" and not (
+                rec[name]["max_abs_diff_normalized_actions_kernel_vs_plain"]
+                <= W8A8_ACTIONS_ATOL):
+            raise AssertionError(f"w8a8 {name}: kernel vs plain actions "
+                                 f"differ beyond {W8A8_ACTIONS_ATOL}")
+        if not rec[name]["max_abs_diff_vs_bf16"] <= QUANTIZED_VS_BF16_LIMIT:
+            raise AssertionError(f"{name} vs bf16 actions differ beyond "
+                                 f"{QUANTIZED_VS_BF16_LIMIT}")
+    return rec, dict(launches)
+
+
+def w8a8_kernel_summary(records, launches):
+    """The kernels line's entries for the four w8a8 kernels: per-call
+    times and bounds of phase 3 summed over the launches of one B=1 forward
+    under the "fused" backend; max_abs_err is the worst over all shapes."""
+    sources = {"w8a8_matmul": ("w8a8_matmul.cu",
+                               "vla_adapter_tpu/ops/pallas_matmul.py:140"),
+               "w8a8_matmul_stacked": ("w8a8_matmul.cu",
+                                       "vla_adapter_tpu/ops/pallas_matmul.py:77"),
+               "w8a8_gated_mlp": ("fused_mlp_w8a8.cu",
+                                  "vla_adapter_tpu/ops/pallas_fused_mlp.py:152"),
+               "w8a8_mlp": ("fused_mlp_w8a8.cu",
+                            "vla_adapter_tpu/ops/pallas_fused_mlp.py:182")}
+    out = []
+    for name, (source, replaces) in sources.items():
+        mine = [r for r in records if r["kernel"] == name]
+        fwd = [r for r in mine if r["forward_batch"] == 1]
+
+        def total(key, rows=fwd):
+            return sum(r[key] * r["launches_per_forward"] for r in rows)
+
+        ops, nbytes = total("ops"), total("bytes")
+        t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES
+        lib = [r for r in fwd if r.get("int_mm_ms") is not None]
+        calls = sum(r["launches_per_forward"] for r in fwd)
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"vla_adapter_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches.get(name, 0),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": (total("int_mm_ms", lib)
+                           if name == "w8a8_matmul" and lib else None),
+            "per": f"sum over the {calls} launches of one B=1 forward "
+                   "(fused backend)"}
+        if entry["library_ms"] is not None:
+            entry["library"] = (
+                "torch._int_mm, the int8 product alone; over the "
+                f"{sum(r['launches_per_forward'] for r in lib)} of {calls} "
+                "launches it takes (it refuses M <= 16)")
+        out.append(entry)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -421,31 +955,50 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
-    # 1. build
+    # 1. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    cuda_lib.load_library("fused_attention.cu")
-    print(f"build: fused_attention.cu in {time.perf_counter() - t0:.1f} s",
+    cuda_lib.load_libraries(SOURCES)
+    print(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for line in cuda_lib.BUILD_LOGS.get("fused_attention.cu", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas " + line.strip(), flush=True)
+    for source in SOURCES:
+        for line in cuda_lib.BUILD_LOGS.get(source, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {source}: " + line.strip(), flush=True)
     card = card_line()
     print(f"card: {card}", flush=True)
 
-    # 2. kernel vs plain at the main path's shapes
+    # 2. attention kernel vs plain at the main path's shapes
     cfg, predictor, n_params, rng = build_flagship(args.seed)
     print(f"flagship: {n_params / 1e9:.3f} B parameters in bf16", flush=True)
     records = phase_kernel_vs_plain(attention_shapes(cfg, predictor.tokenize))
 
-    # 3. the flagship forward through Predictor
+    # 3. the w8a8 kernels vs plain at the w8a8 main path's shapes
+    shapes = w8a8_shapes(cfg, predictor.tokenize)
+    w8a8_records = phase_w8a8_kernels(shapes)
+
+    # 4. the on-card weight quantizer
+    quantizer = phase_quantizer(predictor.params)
+
+    # 5. the bf16 flagship forward through Predictor
     flagship, launches = phase_flagship(predictor, rng, card)
-    print(f"kernels launched on the main path: {sorted(launches)}", flush=True)
+    print(f"kernels launched on the bf16 main path: {sorted(launches)}",
+          flush=True)
     profiled = profile_request(predictor, rng) if args.profile else None
-    kernels = kernel_summary(records, launches)
+
+    # 6. the w8a8 and int8 flagship forwards through Predictor
+    w8a8, w8a8_launches = phase_w8a8(predictor, shapes, rng, card,
+                                     profile=args.profile)
+    print(f"kernels launched on the w8a8 main path: {sorted(w8a8_launches)}",
+          flush=True)
+    kernels = (kernel_summary(records, launches)
+               + w8a8_kernel_summary(w8a8_records, w8a8_launches))
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "shapes": records, "flagship": flagship,
-                       "profile": profiled, "kernels": kernels}, f, indent=1)
+            json.dump({"card": card, "shapes": records,
+                       "w8a8_shapes": w8a8_records, "quantizer": quantizer,
+                       "flagship": flagship, "profile": profiled,
+                       "flagship_w8a8": w8a8, "kernels": kernels}, f,
+                      indent=1)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -110,7 +110,7 @@ def test_plain_runtime_shares_weights(predictors):
     import dataclasses
 
     plain = port_pred.with_runtime(
-        dataclasses.replace(port_pred.rt, attn_impl="plain"))
+        dataclasses.replace(port_pred.rt, kernels="plain"))
     for key, val in plain.params.items():
         assert val.data_ptr() == port_pred.params[key].data_ptr(), key
     imgs = _images(8)
@@ -176,3 +176,28 @@ import chip_smoke
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_import_no_jax():
+    """A static scan of every import statement of the port and of
+    chip_smoke.py, at any depth: the imports inside functions, which
+    importing a module does not run, are held to it too."""
+    import ast
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    files = sorted((root / "vla_adapter_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.name}:{node.lineno} {name}" for name in names
+                    if name.split(".")[0] in ("jax", "jaxlib", "flax",
+                                              "vla_adapter_tpu")]
+    assert len(files) > 20 and not bad, bad

@@ -1,0 +1,199 @@
+"""The w8a8 CUDA kernels against their plain versions, on the card.
+
+Kernels B4/B5 (``ops/w8a8_matmul.py``) must match bit for bit: the int32
+product is exact and the epilogue rounds as the plain version does.
+Kernels B2/B3 (``ops/fused_mlp.py``) may differ where the kernel's
+expf/tanhf and PyTorch's land an ulp apart: a panel scale one ulp off moves
+its row by ulps, and an int8 rounding of h can flip. The tolerance is one
+int8 step of h through the down projection (``_flip_bound``) plus two ulps
+of the largest output, and at most 2% of the rows may differ from the plain
+version by more than two ulps of an output.
+
+Imports no JAX: ``python -m pytest tests/test_torch_w8a8_cuda.py -m cuda``.
+Without a card every test here skips.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vla_adapter_torch.ops import cuda_lib
+from vla_adapter_torch.ops.fused_mlp import (
+    GATED_KERNEL_NAME,
+    KERNEL_NAME as MLP_KERNEL_NAME,
+    fused_mlp_reference,
+    w8a8_gated_mlp,
+    w8a8_mlp,
+)
+from vla_adapter_torch.ops.w8a8_matmul import (
+    KERNEL_NAME,
+    STACKED_KERNEL_NAME,
+    quantize_rows,
+    w8a8_matmul,
+    w8a8_matmul_reference,
+    w8a8_matmul_stacked,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _int8(rng, shape, dev):
+    return torch.from_numpy(rng.integers(-127, 128, size=shape,
+                                         dtype=np.int8)).to(dev)
+
+
+def _scales(rng, shape, dev, lo=0.5, hi=2.0):
+    return torch.from_numpy(rng.uniform(lo, hi, size=shape)
+                            .astype(np.float32)).to(dev)
+
+
+# (M, K, N): Qwen2 q/o at B=1, ragged M and N, the head's M=8 and fc_in K.
+MATMUL_SHAPES = [(640, 896, 896), (522, 1024, 1024), (70, 48, 200),
+                 (8, 6272, 896), (1, 896, 896)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", MATMUL_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_w8a8_matmul_matches_plain_exactly(device, shape, dtype):
+    m, k, n = shape
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(device)
+    xq, rs = quantize_rows(x)
+    w, ws = _int8(rng, (n, k), device), _scales(rng, (n,), device, 1e-3, 1e-2)
+    before = cuda_lib.LAUNCHES[KERNEL_NAME]
+    got = w8a8_matmul(xq, rs, w, ws, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[KERNEL_NAME] == before + 1
+    want = w8a8_matmul_reference(xq, rs, w, ws, out_dtype=dtype)
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, want)
+
+
+def test_w8a8_matmul_stacked_matches_plain_exactly(device):
+    """One layer of a stack, and every layer at once (BatchedDense)."""
+    rng = np.random.default_rng(3)
+    num_l, m, k, n = 5, 65, 896, 896
+    w, ws = _int8(rng, (num_l, n, k), device), _scales(rng, (num_l, n), device)
+    x = torch.from_numpy(rng.normal(size=(num_l, m, k)).astype(np.float32))
+    xq, rs = quantize_rows(x.to(device))
+    before = cuda_lib.LAUNCHES[STACKED_KERNEL_NAME]
+    got = w8a8_matmul_stacked(xq, rs, w, ws)
+    one = w8a8_matmul_stacked(xq[2], rs[2], w, ws, layer=2)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[STACKED_KERNEL_NAME] == before + 2
+    assert torch.equal(got, w8a8_matmul_reference(xq, rs, w, ws))
+    assert torch.equal(one, got[2])
+
+
+def _flip_bound(x, w1, s1, w2, s2, up_q, up_scale, b1, act):
+    """Largest output change one int8 flip of h can cause: one step of the
+    panel scale hs times the largest |w2| * s2 of a column."""
+    from vla_adapter_torch.ops.fused_mlp import kernel_activation
+    from vla_adapter_torch.ops.w8a8_matmul import int_matmul
+
+    xq, rs = quantize_rows(x)
+    g = int_matmul(xq, w1).float() * rs * s1
+    if b1 is not None:
+        g = g + b1
+    h = kernel_activation(act)(g)
+    if up_q is not None:
+        h = h * (int_matmul(xq, up_q).float() * rs * up_scale)
+    hs_max = h.abs().max() / 127.0
+    return float(hs_max * (w2.float().abs() * s2[:, None]).max())
+
+
+# (M, K, F, D, act, gated): the flagship MLPs at B=1 and small ragged ones.
+MLP_SHAPES = [
+    (640, 896, 4864, 896, "silu", True),      # Qwen2
+    (522, 1024, 4096, 1024, "gelu", False),   # DINOv2
+    (512, 1152, 4304, 1152, "gelu_tanh", False),  # so400m, ragged F
+    (512, 2176, 8704, 896, "gelu", False),    # projector fc1 -> fc2
+    (37, 64, 208, 72, "quick_gelu", False),
+    (20, 96, 1040, 64, "gelu_tanh", True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", MLP_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_mlp_matches_plain(device, shape, dtype):
+    m, k, f, d, act, gated = shape
+    rng = np.random.default_rng(m + f)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        device, dtype)
+    w1, s1 = _int8(rng, (f, k), device), _scales(rng, (f,), device, 1e-4, 3e-4)
+    w2, s2 = _int8(rng, (d, f), device), _scales(rng, (d,), device, 1e-4, 3e-4)
+    up_q = up_scale = b1 = b2 = None
+    if gated:
+        up_q = _int8(rng, (f, k), device)
+        up_scale = _scales(rng, (f,), device, 1e-4, 3e-4)
+        name = GATED_KERNEL_NAME
+    else:
+        b1 = torch.from_numpy(rng.normal(size=f).astype(np.float32)).to(device)
+        b2 = torch.from_numpy(rng.normal(size=d).astype(np.float32)).to(device)
+        name = MLP_KERNEL_NAME
+    before = cuda_lib.LAUNCHES[name]
+    if gated:
+        got = w8a8_gated_mlp(x, w1, s1, up_q, up_scale, w2, s2, act=act)
+    else:
+        got = w8a8_mlp(x, w1, s1, b1, w2, s2, b2, act=act)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    want = fused_mlp_reference(x, w1, s1, w2, s2, up_q=up_q,
+                               up_scale=up_scale, b1=b1, b2=b2, act=act)
+    assert got.dtype == dtype and got.shape == (m, d)
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs()
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -23
+    tol = _flip_bound(x.float(), w1, s1, w2, s2, up_q, up_scale, b1, act) \
+        + 2 * ulp * float(want.float().abs().max())
+    assert float(err.max()) <= tol, (float(err.max()), tol)
+    # Beyond two ulps of each output only flips remain, each confined to
+    # its row, and they are rare.
+    flipped = (err > 2 * ulp * want.float().abs()).any(dim=-1)
+    assert float(flipped.float().mean()) <= 0.02, int(flipped.sum())
+
+
+def test_fused_mlp_panel_width_is_numerics(device):
+    """block_f changes the re-quantization of h, and the kernel follows the
+    plain version at 128 as at 512."""
+    rng = np.random.default_rng(9)
+    m, k, f, d = 48, 128, 336, 128
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(device)
+    w1, s1 = _int8(rng, (f, k), device), _scales(rng, (f,), device, 1e-3, 2e-3)
+    w2, s2 = _int8(rng, (d, f), device), _scales(rng, (d,), device, 1e-3, 2e-3)
+    b1 = torch.zeros(f, device=device)
+    for block_f in (128, 512):
+        got = w8a8_mlp(x, w1, s1, b1, w2, s2, None, act="gelu",
+                       block_f=block_f)
+        want = fused_mlp_reference(x, w1, s1, w2, s2, b1=b1, act="gelu",
+                                   block_f=block_f)
+        torch.cuda.synchronize()
+        bound = _flip_bound(x, w1, s1, w2, s2, None, None, b1, "gelu")
+        assert float((got - want).abs().max()) <= bound + 1e-5
+
+
+def test_kernels_reject_what_they_do_not_take(device):
+    rng = np.random.default_rng(0)
+    xq = _int8(rng, (4, 40), device)   # K % 16 != 0
+    rs = torch.ones(4, 1, device=device)
+    with pytest.raises(ValueError):
+        w8a8_matmul(xq, rs, _int8(rng, (8, 40), device),
+                    torch.ones(8, device=device))
+    x = torch.zeros(4, 64, device=device)
+    w1, w2 = _int8(rng, (64, 64), device), _int8(rng, (64, 64), device)
+    s = torch.ones(64, device=device)
+    with pytest.raises(TypeError):   # out dtype must be x's
+        w8a8_mlp(x, w1, s, None, w2, s, None, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        w8a8_mlp(x, w1, s, None, w2, s, None, block_f=100)

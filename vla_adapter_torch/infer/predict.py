@@ -3,8 +3,13 @@
 A request is host preprocessing (prompt ids, the image pipeline as uint8,
 proprio normalization), ONE model forward on the device under
 ``torch.inference_mode()`` with the pixels normalized there, and host-side
-unnormalization of the action chunk. The float (bf16) forward only: the
-int8 and w8a8 tiers are not ported yet.
+unnormalization of the action chunk.
+
+Three serving tiers over the same checkpoint: bf16 (the default), weight-
+only int8 (``int8=True``) and w8a8 (``act_int8=True``), the last with two
+backends over one set of int8 tensors: "fused" (kernels B2/B3 for the
+MLPs) and "dense" (every w8a8 matmul through kernel B4), picked per batch
+by "auto".
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from vla_adapter_torch.data.image_processing import (
 )
 from vla_adapter_torch.data.normalization import normalize, unnormalize
 from vla_adapter_torch.data.transform import inference_ids
-from vla_adapter_torch.models.layers import Runtime
+from vla_adapter_torch.models.layers import Runtime, resolve_w8a8_impl
+from vla_adapter_torch.models.quantize import quantize_state_dict
 from vla_adapter_torch.models.vla import VLAModel
 
 SERVING_RUNTIME = Runtime(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
@@ -43,11 +49,20 @@ def resolve_device(device) -> torch.device:
 class Predictor:
     """Action predictor over one model.
 
-    params: the model's state_dict (e.g. ``weights.from_jax_params``);
-    its tensors are moved to ``device`` in ``rt.param_dtype`` and used in
-    place (tensors already there are shared, not copied).
+    params: the model's state_dict (e.g. ``weights.from_jax_params``),
+    float or already quantized; float tensors are moved to ``device`` in
+    ``rt.param_dtype`` and used in place (tensors already there are shared,
+    not copied).
     norm_stats: the checkpoint's per-dataset statistics; ``unnorm_key``
     picks the dataset.
+    int8: weight-only int8 serving; every Dense/BatchedDense weight is
+    quantized per output channel on ``device`` at construction and no
+    float copy of it is kept.
+    act_int8: w8a8 serving (implies int8): activations are quantized per
+    token and the products run int8 x int8 -> int32 (kernels B2-B5).
+    w8a8_impl: "auto" (per batch, :func:`resolve_w8a8_impl`), "fused" or
+    "dense" (the JAX package's "xla": every w8a8 matmul on its own). The
+    backends share one set of int8 tensors.
     """
 
     cfg: VLAConfig
@@ -57,25 +72,63 @@ class Predictor:
     rt: Runtime = SERVING_RUNTIME
     center_crop: bool = True
     device: str = "cuda"
+    int8: bool = False
+    act_int8: bool = False
+    w8a8_impl: str = "auto"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        model = VLAModel(self.cfg, self.rt, device="meta")
-        state = {k: v.to(self.device, self.rt.param_dtype)
-                 for k, v in self.params.items()}
-        model.load_state_dict(state, strict=True, assign=True)
-        self.model = model.eval()
-        self.params = self.model.state_dict()
+        if self.int8 or self.act_int8:
+            self.rt = dataclasses.replace(
+                self.rt, weights_int8=True,
+                act_int8=self.act_int8 or self.rt.act_int8)
+        # from here on the runtime decides (an int8 rt may come with
+        # already quantized params and both flags False)
+        self.int8, self.act_int8 = self.rt.weights_int8, self.rt.act_int8
+        if not self.act_int8:
+            if self.w8a8_impl not in ("auto", self.rt.w8a8_impl):
+                raise ValueError(f"w8a8_impl={self.w8a8_impl!r} needs w8a8 "
+                                 "serving: pass act_int8=True")
+            self.w8a8_impl = self.rt.w8a8_impl
+        impls = ((self.w8a8_impl,) if self.w8a8_impl != "auto"
+                 else ("fused", "dense"))
+        self._models = {}
+        for impl in impls:
+            rt = dataclasses.replace(self.rt, w8a8_impl=impl)
+            model = VLAModel(self.cfg, rt, device="meta")
+            if not self._models:
+                self.params = self._device_state(model.state_dict())
+            model.load_state_dict(self.params, strict=True, assign=True)
+            self._models[impl] = model.eval()
+        self.model = self._model_for_batch(1)
         self.image_processor = image_processor_for(self.cfg.vision)
         mean, std = self.image_processor.norm_constants()
         self._pix_mean = torch.from_numpy(mean).to(self.device)
         self._pix_std = torch.from_numpy(std).to(self.device)
 
-    def with_runtime(self, rt: Runtime) -> "Predictor":
+    def _device_state(self, expected) -> Dict[str, torch.Tensor]:
+        """``params`` on the device as the model expects them: int8
+        weights quantized there (or passed through), float tensors in
+        rt.param_dtype."""
+        state = quantize_state_dict(self.params, expected, self.device)
+        return {k: v if k.endswith((".weight_q", ".weight_scale"))
+                else v.to(self.device, self.rt.param_dtype)
+                for k, v in state.items()}
+
+    def _model_for_batch(self, batch: int) -> VLAModel:
+        if len(self._models) == 1:
+            return next(iter(self._models.values()))
+        return self._models[resolve_w8a8_impl("auto", batch)]
+
+    def with_runtime(self, rt: Runtime,
+                     w8a8_impl: Optional[str] = None) -> "Predictor":
         """A Predictor over the same weight tensors with another runtime
-        (e.g. ``attn_impl="plain"``); param_dtype must match to share."""
-        return dataclasses.replace(self, params=self.params, rt=rt,
-                                   device=str(self.device))
+        (e.g. ``kernels="plain"``) and, if given, another w8a8 backend;
+        param_dtype and the int8 tier must match to share."""
+        return dataclasses.replace(
+            self, params=self.params, rt=rt, device=str(self.device),
+            int8=False, act_int8=False,
+            w8a8_impl=self.w8a8_impl if w8a8_impl is None else w8a8_impl)
 
     def _resolve_unnorm_key(self, unnorm_key: Optional[str]) -> str:
         if unnorm_key is None:
@@ -122,7 +175,7 @@ class Predictor:
         dev = self.device
         pixels = torch.from_numpy(pixels).to(dev).float() / 255.0
         pixels = ((pixels - self._pix_mean) / self._pix_std).to(self.rt.dtype)
-        return self.model(
+        return self._model_for_batch(ids.shape[0])(
             torch.from_numpy(ids).to(dev, torch.long),
             torch.from_numpy(plen).to(dev, torch.long),
             torch.from_numpy(valid).to(dev),

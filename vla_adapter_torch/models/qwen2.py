@@ -15,7 +15,13 @@ import torch
 from torch import nn
 
 from vla_adapter_torch.core.config import Qwen2Config
-from vla_adapter_torch.models.layers import Dense, RMSNorm, Runtime, normal_init_
+from vla_adapter_torch.models.layers import (
+    Dense,
+    RMSNorm,
+    Runtime,
+    fused_mlp,
+    normal_init_,
+)
 from vla_adapter_torch.ops.attention import dot_product_attention
 from vla_adapter_torch.ops.rope import apply_rope_half, rope_cos_sin
 
@@ -42,19 +48,26 @@ class Qwen2Attention(nn.Module):
         q = apply_rope_half(q, cos, sin)
         k = apply_rope_half(k, cos, sin)
         out = dot_product_attention(q, k, v, valid, causal=causal,
-                                    impl=self.rt.attn_impl)
+                                    impl=self.rt.kernels)
         return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
 
 
 class Qwen2MLP(nn.Module):
+    """silu(gate(x)) * up(x) -> down. Under the fused w8a8 backend the whole
+    MLP is one launch of kernel B2 over the same int8 weights."""
+
     def __init__(self, cfg: Qwen2Config, rt: Runtime, device=None):
         super().__init__()
-        d, f = cfg.hidden_size, cfg.intermediate_size
+        self.rt = rt
+        self.dims = d, f = cfg.hidden_size, cfg.intermediate_size
         self.gate_proj = Dense(d, f, False, rt=rt, device=device)
         self.up_proj = Dense(d, f, False, rt=rt, device=device)
         self.down_proj = Dense(f, d, False, rt=rt, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rt.fused_mlp(*self.dims):
+            return fused_mlp(x, self.gate_proj, self.down_proj, "silu",
+                             self.rt, up=self.up_proj)
         gate = torch.nn.functional.silu(self.gate_proj(x))
         return self.down_proj(gate * self.up_proj(x))
 

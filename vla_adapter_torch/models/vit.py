@@ -12,6 +12,8 @@ reach the output. Input is NHWC.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
@@ -23,6 +25,7 @@ from vla_adapter_torch.models.layers import (
     normal_init_,
     new_param,
     activation,
+    fused_mlp,
 )
 from vla_adapter_torch.ops.attention import dot_product_attention
 
@@ -30,10 +33,12 @@ from vla_adapter_torch.ops.attention import dot_product_attention
 class PatchEmbed(Dense):
     """The stride-p p x p patch convolution as one product over flattened
     (p, p, C) patches; the weight is the Flax (kh, kw, in, out) kernel
-    flattened and transposed."""
+    flattened and transposed. It stays float under the int8 tiers, as the
+    JAX package's convolution does."""
 
     def __init__(self, patch: int, in_channels: int, hidden: int, *,
                  rt: Runtime, device=None):
+        rt = dataclasses.replace(rt, weights_int8=False, act_int8=False)
         super().__init__(patch * patch * in_channels, hidden, rt=rt,
                          device=device)
         self.patch = patch
@@ -65,18 +70,26 @@ class ViTAttention(nn.Module):
         k = self.k_proj(x).view(b, n, h, d)
         v = self.v_proj(x).view(b, n, h, d)
         out = dot_product_attention(q, k, v, None, causal=False,
-                                    impl=self.rt.attn_impl)
+                                    impl=self.rt.kernels)
         return self.out_proj(out.reshape(b, n, h * d))
 
 
 class ViTMLP(nn.Module):
+    """fc1 -> activation -> fc2; under the fused w8a8 backend one launch of
+    kernel B3 (gelu there is the TPU kernel's A&S erf)."""
+
     def __init__(self, cfg: ViTConfig, rt: Runtime, device=None):
         super().__init__()
+        self.cfg, self.rt = cfg, rt
         self.fc1 = Dense(cfg.hidden_size, cfg.mlp_dim, rt=rt, device=device)
         self.fc2 = Dense(cfg.mlp_dim, cfg.hidden_size, rt=rt, device=device)
         self.act = activation(cfg.mlp_activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if self.rt.fused_mlp(cfg.hidden_size, cfg.mlp_dim):
+            return fused_mlp(x, self.fc1, self.fc2, cfg.mlp_activation,
+                             self.rt)
         return self.fc2(self.act(self.fc1(x)))
 
 

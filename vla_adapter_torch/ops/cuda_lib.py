@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -34,6 +35,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 BUILD_LOGS: dict = {}
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+_SOURCE_LOCKS: dict = collections.defaultdict(threading.Lock)
 
 
 def reset_launches() -> None:
@@ -56,6 +58,8 @@ def find_nvcc() -> str:
 def load_library(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` (once per content hash) and load it."""
     with _LOCK:
+        lock = _SOURCE_LOCKS[source]
+    with lock:
         if source in _LIBS:
             return _LIBS[source]
         src = CSRC_DIR / source
@@ -76,3 +80,11 @@ def load_library(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path))
         _LIBS[source] = lib
         return lib
+
+
+def load_libraries(sources) -> dict:
+    """Compile several sources at once (one nvcc each, all started
+    together) and load them: {source: library}."""
+    sources = list(sources)
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        return dict(zip(sources, pool.map(load_library, sources)))

@@ -11,7 +11,13 @@ the mapping is by rule:
   conv kernel ``(kh, kw, in, out)`` is flattened to ``(out, kh*kw*in)``;
   the head's hoisted stacks (``k_adapter``/``v_adapter``/``k_task``/
   ``v_task``, kernel ``(L, in, out)``) keep their layout as ``kernel``;
-* norm ``scale`` and embedding ``embedding`` become ``weight``.
+* norm ``scale`` and embedding ``embedding`` become ``weight``;
+* a quantized tree (the JAX package's ``quantize_params``) carries over
+  too: ``kernel_q`` (in, out) becomes the ``(out, in)`` int8 ``weight_q``
+  (a BatchedDense stack (L, in, out) becomes (L, out, in)) and
+  ``kernel_scale`` becomes ``weight_scale``, for a model built with
+  ``Runtime(weights_int8=True)``. A float tree serves an int8 model as
+  well: the Predictor quantizes it (models/quantize.py).
 """
 
 from __future__ import annotations
@@ -47,6 +53,10 @@ def _leaf(name: str, arr: np.ndarray):
         if arr.ndim == 4:  # patch conv (kh, kw, in, out)
             return "weight", arr.reshape(-1, arr.shape[-1]).T
         return "kernel", arr  # BatchedDense stack (L, in, out)
+    if name == "kernel_q":
+        return "weight_q", np.swapaxes(arr, -1, -2)
+    if name == "kernel_scale":
+        return "weight_scale", arr
     if name in ("scale", "embedding"):
         return "weight", arr
     return name, arr
@@ -63,7 +73,8 @@ def _scan_axis(path: tuple):
 
 def from_jax_params(params: Mapping[str, Any],
                     cfg: VLAConfig) -> Dict[str, torch.Tensor]:
-    """Flax VLAModel params -> VLAModel state_dict of fp32 tensors.
+    """Flax VLAModel params -> VLAModel state_dict: fp32 tensors, and int8
+    ``weight_q`` with fp32 ``weight_scale`` from a quantized tree.
 
     ``cfg`` is checked against the tree's layer counts."""
     counts = {"language_model": cfg.llm.num_layers,
