@@ -16,11 +16,15 @@ Phases, in order; any failure exits non-zero:
 3. w8a8 kernels vs plain: at the shapes one w8a8 serving forward gives
    them (derived from ``VLAConfig()`` by :func:`w8a8_shapes`, B=1 and B=4):
    the fused MLPs (Qwen2; DINOv2, so400m, projector), the w8a8 matmul at
-   every distinct non-MLP shape and the head's stacked matmul. The matmuls
-   must equal their plain versions bit for bit, the fused MLPs agree within
-   :func:`mlp_tolerance`. Times: kernel, plain version, and
-   ``torch._int_mm`` for the matmuls (the int8 product alone, a yardstick:
-   the port never calls it).
+   every distinct non-MLP shape, the head's stacked matmul, and (B=1) the
+   whole-decoder-layer kernel of the "mega" backend at the Qwen2 layer with
+   the prompt's key padding. The matmuls must equal their plain versions
+   bit for bit, the fused MLPs agree within :func:`mlp_tolerance`, the
+   layer kernel within :func:`check_megalayer`. Times: kernel, plain
+   version, ``torch._int_mm`` for the matmuls (the int8 product alone, a
+   yardstick: the port never calls it), and for the layer kernel the same
+   layer through the "fused" backend's launches (B1, the o-projection, the
+   norm, B2).
 4. quantizer: the on-card weight quantizer against the JAX package's numpy
    ``quantize_kernel`` (copied below) on flagship weight matrices, bit for
    bit.
@@ -31,11 +35,13 @@ Phases, in order; any failure exits non-zero:
    (B=4), with launch counts read around exactly those requests. The same
    rows then go through the plain attention for an end-to-end comparison.
 6. flagship w8a8 forward: ``Predictor(act_int8=True)`` over the same
-   weights quantized on the card, each backend ("fused", "dense", "auto")
-   driven at B=1 and B=4 with the launch counts reset before and read after
-   it and checked against the counts :func:`w8a8_shapes` derives; actions
-   against the all-plain path and against bf16; then
-   ``Predictor(int8=True)`` (weight-only) once.
+   weights quantized on the card, each backend ("fused", "dense", "auto"
+   at B=1 and B=4; "mega" at B=1, where a B=4 call must raise) driven with
+   the launch counts reset before and read after it and checked against
+   the counts :func:`w8a8_shapes` derives; actions against the all-plain
+   path and against bf16 (mega also against fused); a crossover in turns on
+   the same rows (mega, fused and dense at B=1; fused and dense at B=2 and
+   4); then ``Predictor(int8=True)`` (weight-only) once.
 
 Prints the card's name and power limit, one JSON line per kernel shape, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -65,7 +71,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
-SOURCES = ("fused_attention.cu", "w8a8_matmul.cu", "fused_mlp_w8a8.cu")
+SOURCES = ("fused_attention.cu", "w8a8_matmul.cu", "fused_mlp_w8a8.cu",
+           "megalayer_w8a8.cu")
 
 # kernel vs plain: bf16 output of |out| < 4, the two differ in fp32
 # summation order and exp rounding, so by about one bf16 ulp (2^-6 at 2-4).
@@ -79,6 +86,16 @@ FLAGSHIP_ACTIONS_ATOL = 1e-1
 # int8 quantizations downstream, where one bf16 ulp of an activation near
 # its row's absmax is as large as an int8 step and flips roundings.
 W8A8_ACTIONS_ATOL = 0.3
+# the whole-layer kernel (B6) vs its plain version, bf16 output: it sums
+# the attention and RMSNorm2 in another order and takes the card's expf, so
+# a bf16 ulp of the context or a float ulp of h2 can flip an int8 rounding
+# of the o-projection or MLP input, which moves its row by a fraction of an
+# int8 step through one more projection. Every output within four bf16 ulps
+# of its row's largest output, at most 10% of the rows with an output more
+# than two ulps of its own size away (an H100 read 0.9% of the row maximum
+# and 6.1% of the rows at the Qwen2 layer, M=640).
+MEGALAYER_ROW_ULPS = 4
+MEGALAYER_ROW_SHARE = 0.10
 # w8a8 (and weight-only int8) vs bf16 on the same weights, normalized
 # actions, max abs over the chunk (the JAX package's forward_error_report
 # quantity): a quarter of the [-1, 1] action range. The random flagship
@@ -411,7 +428,8 @@ def profile_request(predictor, rng, label: str = "bf16"):
            "w8a8_kernel_ms": {name: sum(v for k, v in by_name.items()
                                         if name in k)
                               for name in ("fused_mlp_kernel",
-                                           "w8a8_matmul_kernel")},
+                                           "w8a8_matmul_kernel",
+                                           "megalayer_kernel")},
            "top": [[k, v] for k, v in by_name.most_common(10)]}
     print("profile " + json.dumps(rec), flush=True)
     return rec
@@ -450,14 +468,18 @@ def w8a8_shapes(cfg, tokenize, min_dim: int = 256):
     """Every w8a8 kernel call of one serving forward, for B=1 and B=4, as
     dicts: kernel, shape name(s), forward batch, dims and launches per
     forward under the "fused" backend (for an MLP also ``dense_matmuls``,
-    the w8a8 matmuls it becomes under "dense"). Widths below ``min_dim``
-    (``Runtime.act_int8_min_dim``) take the weight-only upcast, as the
-    models gate them; matmuls of one shape are merged."""
+    the w8a8 matmuls it becomes under "dense"), and at B=1 the decoder
+    layer of the "mega" backend with its launches under "mega". Widths
+    below ``min_dim`` (``Runtime.act_int8_min_dim``) take the weight-only
+    upcast, as the models gate them; matmuls of one shape are merged."""
     from vla_adapter_torch.data.transform import inference_ids
-    from vla_adapter_torch.ops import fused_mlp, w8a8_matmul
+    from vla_adapter_torch.ops import fused_mlp, megalayer, w8a8_matmul
 
     _, _, text_valid = inference_ids(cfg, tokenize, INSTRUCTION)
     s_llm = len(text_valid) + cfg.num_patches
+    mm_valid = np.concatenate([text_valid[:1], np.ones(cfg.num_patches,
+                                                       np.int32),
+                               text_valid[1:]])
     llm, head, consts = cfg.llm, cfg.head, cfg.constants
     d, hd = llm.hidden_size, llm.num_heads * llm.head_dim
     kv = llm.num_kv_heads * llm.head_dim
@@ -487,6 +509,14 @@ def w8a8_shapes(cfg, tokenize, min_dim: int = 256):
                     "dense_matmuls": (3 if gated else 2) * per})
 
         n_llm = llm.num_layers
+        if b == 1:  # "mega" serves batch 1 only
+            shapes.append({
+                "kernel": megalayer.KERNEL_NAME, "shape": ["qwen2_layer"],
+                "forward_batch": 1, "m": s_llm, "k": d,
+                "heads": llm.num_heads, "kv_heads": llm.num_kv_heads,
+                "head_dim": llm.head_dim, "f": llm.intermediate_size,
+                "key_valid": mm_valid.tolist(),
+                "launches_per_forward": n_llm})
         mm("qwen2_q", s_llm, d, hd, n_llm)
         mm("qwen2_k_v", s_llm, d, kv, 2 * n_llm)
         mm("qwen2_o", s_llm, hd, d, n_llm)
@@ -529,14 +559,20 @@ def w8a8_shapes(cfg, tokenize, min_dim: int = 256):
 
 
 def expected_w8a8_launches(shapes, impl: str) -> dict:
-    """Launches of each w8a8 kernel in one forward under a backend."""
-    from vla_adapter_torch.ops import w8a8_matmul
+    """Launches of each w8a8 kernel in one B=1 forward under a backend."""
+    from vla_adapter_torch.ops import fused_mlp, megalayer, w8a8_matmul
 
     counts = collections.Counter()
     for sh in shapes:
         if sh["forward_batch"] != 1:
             continue
-        if "f" in sh and impl == "dense":
+        if sh["kernel"] == megalayer.KERNEL_NAME:
+            if impl == "mega":  # one launch per layer, the o-proj inside
+                counts[sh["kernel"]] += sh["launches_per_forward"]
+                counts[w8a8_matmul.KERNEL_NAME] -= sh["launches_per_forward"]
+        elif impl == "mega" and sh["kernel"] == fused_mlp.GATED_KERNEL_NAME:
+            continue  # the Qwen2 MLP runs inside the layer kernel
+        elif "f" in sh and impl == "dense":
             counts[w8a8_matmul.KERNEL_NAME] += sh["dense_matmuls"]
         else:
             counts[sh["kernel"]] += sh["launches_per_forward"]
@@ -561,6 +597,104 @@ def w8a8_bound(sh):
     t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def megalayer_bound(sh):
+    """(bound ms, bound_by, ops, bytes) of one call of the layer kernel.
+    Operations: bf16 attention over the pairs of rows and valid keys this
+    prompt has (4 H Dh per pair: q.k and p.v) at the bf16 peak, plus the
+    int8 o-projection and gated MLP, 2 M (H Dh D + 3 D F), at the int8 peak,
+    the two summed (both run on the tensor cores). Bytes: the int8 weights,
+    their scales, the norm weight, x, q, k, v, the key validity and the
+    output, each once."""
+    m, d, f = sh["m"], sh["k"], sh["f"]  # k: the layer's width D
+    hd, kvd = sh["heads"] * sh["head_dim"], sh["kv_heads"] * sh["head_dim"]
+    pairs = m * int(sum(sh["key_valid"]))
+    flops = 4 * hd * pairs
+    int_ops = 2 * m * (hd * d + 3 * d * f)
+    nbytes = (hd * d + 3 * d * f + 4 * (3 * d + 2 * f)
+              + 2 * (2 * m * d + m * hd + 2 * m * kvd) + 4 * m)
+    t_ops = flops / PEAK_BF16_FLOPS + int_ops / PEAK_INT8_OPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops + int_ops,
+            nbytes)
+
+
+def check_megalayer(got, want) -> dict:
+    """The layer kernel against its plain version (bf16): the largest error
+    as a share of its row's largest output, the rows with an output more
+    than two bf16 ulps of its own size away, and whether both hold their
+    bounds (MEGALAYER_ROW_ULPS, MEGALAYER_ROW_SHARE)."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    row_max = want.float().abs().amax(dim=-1, keepdim=True)
+    beyond = (err > 2 * 2.0 ** -7 * want.float().abs()).any(dim=-1)
+    rec = {"max_abs_err": float(err.max()),
+           "max_err_over_row_max": float((err / row_max).max()),
+           "rows_beyond_2ulp": int(beyond.sum()), "rows": int(got.shape[0])}
+    rec["within_bound"] = bool(
+        torch.isfinite(got.float()).all()
+        and rec["max_err_over_row_max"] <= MEGALAYER_ROW_ULPS * 2.0 ** -7
+        and rec["rows_beyond_2ulp"] <= MEGALAYER_ROW_SHARE * rec["rows"])
+    return rec
+
+
+def megalayer_record(sh, randn, weight):
+    """The layer kernel at one shape against its plain version, timed, with
+    the same layer through the "fused" backend's launches as a yardstick."""
+    import torch
+
+    from vla_adapter_torch.ops import megalayer
+    from vla_adapter_torch.ops.attention_kernel import fused_attention
+    from vla_adapter_torch.ops.fused_mlp import w8a8_gated_mlp
+    from vla_adapter_torch.ops.w8a8_matmul import quantize_rows, w8a8_matmul
+
+    m, d, f = sh["m"], sh["k"], sh["f"]  # k: the layer's width D
+    h, hkv, dh = sh["heads"], sh["kv_heads"], sh["head_dim"]
+    eps = 1e-6
+    x = randn(m, d).bfloat16()
+    # q, k, v as views of one projection's output, as the model hands them
+    qkv = randn(m, (h + 2 * hkv) * dh).bfloat16()
+    q = qkv[:, :h * dh].view(m, h, dh)
+    k = qkv[:, h * dh:(h + hkv) * dh].view(m, hkv, dh)
+    v = qkv[:, (h + hkv) * dh:].view(m, hkv, dh)
+    valid = torch.tensor(sh["key_valid"], dtype=torch.int32, device=x.device)
+    n2 = 1.0 + 0.2 * randn(d)
+    (oq, os_), (gq, gs), (uq, us), (dq, ds) = (
+        weight(d, h * dh), weight(f, d), weight(f, d), weight(d, f))
+    args = (x, q, k, v, valid, n2, oq, os_, gq, gs, uq, us, dq, ds)
+
+    def kernel():
+        return megalayer.w8a8_qwen2_layer(*args, eps=eps)
+
+    def plain():
+        return megalayer.megalayer_reference(*args, eps=eps)
+
+    def fused_chain():
+        ctx = fused_attention(q.transpose(0, 1)[None], k.transpose(0, 1)[None],
+                              v.transpose(0, 1)[None], valid[None])
+        cq, rs = quantize_rows(ctx[0].transpose(0, 1).reshape(m, h * dh))
+        xa = x + w8a8_matmul(cq, rs, oq, os_)
+        xf = xa.float()
+        h2 = (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+              * n2).bfloat16()
+        return xa + w8a8_gated_mlp(h2, gq, gs, uq, us, dq, ds)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    rec = dict(sh)
+    del rec["key_valid"]
+    rec.update(check_megalayer(got, want), valid_keys=int(valid.sum()),
+               bitwise_equal=bool(torch.equal(got, want)))
+    if not rec["within_bound"]:
+        raise AssertionError(f"{sh['kernel']} vs plain: {rec}")
+    bound, bound_by, ops, nbytes = megalayer_bound(sh)
+    rec.update(ms=device_ms(kernel), plain_ms=device_ms(plain, reps=5),
+               fused_chain_ms=device_ms(fused_chain), library_ms=None,
+               bound_ms=bound, bound_by=bound_by, ops=ops, bytes=nbytes)
+    return rec
 
 
 def mlp_tolerance(want, h_max: float, w2, s2) -> tuple:
@@ -594,7 +728,7 @@ def phase_w8a8_kernels(shapes):
     import torch
 
     from vla_adapter_torch.models.quantize import quantize_weight
-    from vla_adapter_torch.ops import fused_mlp, w8a8_matmul
+    from vla_adapter_torch.ops import fused_mlp, megalayer, w8a8_matmul
     from vla_adapter_torch.ops.w8a8_matmul import int_matmul, quantize_rows
 
     dev = torch.device("cuda")
@@ -609,6 +743,11 @@ def phase_w8a8_kernels(shapes):
 
     records = []
     for sh in shapes:
+        if sh["kernel"] == megalayer.KERNEL_NAME:
+            rec = megalayer_record(sh, randn, weight)
+            print("w8a8_shape " + json.dumps(rec), flush=True)
+            records.append(rec)
+            continue
         m, k = sh["m"], sh["k"]
         rec = dict(sh)
         if "f" in sh:
@@ -730,8 +869,8 @@ def _requests(cfg, rng, n):
 
 
 def _serve(pred, requests, batch):
-    """B=1 requests one by one, then one B=4 batch: (per-request seconds,
-    batch seconds), the outputs checked."""
+    """B=1 requests one by one, then one batch unless ``batch`` is empty:
+    (per-request seconds, batch seconds or None), the outputs checked."""
     chunk_s = []
     for images, proprio in requests:
         t0 = time.perf_counter()
@@ -740,6 +879,8 @@ def _serve(pred, requests, batch):
         if out.shape != (8, 7) or not np.isfinite(out).all():
             raise AssertionError(f"predict_action gave {out.shape}, finite="
                                  f"{np.isfinite(out).all()}")
+    if not batch:
+        return chunk_s, None
     t0 = time.perf_counter()
     out_b = pred.predict_action_batch([im for im, _ in batch],
                                       [INSTRUCTION] * len(batch),
@@ -752,16 +893,24 @@ def _serve(pred, requests, batch):
 
 def _latency(chunk_s, batch_s, n_batch):
     timed = chunk_s[1:]  # the first request pays one-time set-up
-    return {"b1_ms_median": 1e3 * statistics.median(timed),
-            "b1_ms_min": 1e3 * min(timed), "b1_ms_max": 1e3 * max(timed),
-            "b1_first_ms": 1e3 * chunk_s[0], "b4_ms": 1e3 * batch_s,
-            "b4_ms_per_chunk": 1e3 * batch_s / n_batch}
+    rec = {"b1_ms_median": 1e3 * statistics.median(timed),
+           "b1_ms_min": 1e3 * min(timed), "b1_ms_max": 1e3 * max(timed),
+           "b1_first_ms": 1e3 * chunk_s[0]}
+    if batch_s is not None:
+        rec.update(b4_ms=1e3 * batch_s, b4_ms_per_chunk=1e3 * batch_s / n_batch)
+    return rec
+
+
+def _per_row_actions(pred, rows):
+    """Normalized actions of each row served alone (B=1), stacked."""
+    return np.concatenate([pred.normalized_actions([r]) for r in rows])
 
 
 def phase_w8a8(bf16_pred, shapes, rng, card: str, profile: bool = False):
     """The w8a8 main path: Predictor(act_int8=True) over the bf16
     predictor's weights, quantized on the card; each backend driven at B=1
-    and B=4 between a reset and a read of the launch counts."""
+    (and, but for "mega", B=4) between a reset and a read of the launch
+    counts."""
     import torch
 
     from vla_adapter_torch.infer.predict import Predictor
@@ -769,7 +918,8 @@ def phase_w8a8(bf16_pred, shapes, rng, card: str, profile: bool = False):
     from vla_adapter_torch.ops import attention_kernel, cuda_lib
 
     cfg = bf16_pred.cfg
-    attn_per_forward = (cfg.llm.num_layers
+    n_llm = cfg.llm.num_layers
+    attn_per_forward = (n_llm
                         + cfg.vision.primary.resolved_feature_layer + 1
                         + cfg.vision.fused.resolved_feature_layer + 1)
     kernels = sorted({sh["kernel"] for sh in shapes})
@@ -783,7 +933,8 @@ def phase_w8a8(bf16_pred, shapes, rng, card: str, profile: bool = False):
     quantize_s = time.perf_counter() - t0
     backends = {"fused": auto.with_runtime(auto.rt, w8a8_impl="fused"),
                 "dense": auto.with_runtime(auto.rt, w8a8_impl="dense"),
-                "auto": auto}
+                "auto": auto,
+                "mega": auto.with_runtime(auto.rt, w8a8_impl="mega")}
     requests, batch = _requests(cfg, rng, 6), _requests(cfg, rng, 4)
     rec = {"card": card, "quantize_on_card_s": quantize_s,
            "int8_bytes": sum(v.numel() for v in auto.params.values()
@@ -792,14 +943,17 @@ def phase_w8a8(bf16_pred, shapes, rng, card: str, profile: bool = False):
     for name, pred in backends.items():
         torch.cuda.reset_peak_memory_stats()
         cuda_lib.reset_launches()
-        chunk_s, batch_s = _serve(pred, requests, batch)
+        b1_only = name == "mega"
+        chunk_s, batch_s = _serve(pred, requests, [] if b1_only else batch)
         counts = dict(cuda_lib.LAUNCHES)
-        impls = [resolve_w8a8_impl(pred.w8a8_impl, 1)] * len(requests) \
-            + [resolve_w8a8_impl(pred.w8a8_impl, len(batch))]
-        want = collections.Counter(
-            {attention_kernel.KERNEL_NAME: attn_per_forward * len(impls)})
+        impls = [resolve_w8a8_impl(pred.w8a8_impl, 1)] * len(requests)
+        if not b1_only:
+            impls.append(resolve_w8a8_impl(pred.w8a8_impl, len(batch)))
+        want = collections.Counter()
         for impl in impls:
             want.update(expected_w8a8_launches(shapes, impl))
+            want[attention_kernel.KERNEL_NAME] += (
+                attn_per_forward - (n_llm if impl == "mega" else 0))
         if {k: v for k, v in counts.items() if v} != \
                 {k: v for k, v in want.items() if v}:
             raise AssertionError(f"w8a8 {name}: launches {counts}, expected "
@@ -813,51 +967,83 @@ def phase_w8a8(bf16_pred, shapes, rng, card: str, profile: bool = False):
         if not launches[kernel]:
             raise AssertionError(f"{kernel} was never launched on the w8a8 "
                                  f"main path")
+    # "mega" refuses a batch before it runs anything
+    before = dict(cuda_lib.LAUNCHES)
+    try:
+        backends["mega"].predict_action_batch(
+            [im for im, _ in batch], [INSTRUCTION] * len(batch),
+            [p for _, p in batch])
+    except ValueError as err:
+        rec["mega"]["b4_refused"] = str(err)
+    else:
+        raise AssertionError("w8a8 mega served a batch of 4")
+    if dict(cuda_lib.LAUNCHES) != before:
+        raise AssertionError("w8a8 mega launched kernels for a refused batch")
 
-    # --- the "auto" crossover: fused against dense in turns at B=1, 2, 4
-    # (same preprocessed rows, forward + unnormalization) ---
+    # --- the crossover in turns on the same preprocessed rows (forward +
+    # unnormalization): mega, fused and dense at B=1 in rotated order;
+    # fused against dense at B=2 and B=4 (the "auto" constant) ---
     rec["crossover"] = {}
-    for b, pairs in ((1, 8), (2, 6), (4, 4)):
+    for b, rounds, names in ((1, 9, ("mega", "fused", "dense")),
+                             (2, 6, ("fused", "dense")),
+                             (4, 4, ("fused", "dense"))):
         rows_b = [auto.preprocess(im, INSTRUCTION, p)
                   for im, p in _requests(cfg, rng, b)]
-        times = {"fused": [], "dense": []}
-        for i in range(pairs):
-            for name in (("fused", "dense") if i % 2 == 0
-                         else ("dense", "fused")):
+        times = {name: [] for name in names}
+        for i in range(rounds):
+            shift = i % len(names)
+            for name in names[shift:] + names[:shift]:
                 t0 = time.perf_counter()
                 backends[name].predict_action_rows(rows_b)
                 times[name].append(time.perf_counter() - t0)
-        rec["crossover"][b] = {
-            **{f"{name}_ms_median": 1e3 * statistics.median(v)
-               for name, v in times.items()},
-            "fused_faster_pairs": sum(f < d for f, d in zip(times["fused"],
-                                                            times["dense"])),
-            "pairs": pairs}
+        cell = {**{f"{name}_ms_median": 1e3 * statistics.median(v)
+                   for name, v in times.items()},
+                "fused_faster_pairs": sum(
+                    f < d for f, d in zip(times["fused"], times["dense"])),
+                "pairs": rounds}
+        if "mega" in times:
+            cell["mega_faster_than_fused_pairs"] = sum(
+                m < f for m, f in zip(times["mega"], times["fused"]))
+        rec["crossover"][b] = cell
 
     # --- outside the counted runs: actions against plain and bf16 ---
     rows = [bf16_pred.preprocess(im, INSTRUCTION, p) for im, p in batch]
     a_bf16 = bf16_pred.normalized_actions(rows)
-    for name in ("fused", "dense"):
+
+    def against_plain(name, act):
         pred = backends[name]
-        a_kernel = pred.normalized_actions(rows)
+        a_kernel = act(pred, rows)
         plain = pred.with_runtime(dataclasses.replace(pred.rt,
                                                       kernels="plain"))
         before = dict(cuda_lib.LAUNCHES)
-        a_plain = plain.normalized_actions(rows)
+        a_plain = act(plain, rows)
         if any(cuda_lib.LAUNCHES[k] != before.get(k, 0) for k in kernels):
             raise AssertionError(f"the plain {name} runtime launched a w8a8 "
                                  f"kernel")
+        return a_kernel, float(np.abs(a_kernel - a_plain).max())
+
+    for name in ("fused", "dense"):
+        a_kernel, vs_plain = against_plain(
+            name, lambda pred, r: pred.normalized_actions(r))
         vs_bf16 = np.abs(a_kernel - a_bf16)
         rec[name].update(
-            max_abs_diff_normalized_actions_kernel_vs_plain=float(
-                np.abs(a_kernel - a_plain).max()),
+            max_abs_diff_normalized_actions_kernel_vs_plain=vs_plain,
             max_abs_diff_vs_bf16=float(vs_bf16.max()),
             mean_abs_diff_vs_bf16=float(vs_bf16.mean()))
+    # mega serves one row at a time: every comparison row by row at B=1
+    a_mega, vs_plain = against_plain("mega", _per_row_actions)
+    vs_bf16 = np.abs(a_mega - _per_row_actions(bf16_pred, rows))
+    rec["mega"].update(
+        max_abs_diff_normalized_actions_kernel_vs_plain=vs_plain,
+        max_abs_diff_vs_bf16=float(vs_bf16.max()),
+        mean_abs_diff_vs_bf16=float(vs_bf16.mean()),
+        max_abs_diff_vs_fused=float(np.abs(
+            a_mega - _per_row_actions(backends["fused"], rows)).max()))
     rec["max_abs_normalized_action_bf16"] = float(np.abs(a_bf16).max())
     if profile:
         rec["profiles"] = [profile_request(backends[name], rng, f"w8a8 {name}")
-                           for name in ("fused", "dense")]
-    del backends, auto, pred, plain
+                           for name in ("fused", "dense", "mega")]
+    del backends, auto
 
     # --- the weight-only tier, once ---
     torch.cuda.reset_peak_memory_stats()
@@ -873,7 +1059,7 @@ def phase_w8a8(bf16_pred, shapes, rng, card: str, profile: bool = False):
                    "mean_abs_diff_vs_bf16": float(vs_bf16.mean()),
                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     print("flagship_w8a8 " + json.dumps(rec), flush=True)
-    for name in ("fused", "dense", "int8"):
+    for name in ("fused", "dense", "mega", "int8"):
         if name != "int8" and not (
                 rec[name]["max_abs_diff_normalized_actions_kernel_vs_plain"]
                 <= W8A8_ACTIONS_ATOL):
@@ -928,6 +1114,28 @@ def w8a8_kernel_summary(records, launches):
                 "launches it takes (it refuses M <= 16)")
         out.append(entry)
     return out
+
+
+def megalayer_kernel_summary(records, launches):
+    """The kernels line's entry for the layer kernel: its phase-3 per-call
+    times and bound summed over the launches of one B=1 forward under the
+    "mega" backend (one per decoder layer)."""
+    from vla_adapter_torch.ops import megalayer
+
+    (r,) = [r for r in records if r["kernel"] == megalayer.KERNEL_NAME]
+    n = r["launches_per_forward"]
+    return [{
+        "name": megalayer.KERNEL_NAME, "route": "cuda",
+        "source": f"vla_adapter_torch/csrc/{megalayer.SOURCE}",
+        "replaces": "vla_adapter_tpu/ops/pallas_megalayer.py:178",
+        "launches": launches.get(megalayer.KERNEL_NAME, 0),
+        "max_abs_err": r["max_abs_err"], "ms": n * r["ms"],
+        "plain_ms": n * r["plain_ms"], "bound_ms": n * r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "fused_chain_ms": n * r["fused_chain_ms"],
+        "per": f"sum over the {n} launches of one B=1 forward (mega "
+               "backend); fused_chain_ms: the same layers through the fused "
+               "backend's launches"}]
 
 
 def main() -> int:
@@ -991,7 +1199,8 @@ def main() -> int:
     print(f"kernels launched on the w8a8 main path: {sorted(w8a8_launches)}",
           flush=True)
     kernels = (kernel_summary(records, launches)
-               + w8a8_kernel_summary(w8a8_records, w8a8_launches))
+               + w8a8_kernel_summary(w8a8_records, w8a8_launches)
+               + megalayer_kernel_summary(w8a8_records, w8a8_launches))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "shapes": records,

@@ -171,6 +171,11 @@ def test_chip_smoke_derives_the_flagship_w8a8_launches():
         "w8a8_matmul_stacked": 4}
     assert chip_smoke.expected_w8a8_launches(shapes, "dense") == {
         "w8a8_matmul": 539, "w8a8_matmul_stacked": 4}
+    # "mega": one layer kernel per decoder layer, which absorbs the Qwen2
+    # MLP and the o-projection's matmul
+    assert chip_smoke.expected_w8a8_launches(shapes, "mega") == {
+        "w8a8_qwen2_layer": 24, "w8a8_mlp": 50, "w8a8_matmul": 343,
+        "w8a8_matmul_stacked": 4}
     # every shape is a multiple the kernels take: K % 16, N and F even
     for sh in shapes:
         assert sh["k"] % 16 == 0 and sh.get("n", 2) % 2 == 0

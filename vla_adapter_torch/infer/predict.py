@@ -6,10 +6,11 @@ proprio normalization), ONE model forward on the device under
 unnormalization of the action chunk.
 
 Three serving tiers over the same checkpoint: bf16 (the default), weight-
-only int8 (``int8=True``) and w8a8 (``act_int8=True``), the last with two
+only int8 (``int8=True``) and w8a8 (``act_int8=True``), the last with three
 backends over one set of int8 tensors: "fused" (kernels B2/B3 for the
 MLPs) and "dense" (every w8a8 matmul through kernel B4), picked per batch
-by "auto".
+by "auto", and "mega" (batch 1 only: each decoder layer from the attention
+core on as kernel B6), which "auto" never picks.
 """
 
 from __future__ import annotations
@@ -60,9 +61,10 @@ class Predictor:
     float copy of it is kept.
     act_int8: w8a8 serving (implies int8): activations are quantized per
     token and the products run int8 x int8 -> int32 (kernels B2-B5).
-    w8a8_impl: "auto" (per batch, :func:`resolve_w8a8_impl`), "fused" or
-    "dense" (the JAX package's "xla": every w8a8 matmul on its own). The
-    backends share one set of int8 tensors.
+    w8a8_impl: "auto" (per batch, :func:`resolve_w8a8_impl`), "fused",
+    "dense" (the JAX package's "xla": every w8a8 matmul on its own) or
+    "mega" (batch 1 only; a larger batch raises ValueError). The backends
+    share one set of int8 tensors.
     """
 
     cfg: VLAConfig
@@ -116,9 +118,14 @@ class Predictor:
                 for k, v in state.items()}
 
     def _model_for_batch(self, batch: int) -> VLAModel:
-        if len(self._models) == 1:
-            return next(iter(self._models.values()))
-        return self._models[resolve_w8a8_impl("auto", batch)]
+        if len(self._models) > 1:
+            return self._models[resolve_w8a8_impl("auto", batch)]
+        model = next(iter(self._models.values()))
+        if model.rt.mega and batch > 1:
+            raise ValueError(f"w8a8_impl='mega' serves one request at a time,"
+                             f" got a batch of {batch}: use 'fused', 'dense' "
+                             "or 'auto'")
+        return model
 
     def with_runtime(self, rt: Runtime,
                      w8a8_impl: Optional[str] = None) -> "Predictor":
@@ -173,9 +180,10 @@ class Predictor:
     @torch.inference_mode()
     def _forward(self, ids, plen, valid, pixels, proprio) -> torch.Tensor:
         dev = self.device
+        model = self._model_for_batch(ids.shape[0])
         pixels = torch.from_numpy(pixels).to(dev).float() / 255.0
         pixels = ((pixels - self._pix_mean) / self._pix_std).to(self.rt.dtype)
-        return self._model_for_batch(ids.shape[0])(
+        return model(
             torch.from_numpy(ids).to(dev, torch.long),
             torch.from_numpy(plen).to(dev, torch.long),
             torch.from_numpy(valid).to(dev),
@@ -217,6 +225,7 @@ class Predictor:
         unnorm_key: Optional[str] = None,
     ) -> np.ndarray:
         """Batched requests: (B, num_actions_chunk, action_dim)."""
+        self._model_for_batch(len(instructions))  # refuses before any work
         rows = [self.preprocess(images_batch[i], instructions[i],
                                 None if proprio_batch is None
                                 else proprio_batch[i], unnorm_key)

@@ -35,7 +35,7 @@ from vla_adapter_torch.ops.w8a8_matmul import (
     w8a8_matmul_stacked,
 )
 
-W8A8_IMPLS = ("dense", "fused")
+W8A8_IMPLS = ("dense", "fused", "mega")
 
 
 @dataclass(frozen=True)
@@ -52,9 +52,12 @@ class Runtime:
     and the product runs int8 x int8 -> int32 (kernel B4/B5); a matmul with
     min(in, out) < act_int8_min_dim takes the weight-only upcast instead.
     w8a8_impl: "dense" (every w8a8 matmul on its own, the JAX package's
-    "xla" backend) or "fused" (each transformer and projector MLP as one
-    fused kernel, B2/B3; everything else as "dense"). "auto" is a Predictor
-    value, resolved per batch by :func:`resolve_w8a8_impl`.
+    "xla" backend), "fused" (each transformer and projector MLP as one
+    fused kernel, B2/B3; everything else as "dense") or "mega" (batch 1
+    only: each Qwen2 decoder layer from the attention core on as one
+    kernel, B6; the ViT and projector MLPs as in "fused"). "auto" is a
+    Predictor value, resolved per batch by :func:`resolve_w8a8_impl`, and
+    never picks "mega".
     """
 
     dtype: torch.dtype = torch.bfloat16
@@ -81,7 +84,12 @@ class Runtime:
 
     def fused_mlp(self, *dims: int) -> bool:
         """Whether an MLP with these widths runs as one fused kernel."""
-        return self.w8a8_impl == "fused" and self.w8a8(*dims)
+        return self.w8a8_impl in ("fused", "mega") and self.w8a8(*dims)
+
+    @property
+    def mega(self) -> bool:
+        """Whether each Qwen2 decoder layer runs as one kernel (B6)."""
+        return self.w8a8_impl == "mega" and self.act_int8
 
 
 # The batch up to which "auto" serves w8a8 with the fused MLP kernels

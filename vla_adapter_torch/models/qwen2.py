@@ -4,7 +4,9 @@ vla_adapter_tpu/models/qwen2.py: ``Qwen2Model.__call__``).
 Bidirectional or causal attention over the whole sequence, with per-key
 validity. Returns every hidden state: index 0 the embeddings, i in 1..L-1
 the output of layer i, index L the final-norm output (the HF convention the
-action head indexes). Cached decoding is not ported yet.
+action head indexes). Under the "mega" w8a8 backend each decoder layer runs
+from the attention core on as one kernel (B6), at batch 1 and
+bidirectional only. Cached decoding is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +25,10 @@ from vla_adapter_torch.models.layers import (
     normal_init_,
 )
 from vla_adapter_torch.ops.attention import dot_product_attention
+from vla_adapter_torch.ops.megalayer import (
+    megalayer_reference,
+    w8a8_qwen2_layer,
+)
 from vla_adapter_torch.ops.rope import apply_rope_half, rope_cos_sin
 
 
@@ -39,14 +45,19 @@ class Qwen2Attention(nn.Module):
         self.v_proj = Dense(d, cfg.num_kv_heads * hd, bias, rt=rt, device=device)
         self.o_proj = Dense(cfg.num_heads * hd, d, False, rt=rt, device=device)
 
-    def forward(self, x, cos, sin, valid, causal: bool) -> torch.Tensor:
+    def qkv(self, x, cos, sin):
+        """The roped q (B, S, H, Dh) and k, v (B, S, Hkv, Dh)."""
         cfg = self.cfg
         b, s, _ = x.shape
         q = self.q_proj(x).view(b, s, cfg.num_heads, cfg.head_dim)
         k = self.k_proj(x).view(b, s, cfg.num_kv_heads, cfg.head_dim)
         v = self.v_proj(x).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-        q = apply_rope_half(q, cos, sin)
-        k = apply_rope_half(k, cos, sin)
+        return apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin), v
+
+    def forward(self, x, cos, sin, valid, causal: bool) -> torch.Tensor:
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q, k, v = self.qkv(x, cos, sin)
         out = dot_product_attention(q, k, v, valid, causal=causal,
                                     impl=self.rt.kernels)
         return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
@@ -75,7 +86,8 @@ class Qwen2MLP(nn.Module):
 class Qwen2DecoderLayer(nn.Module):
     def __init__(self, cfg: Qwen2Config, rt: Runtime, device=None):
         super().__init__()
-        eps = cfg.rms_norm_eps
+        self.rt = rt
+        self.eps = eps = cfg.rms_norm_eps
         self.input_layernorm = RMSNorm(cfg.hidden_size, eps, rt=rt, device=device)
         self.self_attn = Qwen2Attention(cfg, rt, device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps, rt=rt,
@@ -83,8 +95,35 @@ class Qwen2DecoderLayer(nn.Module):
         self.mlp = Qwen2MLP(cfg, rt, device)
 
     def forward(self, x, cos, sin, valid, causal: bool) -> torch.Tensor:
+        if self.rt.mega:
+            return self._mega(x, cos, sin, valid, causal)
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, valid, causal)
         return x + self.mlp(self.post_attention_layernorm(x))
+
+    def _mega(self, x, cos, sin, valid, causal: bool) -> torch.Tensor:
+        """input_layernorm, q/k/v and RoPE as in the other backends, then
+        one launch of kernel B6 (its plain version under kernels="plain"):
+        attention, o-projection, residual, post-attention norm, the gated
+        MLP and the second residual over the same int8 weights."""
+        if x.shape[0] != 1:
+            raise ValueError(
+                f"w8a8_impl='mega' serves batch 1 only (got {x.shape[0]}): "
+                "its kernel attends across all rows; use 'fused' or 'dense'")
+        if causal:
+            raise ValueError("w8a8_impl='mega' implements bidirectional "
+                             "attention only")
+        attn, mlp = self.self_attn, self.mlp
+        q, k, v = attn.qkv(self.input_layernorm(x), cos, sin)
+        layer = (megalayer_reference if self.rt.kernels == "plain"
+                 else w8a8_qwen2_layer)
+        out = layer(
+            x[0], q[0], k[0], v[0], None if valid is None else valid[0],
+            self.post_attention_layernorm.weight.float(),
+            attn.o_proj.weight_q, attn.o_proj.weight_scale,
+            mlp.gate_proj.weight_q, mlp.gate_proj.weight_scale,
+            mlp.up_proj.weight_q, mlp.up_proj.weight_scale,
+            mlp.down_proj.weight_q, mlp.down_proj.weight_scale, eps=self.eps)
+        return out[None]
 
 
 class Qwen2Model(nn.Module):

@@ -3,8 +3,9 @@
 Each kernel source under ``vla_adapter_torch/csrc/`` exposes a plain C
 function. At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library under ``vla_adapter_torch/_build/`` (named by a hash of the
-source and flags, so an edit rebuilds) and loaded with ``ctypes``. No
-PyTorch headers are included, so a build takes seconds, not minutes.
+source, the ``csrc/`` headers it includes and the flags, so an edit to any
+of them rebuilds) and loaded with ``ctypes``. No PyTorch headers are
+included, so a build takes seconds, not minutes.
 
 ``LAUNCHES`` counts kernel launches by kernel name: every wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -17,6 +18,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,6 +32,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 LAUNCHES: collections.Counter = collections.Counter()
 BUILD_LOGS: dict = {}
@@ -55,6 +59,25 @@ def find_nvcc() -> str:
     return found
 
 
+def _with_includes(name: str, seen: set) -> bytes:
+    """The bytes of ``csrc/<name>`` followed by those of every ``csrc/``
+    file it includes with ``#include "..."``, depth first, each once."""
+    if name in seen:
+        return b""
+    seen.add(name)
+    text = (CSRC_DIR / name).read_bytes()
+    return text + b"".join(_with_includes(inc.decode(), seen)
+                           for inc in _INCLUDE.findall(text))
+
+
+def library_path(source: str) -> Path:
+    """Where ``csrc/<source>`` is built: named by a hash of the source, the
+    headers it includes and the nvcc flags."""
+    digest = hashlib.sha256(_with_includes(source, set())
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` (once per content hash) and load it."""
     with _LOCK:
@@ -63,10 +86,8 @@ def load_library(source: str) -> ctypes.CDLL:
         if source in _LIBS:
             return _LIBS[source]
         src = CSRC_DIR / source
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        lib_path = library_path(source)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib_path = BUILD_DIR / f"lib{src.stem}_{digest}.so"
         if not lib_path.exists():
             tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
             proc = subprocess.run(
