@@ -16,6 +16,7 @@ from vla_adapter_torch.ops import cuda_lib
 from vla_adapter_torch.ops.attention import dot_product_attention
 from vla_adapter_torch.ops.attention_kernel import (
     KERNEL_NAME,
+    attention_plan,
     attention_reference,
     fused_attention,
 )
@@ -115,3 +116,40 @@ def test_other_devices_are_refused():
     q = torch.empty(1, 2, 8, 16, device="meta")
     with pytest.raises(ValueError, match="device"):
         fused_attention(q, q, q)
+
+
+# (batch, heads, kv heads, seq, head dim): the serving shapes of one B=1 and
+# one B=2 forward (Qwen2 14/2 heads, DINOv2 and so400m over 2 images each).
+SERVING_SHAPES = [(1, 14, 2, 640, 64), (2, 14, 2, 640, 64),
+                  (2, 16, 16, 261, 64), (4, 16, 16, 261, 64),
+                  (2, 16, 16, 256, 72), (4, 16, 16, 256, 72)]
+
+
+@pytest.mark.parametrize("shape", SERVING_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_serving_shapes_take_the_one_pass_branch(shape):
+    """Every serving shape keeps its score block in shared memory, within
+    the 227 KB a block may use, with a warp for every 16 query rows."""
+    plan = attention_plan(*shape)
+    assert plan["branch"] == "one-pass"
+    assert 1 <= plan["warps"] <= 8 and plan["smem_bytes"] <= 232448
+    b, h, _, s, _ = shape
+    assert plan["ctas"] * plan["warps"] >= h * -(-s // 16) * b
+
+
+def test_plan_qwen2_b1_fills_one_wave():
+    """The Qwen2 call at B=1 runs in one wave (a grid of 64-row CTAs would
+    be 140 CTAs of 4 warps on 132 SMs, 8 of them in a second wave)."""
+    plan = attention_plan(1, 14, 2, 640, 64)
+    assert plan["ctas"] <= 132 * plan["ctas_per_sm"]
+    assert plan["waves"] >= 0.5
+
+
+@pytest.mark.parametrize("seq,dim,branch", [
+    (1, 16, "one-pass"), (2048, 128, "one-pass"), (3000, 128, "one-pass"),
+    (3200, 128, "two-pass"), (4000, 64, "two-pass")])
+def test_plan_branch_is_chosen_by_seq(seq, dim, branch):
+    plan = attention_plan(1, 2, 1, seq, dim)
+    assert plan["branch"] == branch
+    assert plan["smem_bytes"] <= 232448
+    assert plan["warps"] <= -(-seq // 16) * 2

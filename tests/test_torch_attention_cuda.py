@@ -12,6 +12,7 @@ import torch
 from vla_adapter_torch.ops import cuda_lib
 from vla_adapter_torch.ops.attention_kernel import (
     KERNEL_NAME,
+    attention_plan,
     attention_reference,
     fused_attention,
 )
@@ -67,6 +68,30 @@ def test_kernel_matches_plain(device, shape):
     rows = torch.ones(b, s, dtype=torch.bool, device=device)
     if valid is not None:
         rows = valid.bool()
+    diff = (got.float() - want.float()).abs().transpose(1, 2)[rows]
+    assert diff.max().item() <= ATOL, diff.max().item()
+
+
+@pytest.mark.parametrize("groups", [1, 7], ids=["mha", "gqa7"])
+@pytest.mark.parametrize("dim", [16, 64, 72, 128])
+@pytest.mark.parametrize("seq", [1, 63, 64, 65, 261, 640, 1024, 2048, 4000])
+def test_kernel_matches_plain_across_shapes(device, seq, dim, groups):
+    """Both branches at every tile edge: batch row 0 has trailing key
+    padding, batch row 1 none of its keys valid (its rows must stay
+    finite); odd lengths run causal. S = 4000 takes the two-pass branch."""
+    h, hkv = 2 * groups, 2
+    causal = seq % 2 == 1
+    q, k, v, _ = _inputs(2, h, hkv, seq, dim, False, device, seed=seq + dim)
+    valid = torch.ones(2, seq, dtype=torch.int32, device=device)
+    valid[0, seq - seq // 5:] = 0
+    valid[1] = 0
+    got = fused_attention(q, k, v, valid, causal=causal)
+    want = attention_reference(q, k, v, valid, causal=causal)
+    torch.cuda.synchronize()
+    assert attention_plan(2, h, hkv, seq, dim)["branch"] == (
+        "two-pass" if seq == 4000 else "one-pass")
+    assert torch.isfinite(got.float()).all()
+    rows = valid.bool()
     diff = (got.float() - want.float()).abs().transpose(1, 2)[rows]
     assert diff.max().item() <= ATOL, diff.max().item()
 

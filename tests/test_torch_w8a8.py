@@ -4,7 +4,10 @@ the CPU.
 * Kernels B4/B5: the plain versions (``ops/w8a8_matmul.py``) against the
   Pallas ``w8a8_matmul`` / ``w8a8_matmul_stacked`` in interpret mode, as
   tests/test_ops.py runs them: the int32 product is exact, so within 1e-6
-  (they agree bit for bit here).
+  (they agree bit for bit here). The plain version of ``w8a8_linear`` (the
+  entry with the quantization inside) against the JAX Dense's
+  ``_w8a8_fwd_math`` and the JAX BatchedDense's int8 einsum, run eagerly
+  (where JAX divides by 127 as the port does): bit for bit.
 * Dense and BatchedDense in their w8a8 and weight-only branches against
   the JAX modules on the same quantized weights (fp32, 1e-5).
 * The whole tiny VLA (tests/test_torch_modules.py) through the JAX
@@ -39,8 +42,12 @@ from vla_adapter_tpu.ops.pallas_matmul import (
 from vla_adapter_torch.data.tokenization import MockTokenizer
 from vla_adapter_torch.infer.predict import Predictor
 from vla_adapter_torch.models import layers as tlayers
+from vla_adapter_torch.ops import cuda_lib
 from vla_adapter_torch.ops.w8a8_matmul import (
+    KERNEL_NAME,
     quantize_rows,
+    w8a8_linear,
+    w8a8_linear_reference,
     w8a8_matmul,
     w8a8_matmul_reference,
     w8a8_matmul_stacked,
@@ -113,6 +120,59 @@ def test_wrappers_never_fall_back_off_the_cpu():
         w8a8_matmul(xq, rs, w, ws)
     with pytest.raises(ValueError, match="device"):
         w8a8_matmul_stacked(xq[None], rs[None], w[None], ws[None])
+    x = torch.zeros(4, 32, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        w8a8_linear(x, w, ws)
+    with pytest.raises(ValueError, match="device"):
+        w8a8_linear(x[None], w[None], ws[None])
+
+
+# (M, K, N) for the entry with the quantization inside: M = 1 (proprio),
+# 8 (the action head), odd and multi-tile M, and fc_in's K = 6272.
+LINEAR_CASES = [(1, 896, 256), (8, 6272, 128), (17, 448, 96),
+                (65, 896, 128), (200, 1152, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m,k,n", LINEAR_CASES,
+                         ids=lambda v: str(v))
+def test_w8a8_linear_plain_matches_jax_fwd_math(m, k, n, dtype):
+    """quantize_rows + the plain product == the JAX Dense's w8a8 math, bit
+    for bit, with an all-zero row (scale 1e-8 / 127) where M > 2."""
+    x, wq, ws = _operands(np.random.default_rng(m * k + n), m, k, n)
+    if m > 2:
+        x[1] = 0.0
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jlayers._w8a8_fwd_math(jnp.asarray(x, jdt), jnp.asarray(wq),
+                                  jnp.asarray(ws), jdt)
+    before = cuda_lib.LAUNCHES[KERNEL_NAME]
+    got = w8a8_linear(_t(x).to(tdt), _t(wq.T), _t(ws), out_dtype=tdt)
+    assert cuda_lib.LAUNCHES[KERNEL_NAME] == before  # a CPU tensor: plain
+    assert got.dtype == tdt and got.shape == (m, n)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    assert torch.equal(got, w8a8_linear_reference(_t(x).to(tdt), _t(wq.T),
+                                                  _t(ws), out_dtype=tdt))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_w8a8_linear_stacked_plain_matches_jax_batched_dense(dtype):
+    """Row block l of x (L, M, K) against layer l of the stack == the JAX
+    BatchedDense's int8 einsum with its row scales, bit for bit."""
+    rng = np.random.default_rng(11)
+    num_l, s, k, n = 3, 9, 64, 48
+    x = rng.normal(size=(1, num_l, s, k)).astype(np.float32)
+    q, sc = np_quantize(rng.normal(size=(num_l, k, n)).astype(np.float32))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    mod = jlayers.BatchedDense(n, num_l, use_bias=False,
+                               rt=_jax_rt(act_int8=True, dtype=jdt))
+    want = mod.apply({"params": {"kernel_q": q, "kernel_scale": sc}},
+                     jnp.asarray(x, jdt))
+    got = w8a8_linear(_t(x[0]).to(tdt), _t(np.swapaxes(q, -1, -2)), _t(sc),
+                      out_dtype=tdt)
+    assert got.shape == (num_l, s, n)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want[0].astype(jnp.float32)))
 
 
 def _jax_rt(**kw):

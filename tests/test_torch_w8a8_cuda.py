@@ -1,7 +1,9 @@
 """The w8a8 CUDA kernels against their plain versions, on the card.
 
 Kernels B4/B5 (``ops/w8a8_matmul.py``) must match bit for bit: the int32
-product is exact and the epilogue rounds as the plain version does.
+product is exact and the epilogue rounds as the plain version does; with
+the quantization inside (``w8a8_linear``) the kernel's int8 rows and
+scales equal ``quantize_rows``' too.
 Kernels B2/B3 (``ops/fused_mlp.py``) may differ where the kernel's
 expf/tanhf and PyTorch's land an ulp apart: a panel scale one ulp off moves
 its row by ulps, and an int8 rounding of h can flip. The tolerance is one
@@ -29,6 +31,8 @@ from vla_adapter_torch.ops.w8a8_matmul import (
     KERNEL_NAME,
     STACKED_KERNEL_NAME,
     quantize_rows,
+    w8a8_linear,
+    w8a8_linear_reference,
     w8a8_matmul,
     w8a8_matmul_reference,
     w8a8_matmul_stacked,
@@ -92,6 +96,140 @@ def test_w8a8_matmul_stacked_matches_plain_exactly(device):
     assert cuda_lib.LAUNCHES[STACKED_KERNEL_NAME] == before + 2
     assert torch.equal(got, w8a8_matmul_reference(xq, rs, w, ws))
     assert torch.equal(one, got[2])
+
+
+# (M, K, N) beyond MATMUL_SHAPES for the entry with the quantization
+# inside: the head at B=4 (M = 32) and a small M, ragged M at B=1, the
+# B=4 Qwen2 q/o, a "dense" MLP down projection (x streamed), three K
+# slices at M <= 16 (their maxima exchanged) and 13 column tiles (no
+# cluster divides them: x streamed).
+LINEAR_SHAPES = MATMUL_SHAPES + [(4, 896, 896), (32, 896, 896),
+                                 (523, 1024, 1024), (2560, 896, 896),
+                                 (640, 4864, 896), (16, 1040, 896),
+                                 (100, 1152, 832)]
+
+
+def _activations(rng, shape, dev, dtype):
+    """Normal activations with an outlier column and an all-zero row
+    (its scale is 1e-8 / 127), in the working dtype."""
+    x = rng.normal(size=shape).astype(np.float32)
+    x[..., 3] *= 20.0
+    x[..., min(1, shape[-2] - 1), :] = 0.0
+    return torch.from_numpy(x).to(dev, dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32],
+                         ids=["out_bf16", "out_f32"])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["x_bf16", "x_f32"])
+@pytest.mark.parametrize("shape", LINEAR_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_w8a8_linear_matches_plain_exactly(device, shape, x_dtype,
+                                           out_dtype):
+    m, k, n = shape
+    rng = np.random.default_rng(m * 7 + k + n)
+    x = _activations(rng, (m, k), device, x_dtype)
+    w, ws = _int8(rng, (n, k), device), _scales(rng, (n,), device, 1e-3, 1e-2)
+    before = cuda_lib.LAUNCHES[KERNEL_NAME]
+    got = w8a8_linear(x, w, ws, out_dtype=out_dtype)
+    again = w8a8_linear(x, w, ws, out_dtype=out_dtype)  # scratch left zeroed
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[KERNEL_NAME] == before + 2
+    want = w8a8_linear_reference(x, w, ws, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, want)
+    assert torch.equal(again, want)
+
+
+def _every_bf16(lo_exp: int, hi_exp: int) -> np.ndarray:
+    """Every bf16 value with lo_exp <= log2|v| < hi_exp, both signs."""
+    bits = np.arange((127 + lo_exp) << 7, (127 + hi_exp) << 7,
+                     dtype=np.uint32) << 16
+    pos = bits.view(np.float32)
+    return np.concatenate([pos, -pos])
+
+
+# (M, values, pad): every bf16 in [1, 64) (K = 1536: xq resident, the
+# quantization shared by a cluster), in [2^-6, 64) (K = 3088: x streamed;
+# at M = 8 split over K with the maxima exchanged).
+@pytest.mark.parametrize("m,lo_exp,pad", [(256, 0, 0), (256, -6, 16),
+                                          (8, -6, 16)],
+                         ids=["resident", "streamed", "narrow"])
+def test_w8a8_linear_rounds_ties_as_division(device, m, lo_exp, pad):
+    """Each row holds every bf16 value of a range beside its own bf16
+    absmax (256 of them in [64, 256)), so x / scale meets half-integers
+    exactly (x = absmax / 2 among them) and within an ulp of them: the
+    kernel's division-free quotient must round every value as
+    quantize_rows' division does."""
+    vals = _every_bf16(lo_exp, 6)
+    absmax = (np.arange(0x4280, 0x4380, dtype=np.uint32) << 16).view(
+        np.float32)
+    x = np.zeros((m, vals.size + pad), dtype=np.float32)
+    x[:, :vals.size] = vals
+    x[:, 0] = absmax[:m] if m < absmax.size else absmax
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(x).to(device, torch.bfloat16)
+    n = 512
+    w, ws = _int8(rng, (n, x.shape[1]), device), _scales(rng, (n,), device)
+    got = w8a8_linear(x, w, ws, out_dtype=torch.float32)
+    want = w8a8_linear_reference(x, w, ws, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32],
+                         ids=["out_bf16", "out_f32"])
+@pytest.mark.parametrize("m", [65, 512], ids=["adapter", "task"])
+def test_w8a8_linear_stacked_matches_plain_exactly(device, m, out_dtype):
+    """The head's K/V stacks: 24 layers, row block l against layer l."""
+    rng = np.random.default_rng(m)
+    num_l, k, n = 24, 896, 896
+    x = _activations(rng, (num_l, m, k), device, torch.bfloat16)
+    w, ws = _int8(rng, (num_l, n, k), device), _scales(rng, (num_l, n), device)
+    before = cuda_lib.LAUNCHES[STACKED_KERNEL_NAME]
+    got = w8a8_linear(x, w, ws, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[STACKED_KERNEL_NAME] == before + 1
+    assert torch.equal(got, w8a8_linear_reference(x, w, ws,
+                                                  out_dtype=out_dtype))
+
+
+def test_w8a8_layers_quantize_inside_the_kernel(device, monkeypatch):
+    """On the card Dense and BatchedDense run w8a8 as one launch each: no
+    quantize_rows (its ~10 elementwise launches) before the kernel."""
+    import dataclasses
+
+    from vla_adapter_torch.models import layers
+    from vla_adapter_torch.ops import w8a8_matmul as ops
+
+    rng = np.random.default_rng(4)
+    rt = dataclasses.replace(layers.Runtime(), weights_int8=True,
+                             act_int8=True)
+    dense = layers.Dense(512, 256, rt=rt, device=device)
+    stack = layers.BatchedDense(512, 256, 3, rt=rt, device=device)
+    for mod in (dense, stack):
+        mod.weight_q.copy_(_int8(rng, tuple(mod.weight_q.shape), device))
+        mod.weight_scale.fill_(1e-2)
+        mod.bias.zero_()
+    x = _activations(rng, (2, 5, 512), device, torch.bfloat16)
+    xs = _activations(rng, (2, 3, 5, 512), device, torch.bfloat16)
+    want = (dense(x), stack(xs))
+
+    def refuse(_):
+        raise AssertionError("quantize_rows ran on the card")
+
+    monkeypatch.setattr(ops, "quantize_rows", refuse)
+    before = dict(cuda_lib.LAUNCHES)
+    got = (dense(x), stack(xs))
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[KERNEL_NAME] == before.get(KERNEL_NAME, 0) + 1
+    assert cuda_lib.LAUNCHES[STACKED_KERNEL_NAME] == \
+        before.get(STACKED_KERNEL_NAME, 0) + 1
+    monkeypatch.undo()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    plain = dataclasses.replace(rt, kernels="plain")
+    dense.rt = stack.rt = plain
+    assert torch.equal(dense(x), got[0]) and torch.equal(stack(xs), got[1])
 
 
 def _flip_bound(x, w1, s1, w2, s2, up_q, up_scale, b1, act):
@@ -190,6 +328,9 @@ def test_kernels_reject_what_they_do_not_take(device):
     with pytest.raises(ValueError):
         w8a8_matmul(xq, rs, _int8(rng, (8, 40), device),
                     torch.ones(8, device=device))
+    with pytest.raises(TypeError):  # float16 activations
+        w8a8_linear(torch.zeros(4, 64, dtype=torch.float16, device=device),
+                    _int8(rng, (8, 64), device), torch.ones(8, device=device))
     x = torch.zeros(4, 64, device=device)
     w1, w2 = _int8(rng, (64, 64), device), _int8(rng, (64, 64), device)
     s = torch.ones(64, device=device)

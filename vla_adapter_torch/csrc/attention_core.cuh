@@ -1,6 +1,7 @@
 // Two-pass softmax attention of one warp's 16 query rows against every key
-// of one kv head: the device code shared by fused_attention.cu (kernel B1)
-// and megalayer_w8a8.cu (kernel B6), which keep the Pallas numerics
+// of one kv head: the attention loop of megalayer_w8a8.cu (kernel B6; B1,
+// fused_attention.cu, has its own one-pass design), which keeps the Pallas
+// numerics
 //
 //   s   = (q . k) * sm_scale + bias      fp32, bias = 0 / -2e9 from `valid`
 //   s   = -2e9 where key > query         (causal only)

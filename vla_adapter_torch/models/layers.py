@@ -29,10 +29,8 @@ from vla_adapter_torch.ops.fused_mlp import (
     w8a8_mlp,
 )
 from vla_adapter_torch.ops.w8a8_matmul import (
-    quantize_rows,
-    w8a8_matmul,
-    w8a8_matmul_reference,
-    w8a8_matmul_stacked,
+    w8a8_linear,
+    w8a8_linear_reference,
 )
 
 W8A8_IMPLS = ("dense", "fused", "mega")
@@ -144,12 +142,12 @@ def int8_params(module: nn.Module, shape, device) -> None:
 
 def w8a8_product(x: torch.Tensor, weight_q: torch.Tensor,
                  weight_scale: torch.Tensor, rt: Runtime) -> torch.Tensor:
-    """quantize_rows(x) then the int8 product with the rank-1 dequant
-    (kernel B4): x (..., K), weight_q (N, K) -> (..., N) in rt.dtype."""
+    """quantize_rows(x) and the int8 product with the rank-1 dequant, one
+    launch of kernel B4 (the quantization inside): x (..., K), weight_q
+    (N, K) -> (..., N) in rt.dtype."""
     lead, k = x.shape[:-1], x.shape[-1]
-    xq, rs = quantize_rows(x.reshape(-1, k))
-    matmul = w8a8_matmul_reference if rt.kernels == "plain" else w8a8_matmul
-    y = matmul(xq, rs, weight_q, weight_scale, out_dtype=rt.dtype)
+    linear = w8a8_linear_reference if rt.kernels == "plain" else w8a8_linear
+    y = linear(x.reshape(-1, k), weight_q, weight_scale, out_dtype=rt.dtype)
     return y.reshape(*lead, weight_q.shape[0])
 
 
@@ -220,7 +218,7 @@ class BatchedDense(nn.Module):
     (the JAX layout), bias (L, out); x (B, L, S, in) -> (B, L, S, out).
     Under rt.weights_int8 it holds weight_q (L, out, in) int8 and
     weight_scale (L, out); w8a8 runs every layer in one launch of kernel
-    B5, row block l of x against layer l."""
+    B5 (the quantization inside), row block l of x against layer l."""
 
     def __init__(self, in_features: int, features: int, num_layers: int,
                  use_bias: bool = True, *, rt: Runtime, device=None):
@@ -246,13 +244,10 @@ class BatchedDense(nn.Module):
     def _w8a8(self, x: torch.Tensor) -> torch.Tensor:
         rt = self.rt
         b, num_l, s, k = x.shape
-        xq, rs = quantize_rows(x.transpose(0, 1).reshape(num_l, b * s, k))
-        if rt.kernels == "plain":
-            y = w8a8_matmul_reference(xq, rs, self.weight_q,
-                                      self.weight_scale, out_dtype=rt.dtype)
-        else:
-            y = w8a8_matmul_stacked(xq, rs, self.weight_q, self.weight_scale,
-                                    out_dtype=rt.dtype)
+        linear = w8a8_linear_reference if rt.kernels == "plain" \
+            else w8a8_linear
+        y = linear(x.transpose(0, 1).reshape(num_l, b * s, k), self.weight_q,
+                   self.weight_scale, out_dtype=rt.dtype)
         return y.reshape(num_l, b, s, -1).transpose(0, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

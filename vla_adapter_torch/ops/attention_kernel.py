@@ -1,11 +1,14 @@
 """Fused attention: the hand-written CUDA kernel and its plain version.
 
 Counterpart of ``vla_adapter_tpu/ops/pallas_attention.py:fused_attention``.
-The kernel (``csrc/fused_attention.cu``) is single-pass attention for the
-short VLA sequences (S <= 1024): fp32 scores from bf16 q/k, an additive
-0 / -2e9 key bias from ``valid``, an optional causal mask, probabilities
-``exp(s - max)`` rounded to bf16 *unnormalised* before ``p @ v``, and the
-1/l normalisation (l summed from the rounded p) applied to the output.
+The kernel (``csrc/fused_attention.cu``) computes fp32 scores from bf16
+q/k, an additive 0 / -2e9 key bias from ``valid``, an optional causal mask,
+probabilities ``exp(s - max)`` rounded to bf16 *unnormalised* before
+``p @ v``, and the 1/l normalisation (l summed from the rounded p) applied
+to the output. It computes each score once and keeps a warp's 16 x S score
+block in shared memory (the "one-pass" branch); :func:`attention_plan`
+chooses the CTA size per shape, and the "two-pass" branch (scores
+recomputed) only where not even one warp's block fits.
 
 :func:`attention_reference` repeats that arithmetic in plain PyTorch. The
 CPU tests and CPU runs use it; :func:`fused_attention` takes it only for a
@@ -15,6 +18,7 @@ tensor on the CPU. A CUDA tensor always goes to the kernel, or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -25,6 +29,64 @@ NEG_INF = -2.0e9  # the Pallas kernel's large negative (no inf - inf NaNs)
 KERNEL_NAME = "fused_attention"
 _SOURCE = "fused_attention.cu"
 _MAX_HEAD_DIM = 128
+
+# H100 SXM: SMs (the default; the wrapper passes the device's count),
+# shared memory per SM (228 KB, 1 KB of it reserved per block) and per
+# block (227 KB), as the kernel's launch assumes them. The shared memory
+# layout below is the one csrc/fused_attention.cu:smem_bytes sizes, which
+# refuses a launch that would not fit.
+_SMS = 132
+_SM_SMEM = 233472
+_BLOCK_SMEM = 232448
+_KEY_TILE = 64
+_MAX_WARPS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(batch: int, heads: int, kv_heads: int, seq: int,
+                   dim: int, sms: int = _SMS) -> dict:
+    """How ``csrc/fused_attention.cu`` runs a shape on ``sms`` SMs
+    (cached per shape: do not modify the result): the branch
+    ("one-pass": each warp's 16 x S fp32 scores stay in shared memory;
+    "two-pass": recomputed, where not even one warp's block fits), warps
+    per CTA (units of 16 query rows of one head of a kv group), the grid's
+    CTAs, CTAs per SM, waves and shared memory per CTA.
+
+    Among the CTA sizes whose score block fits, it takes the one with the
+    fewest rounds of CTAs on the busiest SM, then the fewest warps run
+    there in all, then the most warps per CTA (fewer re-reads of K/V from
+    L2). Registers are taken as <= 128 per thread. (On an H100 a second
+    round cost far more than a second warp on a sub-partition: at the
+    Qwen2 shape, 112 CTAs of 5 warps took 28 us, 140 of 4 took 45.)"""
+    dp = -(-dim // 16) * 16
+    tiles = -(-seq // _KEY_TILE)
+    tile_bytes = _KEY_TILE * (dp + 8) * 2
+    slot = tile_bytes + 4 * _KEY_TILE  # a K or V tile and its valid flags
+    units = (heads // kv_heads) * -(-seq // 16)
+
+    def occupancy(warps, smem):
+        ctas = batch * kv_heads * -(-units // warps)
+        per_sm = min(_SM_SMEM // (smem + 1024), 64 // warps, 16 // warps, 32)
+        return ctas, per_sm
+
+    best = None
+    for warps in range(1, min(_MAX_WARPS, units) + 1):
+        smem = 2 * slot + warps * tiles * 4096
+        if smem > _BLOCK_SMEM:
+            break
+        ctas, per_sm = occupancy(warps, smem)
+        busiest = -(-ctas // sms)  # CTAs the busiest SM runs
+        key = (-(-busiest // per_sm), busiest * warps, -warps)
+        if best is None or key < best[0]:
+            best = (key, warps, smem)
+    if best is None:  # K and V of a tile in each of the two slots
+        branch, warps, smem = "two-pass", 4, 2 * (slot + tile_bytes)
+    else:
+        branch, (_, warps, smem) = "one-pass", best
+    ctas, per_sm = occupancy(warps, smem)
+    return {"branch": branch, "warps": warps, "ctas": ctas,
+            "ctas_per_sm": per_sm, "waves": ctas / (sms * per_sm),
+            "smem_bytes": smem}
 
 
 def attention_reference(
@@ -58,13 +120,18 @@ def attention_reference(
     return out.to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _lib() -> ctypes.CDLL:
     lib = cuda_lib.load_library(_SOURCE)
     fn = lib.vla_fused_attention_bf16
     if not fn.argtypes:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = ([p] * 5 + [i] * 5 + [ll] * 13
-                       + [ctypes.c_float, i, p])
+                       + [ctypes.c_float, i, i, i, p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -123,6 +190,7 @@ def fused_attention(
         sm_scale = d ** -0.5
     out = torch.empty((b, s, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    plan = attention_plan(b, h, hkv, s, d, _sm_count(q.device))
     lib = _lib()
     with torch.cuda.device(q.device):  # the launch goes to the current device
         err = lib.vla_fused_attention_bf16(
@@ -131,7 +199,8 @@ def fused_attention(
             b, h, hkv, s, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], 0 if valid is None else valid.stride(0),
-            float(sm_scale), int(causal),
+            float(sm_scale), int(causal), plan["warps"],
+            int(plan["branch"] == "one-pass"),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_attention: kernel launch failed "
