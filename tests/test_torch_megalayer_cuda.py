@@ -104,6 +104,20 @@ def test_megalayer_without_key_padding(device):
                   megalayer_reference(*args, eps=1e-6))
 
 
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "unpadded"])
+@pytest.mark.parametrize("m", [17, 100])
+def test_megalayer_at_small_m(device, m, padded):
+    """Row tiles that are mostly past M, one or a few per stage; two calls
+    give the same bits."""
+    args = list(_layer_args(m, 896, 14, 2, 64, 4864, device, seed=m))
+    if not padded:
+        args[4] = None
+    got, again = (w8a8_qwen2_layer(*args, eps=1e-6) for _ in range(2))
+    torch.cuda.synchronize()
+    _assert_close(got, megalayer_reference(*args, eps=1e-6))
+    assert torch.equal(again, got)
+
+
 def test_graph_replay_matches_eager(device):
     """A launch captured in a CUDA graph (the kernel sets its shared-memory
     limit once, at its first uncaptured launch) replays to the eager

@@ -302,6 +302,88 @@ def test_fused_mlp_matches_plain(device, shape, dtype):
     assert float(flipped.float().mean()) <= 0.02, int(flipped.sum())
 
 
+def _mlp_case(shape, dev, dtype=torch.bfloat16):
+    """x and one MLP's weights as the models hold them: lecun-normal float
+    weights quantized per output channel, normal activations."""
+    from vla_adapter_torch.models.quantize import quantize_weight
+
+    m, k, f, d, act, gated = shape
+    gen = torch.Generator(device=dev).manual_seed(m * 3 + f)
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device=dev)
+
+    def weight(n, kk):
+        return quantize_weight(randn(n, kk) / kk ** 0.5)
+
+    x = randn(m, k).to(dtype)
+    w1, s1 = weight(f, k)
+    w2, s2 = weight(d, f)
+    if gated:
+        up_q, up_scale = weight(f, k)
+        return x, lambda: w8a8_gated_mlp(x, w1, s1, up_q, up_scale, w2, s2,
+                                         act=act), \
+            lambda: fused_mlp_reference(x, w1, s1, w2, s2, up_q=up_q,
+                                        up_scale=up_scale, act=act)
+    b1, b2 = 0.02 * randn(f), 0.02 * randn(d)
+    return x, lambda: w8a8_mlp(x, w1, s1, b1, w2, s2, b2, act=act), \
+        lambda: fused_mlp_reference(x, w1, s1, w2, s2, b1=b1, b2=b2, act=act)
+
+
+# (M, K, F, D, act, gated) where the work split is uneven: a ragged F
+# (so400m, the last of 9 panels 208 wide), a half last panel (Qwen2, F =
+# 4864), 17 panels (the projector), M not a multiple of the 32-row tile
+# (1, 17, 522, 2088) and M above one wave of CTAs (Qwen2 at B=4).
+SPLIT_SHAPES = [
+    (1, 896, 4864, 896, "silu", True),
+    (17, 896, 4864, 896, "silu", True),
+    (17, 1152, 4304, 1152, "gelu_tanh", False),
+    (512, 1152, 4304, 1152, "gelu_tanh", False),
+    (522, 1024, 4096, 1024, "gelu", False),
+    (2088, 1024, 4096, 1024, "gelu", False),
+    (256, 2176, 8704, 896, "gelu", False),
+    (2560, 896, 4864, 896, "silu", True),
+]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:4])))
+def test_fused_mlp_equals_plain_where_the_split_is_uneven(device, shape):
+    """Bit for bit with the plain version, and two calls on the same
+    inputs give the same bits (no float atomics: the panels meet in one
+    order)."""
+    _, kernel, plain = _mlp_case(shape, device)
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    assert torch.equal(got, want), float((got.float() - want.float())
+                                         .abs().max())
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("shape", [SPLIT_SHAPES[1], SPLIT_SHAPES[4]],
+                         ids=["gated", "plain"])
+def test_fused_mlp_graph_replay_matches_eager(device, shape):
+    """A launch captured in a CUDA graph (the per-device counters exist and
+    the shared-memory limit is set before the capture) replays to the
+    eager output, bit for bit, and leaves the counters zeroed."""
+    _, kernel, _ = _mlp_case(shape, device)
+    eager = kernel()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kernel()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    assert torch.equal(kernel(), eager)
+
+
 def test_fused_mlp_panel_width_is_numerics(device):
     """block_f changes the re-quantization of h, and the kernel follows the
     plain version at 128 as at 512."""

@@ -93,7 +93,9 @@
 namespace {
 
 using vla_w8a8::kMaxSmem;
+using vla_w8a8::low_bytes;
 using vla_w8a8::mma_s8;
+using vla_w8a8::quant_bits;
 using vla_w8a8::row_scale;
 
 struct Params {
@@ -133,32 +135,6 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// clip(round_half_even(f / scale), -127, 127), as vla_w8a8::quant computes
-// it, without a division. With inv = 1 / scale rounded to nearest,
-// y0 = f * inv is within an ulp of f / scale, the residual f - y0 * scale
-// is exact in one FMA, and y0 + residual * inv rounded once is the
-// correctly rounded quotient (Markstein's theorem for division with an
-// FMA), which __fdiv_rn computes. Ties of that quotient at a half-integer
-// are common in bf16 data (x = +-absmax / 2 among them), so the rounding
-// must start from it and not from y0. The clip never acts: |f| <= absmax
-// and scale >= absmax / 127 rounded down by at most an ulp, so
-// |f / scale| < 127.0001 rounds into [-127, 127].
-// Adding 1.5 * 2^23 rounds a float of magnitude < 2^22 to an integer,
-// half to even (the ulp there is 1), and leaves that integer in the low
-// mantissa bits: its low byte is the int8 in two's complement.
-constexpr float kRound = 12582912.0f;
-
-__device__ __forceinline__ uint32_t quant_bits(float f, float scale, float inv) {
-  const float y0 = __fmul_rn(f, inv);
-  const float y = __fmaf_rn(__fmaf_rn(-y0, scale, f), inv, y0);
-  return __float_as_uint(__fadd_rn(y, kRound));
-}
-
-// The low byte of each of four words, packed into one.
-__device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
 }
 
 // NG groups of four floats, group i with its row's scale and 1 / scale,

@@ -120,11 +120,6 @@ def attention_reference(
     return out.to(q.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _lib() -> ctypes.CDLL:
     lib = cuda_lib.load_library(_SOURCE)
     fn = lib.vla_fused_attention_bf16
@@ -190,7 +185,7 @@ def fused_attention(
         sm_scale = d ** -0.5
     out = torch.empty((b, s, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
-    plan = attention_plan(b, h, hkv, s, d, _sm_count(q.device))
+    plan = attention_plan(b, h, hkv, s, d, cuda_lib.sm_count(q.device))
     lib = _lib()
     with torch.cuda.device(q.device):  # the launch goes to the current device
         err = lib.vla_fused_attention_bf16(

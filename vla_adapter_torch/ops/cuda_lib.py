@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -44,6 +45,14 @@ _SOURCE_LOCKS: dict = collections.defaultdict(threading.Lock)
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SMs of a CUDA device, which the kernels' plans size grids by."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def find_nvcc() -> str:

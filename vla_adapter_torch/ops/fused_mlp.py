@@ -20,6 +20,13 @@ so400m's 4304 is masked inside the kernel). The JAX functions take one
 layer of an (L, K, F) stack; the port keeps each layer's weights in its own
 module, so the functions here take one layer's weights.
 
+The kernel splits the walk into work items, taken by a persistent grid
+from an atomic ticket: quantization items (32-row tile) write xq and the
+row scales to a scratch, up items (32-row tile, panel) hq and hs, down
+items (64-row tile, 128 output columns) sum the panels in order. :func:`mlp_plan` gives the split and the grid for a shape
+and :func:`mlp_work_items` the items in ticket order, as the kernel takes
+them.
+
 :func:`fused_mlp_reference` repeats the arithmetic in plain PyTorch. The
 wrappers take it only for a CPU tensor; a CUDA tensor always goes to the
 kernel, or raises.
@@ -28,6 +35,7 @@ kernel, or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -41,6 +49,97 @@ SOURCE = "fused_mlp_w8a8.cu"
 BLOCK_F = 512
 ACTIVATIONS = ("silu", "gelu", "gelu_tanh", "quick_gelu")
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+# The kernel's tiling (csrc/w8a8_mlp.cuh): rows per quantization and up
+# item, rows per down item, output columns per down item (and panel columns
+# per up-item chunk), bytes of k per ring step and warps per CTA; H100 SXM
+# SMs (the default; the wrapper passes the device's count) and shared
+# memory per SM and per block.
+ROW_TILE = 32
+DOWN_ROW_TILE = 64
+COL_TILE = 128
+K_STEP = 128
+WARPS = 8
+SMS = 132
+SM_SMEM = 233472
+BLOCK_SMEM = 232448
+# The ticket and the ready counters live in a per-device int32 scratch that
+# the kernels leave zeroed: 2 + 4 ceil(M / 32) of them at most (B6).
+COUNTER_CAP = 1 << 16
+_COUNTERS: dict = {}
+
+
+def _round_up(n: int, to: int) -> int:
+    return -(-n // to) * to
+
+
+def ring_depth(gated: bool) -> int:
+    """Ring slots (csrc/w8a8_mlp.cuh:ring_depth): 4 for the gated MLP, 3
+    for the plain one, whose CTAs then fit two to an SM."""
+    return 4 if gated else 3
+
+
+def mlp_smem_bytes(kpad: int, panels: int, gated: bool) -> int:
+    """Shared memory of an MLP stage (csrc/w8a8_mlp.cuh:mlp_smem_bytes):
+    the resident 32 rows of xq, the ring (a slot holds an up step, 128
+    rows of W1 and of Wu, or a down step, 64 rows of hq and 128 of W2), the
+    down item's panel scales, the cross-warp absmax and the row scales."""
+    slot = max((2 if gated else 1) * COL_TILE * K_STEP,
+               (DOWN_ROW_TILE + COL_TILE) * K_STEP)
+    return ROW_TILE * kpad + ring_depth(gated) * slot + 4 * (
+        DOWN_ROW_TILE * panels + WARPS * ROW_TILE + ROW_TILE)
+
+
+def ctas_per_sm(smem: int, gated: bool) -> int:
+    """CTAs of 8 warps one SM holds at ``smem`` bytes each: the gated
+    kernels (and B6) are built for one, the plain one for up to two (its
+    launch bounds cap it at 128 registers a thread)."""
+    return 1 if gated else max(1, min(SM_SMEM // (smem + 1024), 2))
+
+
+def _mlp_split(m: int, f: int, d: int, block_f: int) -> dict:
+    panels = -(-f // block_f)
+    return {"row_tile": ROW_TILE, "row_tiles": -(-m // ROW_TILE),
+            "panels": panels, "panel_width": block_f,
+            "last_panel_columns": f - (panels - 1) * block_f,
+            "down_row_tile": DOWN_ROW_TILE,
+            "down_row_tiles": -(-m // DOWN_ROW_TILE), "col_tile": COL_TILE,
+            "col_tiles": -(-d // COL_TILE)}
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_plan(m: int, k: int, f: int, d: int, *, gated: bool,
+             block_f: int = BLOCK_F, sms: int = SMS) -> dict:
+    """How ``csrc/fused_mlp_w8a8.cu`` runs one MLP on ``sms`` SMs (cached
+    per shape: do not modify the result): the row tiles (32 rows for the
+    quantization of x and the up items, 64 for the down items), the panel
+    split (panels, the last one's real columns), the column tile of the
+    down items, the items of each kind, the persistent grid (CTAs, CTAs
+    per SM, items per CTA as "waves") and shared memory per CTA."""
+    plan = _mlp_split(m, f, d, block_f)
+    smem = mlp_smem_bytes(_round_up(k, K_STEP), plan["panels"], gated) + 16
+    counts = {"quant_items": plan["row_tiles"],
+              "up_items": plan["row_tiles"] * plan["panels"],
+              "down_items": plan["down_row_tiles"] * plan["col_tiles"]}
+    items = sum(counts.values())
+    per_sm = ctas_per_sm(smem, gated)
+    ctas = min(items, sms * per_sm)
+    return {**plan, **counts, "ctas": ctas, "ctas_per_sm": per_sm,
+            "waves": items / ctas, "smem_bytes": smem}
+
+
+def mlp_work_items(plan: dict) -> list:
+    """The MLP's work items of a plan in ticket order, as the kernels
+    decode their tickets: ("quant", row tile) where the plan has them (the
+    rows of x quantized once), ("up", row tile, panel) for every panel of
+    every 32-row tile, then ("down", 64-row tile, column tile, the panels
+    in the order it sums them)."""
+    items = [("quant", t) for t in range(plan.get("quant_items", 0))]
+    items += [("up", t // plan["panels"], t % plan["panels"])
+              for t in range(plan["up_items"])]
+    order = tuple(range(plan["panels"]))
+    return items + [("down", t // plan["col_tiles"], t % plan["col_tiles"],
+                     order) for t in range(plan["down_items"])]
 
 
 def _sigmoid(x):
@@ -107,9 +206,36 @@ def _lib() -> ctypes.CDLL:
     fn = lib.vla_fused_mlp_w8a8
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 7 + [p]
+        fn.argtypes = [p] * 15 + [i] * 8 + [p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def scratch(device: torch.device, sizes):
+    """One uint8 tensor for this call holding buffers of the given byte
+    sizes, each at a 256-byte boundary: (tensor, their addresses). Keep
+    the tensor until the kernel is launched."""
+    offsets = [0]
+    for size in sizes[:-1]:
+        offsets.append(offsets[-1] + _round_up(size, 256))
+    buf = torch.empty(offsets[-1] + sizes[-1], dtype=torch.uint8,
+                      device=device)
+    return buf, [buf.data_ptr() + o for o in offsets]
+
+
+def counters(device: torch.device, needed: int) -> torch.Tensor:
+    """The device's ticket and ready counters (zeroed once, at first use,
+    outside any CUDA graph capture; the kernels leave them zeroed). Calls
+    on one device run in stream order, so they share it."""
+    if needed > COUNTER_CAP:
+        raise ValueError(f"{needed} counters exceed the scratch's "
+                         f"{COUNTER_CAP}: too many rows")
+    key = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(COUNTER_CAP, dtype=torch.int32,
+                                     device=device)
+    return _COUNTERS[key]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -135,9 +261,11 @@ def _launch(name, x, w1, s1, up_q, up_scale, b1, w2, s2, b2, act, out_dtype,
             up_q is not None and up_q.shape != (f, k)):
         raise ValueError(f"{name}: x {tuple(x.shape)} w1 {tuple(w1.shape)} "
                          f"w2 {tuple(w2.shape)}")
-    if k % 16 or f % 16 or block_f % 64 or not 0 < block_f <= BLOCK_F:
+    if k % 16 or f % 16 or d % 2 or block_f % 64 \
+            or not 0 < block_f <= BLOCK_F:
         raise ValueError(f"{name}: K={k} and F={f} must be multiples of 16, "
-                         f"block_f={block_f} a multiple of 64 up to 512")
+                         f"D={d} even, block_f={block_f} a multiple of 64 "
+                         "up to 512")
     vecs = [s1, s2, up_scale, b1, b2]
     operands = [x] + weights + [v for v in vecs if v is not None]
     if any(t.device != x.device for t in operands):
@@ -147,14 +275,22 @@ def _launch(name, x, w1, s1, up_q, up_scale, b1, w2, s2, b2, act, out_dtype,
     up_q = None if up_q is None else up_q.contiguous()
     s1, s2, up_scale, b1, b2 = (None if v is None else v.float().contiguous()
                                 for v in vecs)
+    plan = mlp_plan(m, k, f, d, gated=up_q is not None, block_f=block_f,
+                    sms=cuda_lib.sm_count(x.device))
+    panels = plan["panels"]
+    count = counters(x.device, 2 + 2 * plan["row_tiles"])
     out = torch.empty((m, d), dtype=out_dtype, device=x.device)
+    buf, (xq, rs, hq, hs) = scratch(x.device, [
+        m * _round_up(k, K_STEP), 4 * m,
+        m * panels * _round_up(block_f, K_STEP), 4 * m * panels])
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.vla_fused_mlp_w8a8(
             x.data_ptr(), w1.data_ptr(), s1.data_ptr(), _ptr(up_q),
             _ptr(up_scale), _ptr(b1), w2.data_ptr(), s2.data_ptr(), _ptr(b2),
-            out.data_ptr(), m, k, f, d, block_f, ACTIVATIONS.index(act),
-            _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+            out.data_ptr(), xq, rs, hq, hs, count.data_ptr(), m, k, f, d,
+            block_f, ACTIVATIONS.index(act), _DTYPES[x.dtype], plan["ctas"],
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
     cuda_lib.LAUNCHES[name] += 1
