@@ -41,21 +41,31 @@ Phases, in order; any failure exits non-zero:
 5. flagship bf16 forward: ``VLAConfig()`` at full width and depth (DINOv2-L
    + so400m @224, 2 images, Qwen2.5-0.5B, a 24-block Pro head, 640 LLM
    tokens), random bf16 weights from a seeded CUDA generator, served
-   through ``Predictor``: predict_action (B=1) and predict_action_batch
-   (B=4), with launch counts read around exactly those requests. The same
-   rows then go through the plain attention for an end-to-end comparison.
+   through ``Predictor`` (on the card a CUDA graph per key, replayed):
+   predict_action (B=1) and predict_action_batch (B=4), with launch counts
+   read around exactly those requests. The same rows then go through the
+   plain attention for an end-to-end comparison.
 6. flagship w8a8 forward: ``Predictor(act_int8=True)`` over the same
    weights quantized on the card, each backend ("fused", "dense", "auto"
    at B=1 and B=4; "mega" at B=1, where a B=4 call must raise) driven with
    the launch counts reset before and read after it and checked against
    the counts :func:`w8a8_shapes` derives; actions against the all-plain
-   path and against bf16 (mega also against fused); a crossover in turns on
-   the same rows (mega, fused and dense at B=1; fused and dense at B=2 and
-   4); then ``Predictor(int8=True)`` (weight-only) once.
+   path and against bf16 (mega also against fused); then
+   ``Predictor(int8=True)`` (weight-only) once.
+7. CUDA graphs (:func:`phase_graph`): every tier replayed against its
+   eager forward, bit for bit and launch for launch, over requests whose
+   prompt lengths and images differ; capture time per key and each pool's
+   bytes; a crossover in turns on the same rows (eager and graph for every
+   tier at B=1; bf16, int8, fused and dense under graphs at B=2 and 4).
+8. checkpoint (:func:`phase_checkpoint`): the flagship exported with the
+   port's exporter and loaded back with ``load_vla`` (no JAX), bit for
+   bit in weights and in bf16 and w8a8 "fused" actions; export and load
+   timed.
 
-With ``--profile`` it also profiles one B=1 request per tier and checks
-that the w8a8 tiers launch at least 3,000 fewer kernels per request than
-before the quantization moved inside B4 (``KERNELS_PER_REQUEST_BEFORE``).
+With ``--profile`` phase 7 also profiles one B=1 request per tier, eager
+and replayed, and checks that the eager w8a8 tiers launch at least 3,000
+fewer kernels per request than before the quantization moved inside B4
+(``KERNELS_PER_REQUEST_BEFORE``).
 
 Prints the card's name and power limit, one JSON line per kernel shape, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -118,6 +128,10 @@ MEGALAYER_ROW_SHARE = 0.10
 QUANTIZED_VS_BF16_LIMIT = 0.5
 
 INSTRUCTION = "put both the alphabet soup and the tomato sauce in the basket"
+# prompts of other lengths, so that a graph's replays see other prompt
+# lengths (and other images) than the request it was captured at
+GRAPH_INSTRUCTIONS = (INSTRUCTION, "pick up the black bowl",
+                      "open the top drawer and put the bowl inside")
 
 # Kernels per profiled B=1 request before the activation quantization
 # moved inside kernel B4 (PERF.md: measured on an NVIDIA H100 80GB HBM3 at
@@ -386,12 +400,14 @@ def phase_flagship(predictor, rng, card: str):
         t0 = time.perf_counter()
         outs.append(predictor.predict_action(images, INSTRUCTION, proprio))
         chunk_s.append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    out_b = predictor.predict_action_batch(
-        [im for im, _ in batch], [INSTRUCTION] * 4, [p for _, p in batch])
-    batch_s = time.perf_counter() - t0
+    batch_s = []  # the first batch pays its one-time set-up (the capture)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out_b = predictor.predict_action_batch(
+            [im for im, _ in batch], [INSTRUCTION] * 4, [p for _, p in batch])
+        batch_s.append(time.perf_counter() - t0)
     launches = dict(cuda_lib.LAUNCHES)
-    forwards = len(requests) + 1
+    forwards = len(requests) + 2
 
     for a in outs:
         if a.shape != (8, 7) or not np.isfinite(a).all():
@@ -428,7 +444,8 @@ def phase_flagship(predictor, rng, card: str):
            "b1_ms_median": 1e3 * statistics.median(timed),
            "b1_ms_min": 1e3 * min(timed), "b1_ms_max": 1e3 * max(timed),
            "b1_first_ms": 1e3 * chunk_s[0],
-           "b4_ms": 1e3 * batch_s, "b4_ms_per_chunk": 1e3 * batch_s / 4,
+           "b4_first_ms": 1e3 * batch_s[0], "b4_ms": 1e3 * batch_s[1],
+           "b4_ms_per_chunk": 1e3 * batch_s[1] / 4,
            "b1_plain_attention_ms_median": 1e3 * statistics.median(plain_s),
            "attention_launches": launches.get("fused_attention", 0),
            "forwards": forwards, "launches_per_forward": per_forward,
@@ -439,35 +456,34 @@ def phase_flagship(predictor, rng, card: str):
     return rec, launches
 
 
-def profile_request(predictor, rng, label: str = "bf16"):
-    """One B=1 predict_action under torch.profiler: the device's busy time
-    (sum of kernel durations on the card) against the request's host wall
-    time, and the kernels that take most of it."""
+def profile_request(predictor, rows, label: str):
+    """One B=1 forward of ``rows`` (forward, copy back, unnormalization)
+    under torch.profiler: the device's busy time (sum of kernel durations
+    on the card) against the request's host wall time, and the kernels
+    that take most of it. For a Predictor that serves through CUDA graphs
+    also the device time of one bare replay of its graph (CUDA events);
+    where the profiler sees no kernel inside the graph, that time stands
+    for the busy time, and the line says so."""
     import collections
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = predictor.cfg
-    size = cfg.vision.primary.image_size
-    images = [rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8)
-              for _ in range(cfg.vision.num_images)]
-    proprio = rng.normal(size=cfg.constants.proprio_dim)
-    predictor.predict_action(images, INSTRUCTION, proprio)
+    predictor.predict_action_rows(rows)  # builds, or captures the graph
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predictor.predict_action(images, INSTRUCTION, proprio)
+        predictor.predict_action_rows(rows)
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name = collections.Counter()
     for e in kernels:
         by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
-    rec = {"tier": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "device_idle_share": 1 - busy_ms / wall_ms,
+    rec = {"tier": label, "mode": "graph" if predictor.graphs else "eager",
+           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_kernels": len(kernels),
            "attention_kernel_ms": sum(v for k, v in by_name.items()
                                       if "fused_attention" in k),
@@ -478,6 +494,16 @@ def profile_request(predictor, rng, label: str = "bf16"):
                                            "w8a8_narrow_kernel",
                                            "megalayer_kernel")},
            "top": [[k, v] for k, v in by_name.most_common(10)]}
+    if predictor.graphs:
+        key = predictor.graph_key(len(rows), "proprio" in rows[0])
+        graph = predictor.graphs.captures[key].graph
+        rec["replay_event_ms"] = _event_ms(graph.replay, 5)
+        if not kernels:
+            rec["device_busy_ms"] = rec["replay_event_ms"]
+            rec["note"] = ("the profiler saw no kernel inside the graph: "
+                           "device_busy_ms is the CUDA-event time of a bare "
+                           "replay")
+    rec["device_idle_share"] = 1 - rec["device_busy_ms"] / wall_ms
     print("profile " + json.dumps(rec), flush=True)
     return rec
 
@@ -964,8 +990,9 @@ def _requests(cfg, rng, n):
 
 
 def _serve(pred, requests, batch):
-    """B=1 requests one by one, then one batch unless ``batch`` is empty:
-    (per-request seconds, batch seconds or None), the outputs checked."""
+    """B=1 requests one by one, then the batch twice unless ``batch`` is
+    empty (the first pays the B=4 key's one-time set-up): (per-request
+    seconds, the second batch's seconds or None), the outputs checked."""
     chunk_s = []
     for images, proprio in requests:
         t0 = time.perf_counter()
@@ -976,11 +1003,12 @@ def _serve(pred, requests, batch):
                                  f"{np.isfinite(out).all()}")
     if not batch:
         return chunk_s, None
-    t0 = time.perf_counter()
-    out_b = pred.predict_action_batch([im for im, _ in batch],
-                                      [INSTRUCTION] * len(batch),
-                                      [p for _, p in batch])
-    batch_s = time.perf_counter() - t0
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out_b = pred.predict_action_batch([im for im, _ in batch],
+                                          [INSTRUCTION] * len(batch),
+                                          [p for _, p in batch])
+        batch_s = time.perf_counter() - t0
     if out_b.shape != (len(batch), 8, 7) or not np.isfinite(out_b).all():
         raise AssertionError(f"predict_action_batch gave {out_b.shape}")
     return chunk_s, batch_s
@@ -1001,7 +1029,7 @@ def _per_row_actions(pred, rows):
     return np.concatenate([pred.normalized_actions([r]) for r in rows])
 
 
-def phase_w8a8(bf16_pred, shapes, rng, card: str, profile: bool = False):
+def phase_w8a8(bf16_pred, shapes, rng, card: str):
     """The w8a8 main path: Predictor(act_int8=True) over the bf16
     predictor's weights, quantized on the card; each backend driven at B=1
     (and, but for "mega", B=4) between a reset and a read of the launch
@@ -1043,7 +1071,7 @@ def phase_w8a8(bf16_pred, shapes, rng, card: str, profile: bool = False):
         counts = dict(cuda_lib.LAUNCHES)
         impls = [resolve_w8a8_impl(pred.w8a8_impl, 1)] * len(requests)
         if not b1_only:
-            impls.append(resolve_w8a8_impl(pred.w8a8_impl, len(batch)))
+            impls += [resolve_w8a8_impl(pred.w8a8_impl, len(batch))] * 2
         want = collections.Counter()
         for impl in impls:
             want.update(expected_w8a8_launches(shapes, impl))
@@ -1074,32 +1102,6 @@ def phase_w8a8(bf16_pred, shapes, rng, card: str, profile: bool = False):
         raise AssertionError("w8a8 mega served a batch of 4")
     if dict(cuda_lib.LAUNCHES) != before:
         raise AssertionError("w8a8 mega launched kernels for a refused batch")
-
-    # --- the crossover in turns on the same preprocessed rows (forward +
-    # unnormalization): mega, fused and dense at B=1 in rotated order;
-    # fused against dense at B=2 and B=4 (the "auto" constant) ---
-    rec["crossover"] = {}
-    for b, rounds, names in ((1, 9, ("mega", "fused", "dense")),
-                             (2, 6, ("fused", "dense")),
-                             (4, 4, ("fused", "dense"))):
-        rows_b = [auto.preprocess(im, INSTRUCTION, p)
-                  for im, p in _requests(cfg, rng, b)]
-        times = {name: [] for name in names}
-        for i in range(rounds):
-            shift = i % len(names)
-            for name in names[shift:] + names[:shift]:
-                t0 = time.perf_counter()
-                backends[name].predict_action_rows(rows_b)
-                times[name].append(time.perf_counter() - t0)
-        cell = {**{f"{name}_ms_median": 1e3 * statistics.median(v)
-                   for name, v in times.items()},
-                "fused_faster_pairs": sum(
-                    f < d for f, d in zip(times["fused"], times["dense"])),
-                "pairs": rounds}
-        if "mega" in times:
-            cell["mega_faster_than_fused_pairs"] = sum(
-                m < f for m, f in zip(times["mega"], times["fused"]))
-        rec["crossover"][b] = cell
 
     # --- outside the counted runs: actions against plain and bf16 ---
     rows = [bf16_pred.preprocess(im, INSTRUCTION, p) for im, p in batch]
@@ -1135,16 +1137,6 @@ def phase_w8a8(bf16_pred, shapes, rng, card: str, profile: bool = False):
         max_abs_diff_vs_fused=float(np.abs(
             a_mega - _per_row_actions(backends["fused"], rows)).max()))
     rec["max_abs_normalized_action_bf16"] = float(np.abs(a_bf16).max())
-    if profile:
-        rec["profiles"] = [profile_request(backends[name], rng, f"w8a8 {name}")
-                           for name in ("fused", "dense", "mega")]
-        for prof in rec["profiles"]:
-            before = KERNELS_PER_REQUEST_BEFORE[prof["tier"]]
-            prof["kernels_saved"] = before - prof["device_kernels"]
-            if prof["kernels_saved"] < KERNELS_SAVED:
-                raise AssertionError(
-                    f"{prof['tier']}: {prof['device_kernels']} kernels per "
-                    f"B=1 request, not {KERNELS_SAVED} fewer than {before}")
     del backends, auto
 
     # --- the weight-only tier, once ---
@@ -1153,7 +1145,7 @@ def phase_w8a8(bf16_pred, shapes, rng, card: str, profile: bool = False):
     cuda_lib.reset_launches()
     chunk_s, batch_s = _serve(int8, requests[:4], batch)
     if dict(cuda_lib.LAUNCHES) != {attention_kernel.KERNEL_NAME:
-                                   attn_per_forward * 5}:
+                                   attn_per_forward * 6}:
         raise AssertionError(f"int8: launches {dict(cuda_lib.LAUNCHES)}")
     vs_bf16 = np.abs(int8.normalized_actions(rows) - a_bf16)
     rec["int8"] = {**_latency(chunk_s, batch_s, len(batch)),
@@ -1171,6 +1163,225 @@ def phase_w8a8(bf16_pred, shapes, rng, card: str, profile: bool = False):
             raise AssertionError(f"{name} vs bf16 actions differ beyond "
                                  f"{QUANTIZED_VS_BF16_LIMIT}")
     return rec, dict(launches)
+
+
+def _spread(seconds) -> dict:
+    ms = [1e3 * t for t in seconds]
+    return {"median_ms": statistics.median(ms), "min_ms": min(ms),
+            "max_ms": max(ms), "n": len(ms)}
+
+
+def _counted(pred, rows):
+    """Normalized actions of one forward over ``rows`` and the kernel
+    launches of exactly that forward."""
+    import torch
+
+    from vla_adapter_torch.ops import cuda_lib
+
+    cuda_lib.reset_launches()
+    out = pred.normalized_actions(rows)
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+
+
+def _in_turns(preds: dict, rows, rounds: int) -> dict:
+    """Each Predictor serves ``rows`` once per round, the order rotated
+    each round: {name: seconds per request}. Each is served once before,
+    untimed (a graph is captured then)."""
+    for pred in preds.values():
+        pred.predict_action_rows(rows)
+    names = list(preds)
+    times = {name: [] for name in names}
+    for i in range(rounds):
+        shift = i % len(names)
+        for name in names[shift:] + names[:shift]:
+            t0 = time.perf_counter()
+            preds[name].predict_action_rows(rows)
+            times[name].append(time.perf_counter() - t0)
+    return times
+
+
+def phase_graph(bf16_pred, rng, card: str, profile: bool = False):
+    """The forward as a CUDA graph (the default on the card) against the
+    eager forward (``cuda_graph=False``) in every tier at full width:
+    bf16, int8, w8a8 "fused", "dense" and "auto" at B=1 and B=4, "mega" at
+    B=1. Over requests whose prompts (and prompt lengths) and images
+    differ, the replayed normalized actions must equal the eager ones bit
+    for bit, and the launches of each replayed request the eager ones.
+    Records each key's warm-up and capture time and each pool's bytes, and
+    times in turns on the same rows: eager against graph for every tier
+    at B=1; bf16, int8, fused and dense at B=2 and B=4 under graphs."""
+    import torch
+
+    from vla_adapter_torch.infer.predict import Predictor
+
+    cfg = bf16_pred.cfg
+    common = dict(cfg=cfg, params=bf16_pred.params,
+                  tokenize=bf16_pred.tokenize, norm_stats=bf16_pred.norm_stats,
+                  center_crop=False, device="cuda")
+    auto = Predictor(act_int8=True, **common)
+    tiers = {"bf16": bf16_pred.with_runtime(bf16_pred.rt),
+             "int8": Predictor(int8=True, **common),
+             "fused": auto.with_runtime(auto.rt, w8a8_impl="fused"),
+             "dense": auto.with_runtime(auto.rt, w8a8_impl="dense"),
+             "auto": auto,
+             "mega": auto.with_runtime(auto.rt, w8a8_impl="mega")}
+    eager = {name: pred.with_runtime(pred.rt, cuda_graph=False)
+             for name, pred in tiers.items()}
+    rec = {"card": card, "tiers": {}}
+    for name, pred in tiers.items():
+        cell = {}
+        for b in (1,) if name == "mega" else (1, 4):
+            plens, launches = [], None
+            for text in GRAPH_INSTRUCTIONS:
+                rows = [pred.preprocess(im, text, p)
+                        for im, p in _requests(cfg, rng, b)]
+                want, want_n = _counted(eager[name], rows)
+                got, got_n = _counted(pred, rows)
+                if not (got.shape == (b, 8, 7) and np.isfinite(got).all()
+                        and np.array_equal(got, want)):
+                    raise AssertionError(
+                        f"graph {name} B={b}: replayed actions differ from "
+                        f"eager by {float(np.abs(got - want).max())}")
+                if got_n != want_n:
+                    raise AssertionError(f"graph {name} B={b}: launches "
+                                         f"{got_n}, eager {want_n}")
+                plens.append(int(rows[0]["plen"]))
+                launches = got_n
+            cell[f"b{b}"] = {"requests": len(GRAPH_INSTRUCTIONS),
+                             "prompt_lens": plens, "bitwise_equal": True,
+                             "launches_per_request": launches}
+        cell.update(pred.graphs.stats())
+        rec["tiers"][name] = cell
+        print(f"graph {name} " + json.dumps(cell), flush=True)
+
+    # --- in turns on the same rows ---
+    rows1 = [bf16_pred.preprocess(im, INSTRUCTION, p)
+             for im, p in _requests(cfg, rng, 1)]
+    both = {f"{name} {mode}": (pred if mode == "graph" else eager[name])
+            for name, pred in tiers.items() for mode in ("eager", "graph")}
+    times = _in_turns(both, rows1, 8)
+    rec["b1"] = {name: _spread(v) for name, v in times.items()}
+    for name in tiers:
+        rec["b1"][f"{name} graph"]["faster_than_eager_pairs"] = sum(
+            g < e for g, e in zip(times[f"{name} graph"],
+                                  times[f"{name} eager"]))
+    for b, rounds in ((2, 6), (4, 6)):
+        rows_b = [bf16_pred.preprocess(im, INSTRUCTION, p)
+                  for im, p in _requests(cfg, rng, b)]
+        times = _in_turns({name: tiers[name] for name in
+                           ("bf16", "int8", "fused", "dense")}, rows_b, rounds)
+        cell = {name: dict(_spread(v), chunks_per_s=b / statistics.median(v))
+                for name, v in times.items()}
+        cell["fused_faster_pairs"] = sum(
+            f < d for f, d in zip(times["fused"], times["dense"]))
+        rec[f"b{b}_graph"] = cell
+    print("graph_crossover " + json.dumps(
+        {k: rec[k] for k in ("b1", "b2_graph", "b4_graph")}), flush=True)
+
+    if profile:
+        rec["profiles"] = [profile_request(pred, rows1, name)
+                           for name in tiers
+                           for pred in (eager[name], tiers[name])]
+        for prof in rec["profiles"]:
+            before = KERNELS_PER_REQUEST_BEFORE.get(f"w8a8 {prof['tier']}")
+            if prof["mode"] == "eager" and before:
+                prof["kernels_saved"] = before - prof["device_kernels"]
+                if prof["kernels_saved"] < KERNELS_SAVED:
+                    raise AssertionError(
+                        f"{prof['tier']}: {prof['device_kernels']} kernels "
+                        f"per B=1 request, not {KERNELS_SAVED} fewer than "
+                        f"{before}")
+    del tiers, eager, both, auto
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_checkpoint(bf16_pred, rng, card: str):
+    """Checkpoint loading without JAX at full width: the flagship's bf16
+    weights exported with the port's ``export_checkpoint_dir`` into a
+    temporary directory, loaded back on the card with ``load_vla`` (bf16,
+    and w8a8 "fused" quantized on the card). The loaded state dict must
+    equal the source's and the loaded Predictors' actions the source
+    Predictors', bit for bit; the loaded Predictors are driven between a
+    reset and a read of the launch counts. The directory is deleted."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from vla_adapter_torch.infer.predict import Predictor
+    from vla_adapter_torch.ops import cuda_lib, fused_mlp, w8a8_matmul
+    from vla_adapter_torch.ops.attention_kernel import KERNEL_NAME
+    from vla_adapter_torch.weights.export import export_checkpoint_dir
+    from vla_adapter_torch.weights.load import load_vla
+
+    cfg = bf16_pred.cfg
+    src_fused = Predictor(cfg=cfg, params=bf16_pred.params,
+                          tokenize=bf16_pred.tokenize,
+                          norm_stats=bf16_pred.norm_stats, center_crop=False,
+                          device="cuda", act_int8=True, w8a8_impl="fused")
+    rows = [bf16_pred.preprocess(im, INSTRUCTION, p)
+            for im, p in _requests(cfg, rng, 4)]
+    tmp = Path(tempfile.mkdtemp(prefix="vla_ckpt_"))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_checkpoint_dir(bf16_pred.params, cfg, tmp,
+                              norm_stats=bf16_pred.norm_stats)
+        export_s = time.perf_counter() - t0
+        files = {f.name: f.stat().st_size for f in tmp.iterdir()}
+        t0 = time.perf_counter()
+        loaded = load_vla(tmp, tokenize=bf16_pred.tokenize, center_crop=False)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded_fused = load_vla(tmp, tokenize=bf16_pred.tokenize,
+                                center_crop=False, act_int8=True,
+                                w8a8_impl="fused")
+        torch.cuda.synchronize()
+        load_fused_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    if set(loaded.params) != set(bf16_pred.params):
+        raise AssertionError("loaded state dict has other keys: "
+                             f"{set(loaded.params) ^ set(bf16_pred.params)}")
+    differ = [k for k, v in bf16_pred.params.items()
+              if not (loaded.params[k].dtype == v.dtype
+                      and torch.equal(loaded.params[k], v))]
+    if differ:
+        raise AssertionError(f"loaded weights differ: {differ[:5]}")
+
+    # --- the loaded path: its launch counts around exactly these calls ---
+    cuda_lib.reset_launches()
+    got = {"bf16": (loaded.predict_action_rows(rows),
+                    loaded.predict_action_rows(rows[:1])),
+           "fused": (loaded_fused.predict_action_rows(rows),
+                     loaded_fused.predict_action_rows(rows[:1]))}
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    for kernel in (KERNEL_NAME, w8a8_matmul.KERNEL_NAME,
+                   w8a8_matmul.STACKED_KERNEL_NAME,
+                   fused_mlp.GATED_KERNEL_NAME, fused_mlp.KERNEL_NAME):
+        if not launches.get(kernel):
+            raise AssertionError(f"{kernel} was never launched by the "
+                                 f"loaded Predictors: {launches}")
+    for name, src in (("bf16", bf16_pred), ("fused", src_fused)):
+        want = (src.predict_action_rows(rows),
+                src.predict_action_rows(rows[:1]))
+        for g, w in zip(got[name], want):
+            if not (np.isfinite(g).all() and np.array_equal(g, w)):
+                raise AssertionError(f"loaded {name} actions differ from the "
+                                     f"source's by {float(np.abs(g - w).max())}")
+    rec = {"card": card, "export_s": export_s, "files": files,
+           "checkpoint_bytes": sum(files.values()), "load_bf16_s": load_s,
+           "load_w8a8_fused_s": load_fused_s, "state_dict_bitwise_equal": True,
+           "actions_bitwise_equal": ["bf16", "fused"], "launches": launches}
+    print("checkpoint " + json.dumps(rec), flush=True)
+    del loaded, loaded_fused, src_fused
+    torch.cuda.empty_cache()
+    return rec
 
 
 def w8a8_kernel_summary(records, launches):
@@ -1249,7 +1460,8 @@ def main() -> int:
     parser.add_argument("--out", help="also write the results as JSON here")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one B=1 request (torch.profiler)")
+                        help="also profile one B=1 request per tier, eager "
+                             "and replayed (torch.profiler)")
     args = parser.parse_args()
 
     sys.path.insert(0, HERE)
@@ -1301,13 +1513,17 @@ def main() -> int:
     flagship, launches = phase_flagship(predictor, rng, card)
     print(f"kernels launched on the bf16 main path: {sorted(launches)}",
           flush=True)
-    profiled = profile_request(predictor, rng) if args.profile else None
 
     # 6. the w8a8 and int8 flagship forwards through Predictor
-    w8a8, w8a8_launches = phase_w8a8(predictor, shapes, rng, card,
-                                     profile=args.profile)
+    w8a8, w8a8_launches = phase_w8a8(predictor, shapes, rng, card)
     print(f"kernels launched on the w8a8 main path: {sorted(w8a8_launches)}",
           flush=True)
+
+    # 7. every tier as a CUDA graph against eager
+    graphs = phase_graph(predictor, rng, card, profile=args.profile)
+
+    # 8. the flagship exported and loaded back without JAX
+    checkpoint = phase_checkpoint(predictor, rng, card)
     kernels = (kernel_summary(records, launches)
                + w8a8_kernel_summary(w8a8_records, w8a8_launches)
                + megalayer_kernel_summary(w8a8_records, w8a8_launches))
@@ -1315,8 +1531,9 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "shapes": records,
                        "w8a8_shapes": w8a8_records, "quantizer": quantizer,
-                       "flagship": flagship, "profile": profiled,
-                       "flagship_w8a8": w8a8, "kernels": kernels}, f,
+                       "flagship": flagship, "flagship_w8a8": w8a8,
+                       "graph": graphs, "checkpoint": checkpoint,
+                       "kernels": kernels}, f,
                       indent=1)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from vla_adapter_tpu.ops.attention import xla_attention
 from vla_adapter_tpu.ops.pallas_attention import fused_attention as jax_fused
 from vla_adapter_torch.ops import cuda_lib
 from vla_adapter_torch.ops.attention import dot_product_attention
@@ -92,6 +93,32 @@ def test_fully_masked_rows_stay_finite():
     out = attention_reference(torch.from_numpy(q), torch.from_numpy(k),
                               torch.from_numpy(v), valid)
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["bidir", "causal"])
+@pytest.mark.parametrize("seq", [9, 21])
+def test_fully_masked_rows_match_xla_attention(seq, causal):
+    """A batch row with no valid key at all, S not a multiple of 16: the
+    plain version (which the CUDA kernel follows) averages V uniformly over
+    the S keys, as the JAX package's ``xla_attention`` does (masked keys
+    all take NEG_INF). The Pallas wrapper pads the keys to a block with
+    valid = 0 and would average over the padded length: a divergence
+    inside the JAX package that the port does not follow. fp32, 1e-5."""
+    q, k, v, valid = _inputs(2, 4, 2, seq, 16, True, seed=seq)
+    valid[1] = 0
+    want = np.asarray(xla_attention(
+        jnp.asarray(q.transpose(0, 2, 1, 3)),
+        jnp.asarray(k.transpose(0, 2, 1, 3)),
+        jnp.asarray(v.transpose(0, 2, 1, 3)), jnp.asarray(valid),
+        causal=causal, sm_scale=16 ** -0.5)).transpose(0, 2, 1, 3)
+    got = attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(valid), causal=causal).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    if not causal:  # the masked row is the mean of V over the S keys
+        mean_v = np.repeat(v[1].mean(axis=1), 2, axis=0)[:, None, :]
+        np.testing.assert_allclose(got[1], np.broadcast_to(
+            mean_v, got[1].shape), atol=1e-5, rtol=1e-5)
 
 
 def test_cpu_tensors_take_the_plain_version():

@@ -96,6 +96,25 @@ def test_kernel_matches_plain_across_shapes(device, seq, dim, groups):
     assert diff.max().item() <= ATOL, diff.max().item()
 
 
+@pytest.mark.parametrize("causal", [False, True], ids=["bidir", "causal"])
+@pytest.mark.parametrize("seq", [21, 261])
+def test_fully_masked_rows_match_plain(device, seq, causal):
+    """Rows of a batch row with no valid key, S not a multiple of 16: the
+    kernel, like its plain version and the JAX package's xla_attention,
+    averages V over the S keys (keys past S take -inf, masked keys -2e9);
+    every row of it within ATOL of the plain version."""
+    q, k, v, _ = _inputs(2, 14, 2, seq, 64, False, device, seed=seq)
+    valid = torch.ones(2, seq, dtype=torch.int32, device=device)
+    valid[0, seq - seq // 5:] = 0
+    valid[1] = 0
+    got = fused_attention(q, k, v, valid, causal=causal)
+    want = attention_reference(q, k, v, valid, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    diff = (got[1].float() - want[1].float()).abs()
+    assert diff.max().item() <= ATOL, diff.max().item()
+
+
 def test_kernel_takes_model_layout(device):
     """(B, S, H, D) buffers viewed as (B, H, S, D), as the model passes."""
     q, k, v, valid = _inputs(2, 14, 2, 96, 64, True, device, seed=1)

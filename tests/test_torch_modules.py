@@ -41,6 +41,7 @@ from vla_adapter_torch.models.projector import Projector
 from vla_adapter_torch.models.vla import VLAModel
 from vla_adapter_torch.ops import rope as trope
 from vla_adapter_torch.weights.from_jax import from_jax_params
+from tests.torch_tiny import tiny_cfg
 
 ATOL = RTOL = 1e-4  # fp32: summation order over a handful of layers
 # bf16 activations through ~10 layers: the JAX package's own bf16 forward
@@ -48,37 +49,6 @@ ATOL = RTOL = 1e-4  # fp32: summation order over a handful of layers
 # bf16 forwards that round in different places may differ by about that.
 BF16_ACTIONS_ATOL = 6e-2
 BATCH = 2
-
-
-def tiny_cfg(C, K):
-    """The same tiny VLA in either package's config classes."""
-    return C.VLAConfig(
-        platform="libero",
-        custom_constants=K.PlatformConstants(
-            name="test", num_actions_chunk=8, action_dim=7, proprio_dim=8,
-            normalization_type=K.NormalizationType.BOUNDS_Q99,
-            num_action_query_tokens=16),
-        vision=C.FusedVisionConfig(
-            primary=C.ViTConfig(
-                name="dino-tiny", image_size=28, patch_size=14,
-                hidden_size=32, num_layers=3, num_heads=4, mlp_dim=64,
-                use_cls_token=True, num_register_tokens=2,
-                pos_embed_patches_only=True, layer_scale_init=1e-5,
-                mlp_activation="gelu"),
-            fused=C.ViTConfig(
-                name="siglip-tiny", image_size=28, patch_size=14,
-                hidden_size=48, num_layers=3, num_heads=2, mlp_dim=40,
-                use_cls_token=False, num_register_tokens=0,
-                pos_embed_patches_only=False, layer_scale_init=None,
-                mlp_activation="gelu_tanh"),
-            num_images=2),
-        llm=C.Qwen2Config(vocab_size=512, hidden_size=64, num_layers=2,
-                          num_heads=4, num_kv_heads=2, intermediate_size=128,
-                          head_dim=16),
-        head=C.ActionHeadConfig(num_blocks=2, hidden_dim=64,
-                                num_attn_heads=4, use_pro_version=True),
-        max_text_tokens=96,
-    )
 
 
 JCFG = tiny_cfg(jc, jk)

@@ -153,6 +153,63 @@ def test_cuda_entry_point_refuses_without_a_card(monkeypatch):
                   norm_stats=_stats())
 
 
+def test_cpu_predictor_runs_eager(predictors):
+    """On the CPU the forward runs eagerly by default, and asking for a
+    CUDA graph there raises."""
+    _, port_pred = predictors
+    assert port_pred.cuda_graph is False and port_pred.graphs is None
+    with pytest.raises(ValueError, match="cuda_graph"):
+        Predictor(cfg=TCFG, params=port_pred.params,
+                  tokenize=MockTokenizer().encode, norm_stats=_stats(),
+                  rt=FP32_RUNTIME, device="cpu", cuda_graph=True)
+    with pytest.raises(ValueError, match="cuda_graph"):
+        port_pred.with_runtime(port_pred.rt, cuda_graph=True)
+
+
+class _KeyRecorder:
+    """Stands in for the CUDA graphs: records the key each forward asks
+    for and returns zero actions, capturing nothing."""
+
+    def __init__(self):
+        self.keys = []
+
+    def __call__(self, key, ids, plen, valid, pixels, proprio):
+        self.keys.append(key)
+        return np.zeros((ids.shape[0], 8, 7), np.float32)
+
+
+def test_graph_key_is_chosen_as_the_card_path_chooses_it(params):
+    """(backend, batch, proprio present): "auto" resolves the backend per
+    batch and "mega" refuses a batch, before any graph is asked for."""
+    import dataclasses
+
+    rt = dataclasses.replace(FP32_RUNTIME, act_int8_min_dim=16)
+    common = dict(cfg=TCFG, params=from_jax_params(params, TCFG),
+                  tokenize=MockTokenizer().encode, norm_stats=_stats(),
+                  rt=rt, device="cpu", act_int8=True)
+    auto = Predictor(w8a8_impl="auto", **common)
+    auto.graphs = _KeyRecorder()
+    imgs = _images(13)
+    auto.predict_action(imgs, "pick", proprio=np.zeros(8))
+    auto.predict_action_batch([imgs] * 5, ["a b"] * 5)
+    auto.predict_action_batch([imgs] * 4, ["a"] * 4, [np.zeros(8)] * 4)
+    assert auto.graphs.keys == [("fused", 1, True), ("dense", 5, False),
+                                ("fused", 4, True)]
+    assert auto.graph_key(4, True) == ("fused", 4, True)
+    mega = auto.with_runtime(auto.rt, w8a8_impl="mega")
+    mega.graphs = _KeyRecorder()
+    mega.predict_action(imgs, "pick")
+    with pytest.raises(ValueError, match="one request at a time"):
+        mega.normalized_actions([mega.preprocess(imgs, "a")] * 2)
+    assert mega.graphs.keys == [("mega", 1, False)]
+    # a model without a proprio projector ignores proprio: one key
+    no_proprio = dataclasses.replace(
+        auto, cfg=dataclasses.replace(TCFG, use_proprio=False),
+        params={k: v for k, v in auto.params.items()
+                if not k.startswith("proprio_projector.")})
+    assert no_proprio.graph_key(1, True) == ("fused", 1, False)
+
+
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import with jax, flax
     and the JAX package blocked."""

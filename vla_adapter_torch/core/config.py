@@ -1,5 +1,6 @@
 """Model configuration tree (copy of the serving part of
-vla_adapter_tpu/core/config.py; training configs are not ported yet).
+vla_adapter_tpu/core/config.py; training configs are not ported yet), and
+its JSON encoding in a checkpoint's ``config.json``.
 
 Canonical geometry:
   vision  : fused DINOv2 ViT-L/14-reg4 (1024) + SigLIP so400m/14 (1152) @224px
@@ -12,10 +13,15 @@ Canonical geometry:
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
-from vla_adapter_torch.core.constants import PlatformConstants, get_platform
+from vla_adapter_torch.core.constants import (
+    NormalizationType,
+    PlatformConstants,
+    get_platform,
+)
 
 
 @dataclass(frozen=True)
@@ -189,3 +195,36 @@ class VLAConfig:
     @property
     def num_action_query_tokens(self) -> int:
         return self.constants.num_action_query_tokens
+
+
+def vla_config_to_dict(cfg: VLAConfig) -> dict:
+    """Lossless JSON-able encoding, the ``"vla_adapter_tpu"`` block of a
+    checkpoint's config.json (the same encoding as the JAX package's, so
+    each package loads the other's exports)."""
+    d = dataclasses.asdict(cfg)
+    if d.get("custom_constants"):
+        d["custom_constants"]["normalization_type"] = (
+            cfg.custom_constants.normalization_type.value)
+    return d
+
+
+def vla_config_from_dict(d: dict) -> VLAConfig:
+    """Inverse of :func:`vla_config_to_dict`. A Phi language model (the
+    JAX package's ``PhiConfig``, told apart by ``partial_rotary_factor``)
+    raises: the port has no Phi model yet."""
+    d = dict(d)
+    if "partial_rotary_factor" in d["llm"]:
+        raise NotImplementedError("a Phi language model is not ported yet")
+    cc = d.get("custom_constants")
+    if cc:
+        cc = dict(cc)
+        cc["normalization_type"] = NormalizationType(cc["normalization_type"])
+        d["custom_constants"] = PlatformConstants(**cc)
+    v = dict(d["vision"])
+    v["primary"] = ViTConfig(**v["primary"])
+    if v.get("fused"):
+        v["fused"] = ViTConfig(**v["fused"])
+    d["vision"] = FusedVisionConfig(**v)
+    d["llm"] = Qwen2Config(**d["llm"])
+    d["head"] = ActionHeadConfig(**d["head"])
+    return VLAConfig(**d)

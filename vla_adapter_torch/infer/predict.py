@@ -11,13 +11,18 @@ backends over one set of int8 tensors: "fused" (kernels B2/B3 for the
 MLPs) and "dense" (every w8a8 matmul through kernel B4), picked per batch
 by "auto", and "mega" (batch 1 only: each decoder layer from the attention
 core on as kernel B6), which "auto" never picks.
+
+On the card the forward is captured once per (backend, batch size, proprio
+present) as a CUDA graph and replayed (``infer/graph.py``), the port's
+counterpart of the JAX Predictor's ``jax.jit``; ``cuda_graph=False`` runs
+it eagerly, as the CPU always does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Mapping, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +34,7 @@ from vla_adapter_torch.data.image_processing import (
 )
 from vla_adapter_torch.data.normalization import normalize, unnormalize
 from vla_adapter_torch.data.transform import inference_ids
+from vla_adapter_torch.infer.graph import GraphedForward
 from vla_adapter_torch.models.layers import Runtime, resolve_w8a8_impl
 from vla_adapter_torch.models.quantize import quantize_state_dict
 from vla_adapter_torch.models.vla import VLAModel
@@ -65,6 +71,10 @@ class Predictor:
     "dense" (the JAX package's "xla": every w8a8 matmul on its own) or
     "mega" (batch 1 only; a larger batch raises ValueError). The backends
     share one set of int8 tensors.
+    cuda_graph: run the forward as one CUDA graph per (backend, batch,
+    proprio present), captured at that key's first request (None: on the
+    card yes, on the CPU no; True on the CPU raises ValueError). False
+    runs it eagerly, launch by launch.
     """
 
     cfg: VLAConfig
@@ -77,9 +87,16 @@ class Predictor:
     int8: bool = False
     act_int8: bool = False
     w8a8_impl: str = "auto"
+    cuda_graph: Optional[bool] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        on_card = self.device.type == "cuda"
+        if self.cuda_graph and not on_card:
+            raise ValueError(f"cuda_graph=True needs a CUDA device, not "
+                             f"{self.device}")
+        self.cuda_graph = on_card if self.cuda_graph is None \
+            else self.cuda_graph
         if self.int8 or self.act_int8:
             self.rt = dataclasses.replace(
                 self.rt, weights_int8=True,
@@ -107,6 +124,8 @@ class Predictor:
         mean, std = self.image_processor.norm_constants()
         self._pix_mean = torch.from_numpy(mean).to(self.device)
         self._pix_std = torch.from_numpy(std).to(self.device)
+        self.graphs = (GraphedForward(self._device_forward, self.device)
+                       if self.cuda_graph else None)
 
     def _device_state(self, expected) -> Dict[str, torch.Tensor]:
         """``params`` on the device as the model expects them: int8
@@ -117,25 +136,38 @@ class Predictor:
                 else v.to(self.device, self.rt.param_dtype)
                 for k, v in state.items()}
 
-    def _model_for_batch(self, batch: int) -> VLAModel:
+    def _impl_for_batch(self, batch: int) -> str:
+        """The backend that serves a batch: "auto" picks per batch, "mega"
+        refuses more than one row."""
         if len(self._models) > 1:
-            return self._models[resolve_w8a8_impl("auto", batch)]
-        model = next(iter(self._models.values()))
-        if model.rt.mega and batch > 1:
+            return resolve_w8a8_impl("auto", batch)
+        impl = next(iter(self._models))
+        if self._models[impl].rt.mega and batch > 1:
             raise ValueError(f"w8a8_impl='mega' serves one request at a time,"
                              f" got a batch of {batch}: use 'fused', 'dense' "
                              "or 'auto'")
-        return model
+        return impl
 
-    def with_runtime(self, rt: Runtime,
-                     w8a8_impl: Optional[str] = None) -> "Predictor":
+    def _model_for_batch(self, batch: int) -> VLAModel:
+        return self._models[self._impl_for_batch(batch)]
+
+    def graph_key(self, batch: int, proprio: bool) -> Tuple[str, int, bool]:
+        """(backend, batch, proprio present): the key of the CUDA graph that
+        serves such a forward, resolved before anything is captured."""
+        return (self._impl_for_batch(batch), batch,
+                bool(proprio and self.cfg.use_proprio))
+
+    def with_runtime(self, rt: Runtime, w8a8_impl: Optional[str] = None,
+                     cuda_graph: Optional[bool] = None) -> "Predictor":
         """A Predictor over the same weight tensors with another runtime
-        (e.g. ``kernels="plain"``) and, if given, another w8a8 backend;
-        param_dtype and the int8 tier must match to share."""
+        (e.g. ``kernels="plain"``) and, if given, another w8a8 backend or
+        graph setting; its graphs are its own. param_dtype and the int8
+        tier must match to share."""
         return dataclasses.replace(
             self, params=self.params, rt=rt, device=str(self.device),
             int8=False, act_int8=False,
-            w8a8_impl=self.w8a8_impl if w8a8_impl is None else w8a8_impl)
+            w8a8_impl=self.w8a8_impl if w8a8_impl is None else w8a8_impl,
+            cuda_graph=self.cuda_graph if cuda_graph is None else cuda_graph)
 
     def _resolve_unnorm_key(self, unnorm_key: Optional[str]) -> str:
         if unnorm_key is None:
@@ -177,19 +209,29 @@ class Predictor:
                 cfg.constants.normalization_type)
         return row
 
-    @torch.inference_mode()
-    def _forward(self, ids, plen, valid, pixels, proprio) -> torch.Tensor:
-        dev = self.device
+    def _device_forward(self, ids, plen, valid, pixels, proprio
+                        ) -> torch.Tensor:
+        """The forward from device tensors (uint8 pixels, normalized here):
+        fp32 normalized actions. The graphs capture exactly this."""
         model = self._model_for_batch(ids.shape[0])
-        pixels = torch.from_numpy(pixels).to(dev).float() / 255.0
+        pixels = pixels.float() / 255.0
         pixels = ((pixels - self._pix_mean) / self._pix_std).to(self.rt.dtype)
-        return model(
+        return model(ids, plen, valid, pixels, proprio)["actions"].float()
+
+    @torch.inference_mode()
+    def _forward(self, ids, plen, valid, pixels, proprio) -> np.ndarray:
+        if self.graphs is not None:
+            key = self.graph_key(ids.shape[0], proprio is not None)
+            return self.graphs(key, ids, plen, valid, pixels, proprio)
+        dev = self.device
+        return self._device_forward(
             torch.from_numpy(ids).to(dev, torch.long),
             torch.from_numpy(plen).to(dev, torch.long),
-            torch.from_numpy(valid).to(dev),
-            pixels,
-            None if proprio is None else torch.from_numpy(proprio).to(dev),
-        )["actions"]
+            torch.from_numpy(valid).to(dev, torch.int32),
+            torch.from_numpy(pixels).to(dev),
+            None if proprio is None
+            else torch.from_numpy(proprio).to(dev, torch.float32),
+        ).cpu().numpy()
 
     def normalized_actions(self, rows: Sequence[Dict[str, np.ndarray]]
                            ) -> np.ndarray:
@@ -201,13 +243,12 @@ class Predictor:
                              "batch must be all-proprio or none")
         proprio = (np.stack([r["proprio"] for r in rows])
                    if n_proprio and self.cfg.use_proprio else None)
-        actions = self._forward(
+        return self._forward(
             np.stack([r["ids"] for r in rows]),
             np.asarray([r["plen"] for r in rows], np.int32),
             np.stack([r["valid"] for r in rows]),
             np.stack([r["pixels"] for r in rows]),
             proprio)
-        return actions.float().cpu().numpy()
 
     def predict_action_rows(self, rows: Sequence[Dict[str, np.ndarray]],
                             unnorm_key: Optional[str] = None) -> np.ndarray:

@@ -64,8 +64,10 @@ def _attend(q: torch.Tensor, streams: List[Tuple[torch.Tensor, torch.Tensor]],
         if i == len(streams) - 1:
             s = s * gate_on_last
         logits.append(s)
-    denom = torch.tensor(math.sqrt(d), dtype=torch.float32).to(q.dtype)
-    scores = torch.cat(logits, dim=-1) / denom.to(q.device)
+    # made on q's device (no host copy, so a CUDA graph can capture it)
+    denom = torch.full((), math.sqrt(d), dtype=torch.float32,
+                       device=q.device).to(q.dtype)
+    scores = torch.cat(logits, dim=-1) / denom
     p = F.softmax(scores.float(), dim=-1).to(q.dtype)
     out = torch.matmul(p, torch.cat([v for _, v in streams], dim=2))
     return _merge(out)

@@ -200,5 +200,5 @@ def fused_attention(
     if err != 0:
         raise RuntimeError(f"fused_attention: kernel launch failed "
                            f"(cudaError {err})")
-    cuda_lib.LAUNCHES[KERNEL_NAME] += 1
+    cuda_lib.count_launch(KERNEL_NAME)
     return out

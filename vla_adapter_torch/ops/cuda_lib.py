@@ -7,14 +7,19 @@ source, the ``csrc/`` headers it includes and the flags, so an edit to any
 of them rebuilds) and loaded with ``ctypes``. No PyTorch headers are
 included, so a build takes seconds, not minutes.
 
-``LAUNCHES`` counts kernel launches by kernel name: every wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+``LAUNCHES`` counts kernel launches by kernel name: every wrapper calls
+:func:`count_launch` where it launches its kernel and nowhere else, so a run
+can show that its main path went through the kernels. Inside
+:func:`recording` (a CUDA graph's warm-up and capture) the count goes to
+the recording's own ``Counter`` instead, and whoever replays the graph
+adds that ``Counter`` to ``LAUNCHES`` at each replay, so the counts per
+request stay those of an eager run.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -43,8 +48,30 @@ _LOCK = threading.Lock()
 _SOURCE_LOCKS: dict = collections.defaultdict(threading.Lock)
 
 
+_RECORDING = threading.local()
+
+
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``: into this thread's :func:`recording`
+    if one is open, or else into ``LAUNCHES``."""
+    counter = getattr(_RECORDING, "counter", None)
+    (LAUNCHES if counter is None else counter)[name] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's launches into a fresh ``Counter`` (yielded)
+    instead of ``LAUNCHES``."""
+    outer = getattr(_RECORDING, "counter", None)
+    _RECORDING.counter = counter = collections.Counter()
+    try:
+        yield counter
+    finally:
+        _RECORDING.counter = outer
 
 
 @functools.lru_cache(maxsize=None)

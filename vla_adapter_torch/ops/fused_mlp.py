@@ -293,7 +293,7 @@ def _launch(name, x, w1, s1, up_q, up_scale, b1, w2, s2, b2, act, out_dtype,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
-    cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.count_launch(name)
     return out
 
 

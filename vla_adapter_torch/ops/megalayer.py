@@ -248,7 +248,7 @@ def _launch(x, q, k, v, valid, norm2, o_q, o_scale, gate_q, gate_scale, up_q,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
-    cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.count_launch(name)
     return out
 
 

@@ -160,7 +160,7 @@ def _launch(name, x, rs, w, ws, out_dtype, layer0: int,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
-    cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.count_launch(name)
     return out
 
 
