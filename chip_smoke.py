@@ -62,13 +62,45 @@ Phases, in order; any failure exits non-zero:
    bit in weights and in bf16 and w8a8 "fused" actions; export and load
    timed.
 
+9. the /act server (:func:`phase_server`): the port's ``ActionServer``
+   with the dynamic batcher (max_batch=16, max_wait_ms=4) over the
+   flagship in bf16 and w8a8 "auto", with the reference's center crop.
+   The buckets no earlier phase runs (B=8 and 16; "auto" serves them with
+   "dense") first: B1 at their attention shapes and B4/B5 at their w8a8
+   matmuls against the plain versions (B4/B5 bit for bit), and each
+   tier's B=8 and B=16 forwards against the all-plain path, within the
+   bounds of phases 5-6. Then every bucket's graph (1-16) warmed; one
+   request alone and one
+   coalesced batch bit for bit against the Predictor; ``run_load`` at 1, 4
+   and 16 closed-loop clients for a fixed window each (one JSON line per
+   tier and client count: requests/s, actions/s, p50/p90/p99 ms, realized
+   batch sizes, errors), and a bf16 server with ``preprocess_workers=4``
+   at 16.
+10. the original VLA-Adapter model (:func:`phase_original_film`):
+   ``VLAConfig()`` with the original head and FiLM towers at full width
+   and depth, every tier checked as phases 5-7 check the flagship (launch
+   counts from :func:`w8a8_shapes`, graphs against eager bit for bit,
+   kernel path against plain, quantized tiers against bf16 and
+   ``forward_error_report``), B=1 latency in turns, B4 and B5 at the new
+   call sites against their plain versions, and the checkpoint round trip
+   of the original head without FiLM (the exporter refuses FiLM).
+
+Phases 9 and 10 took 100 s on an NVIDIA H100 80GB HBM3 at 700 W beside
+110 s for phases 1-8 (their per-phase seconds are printed; phase 9's
+kernel checks at B=8 and 16 about 20 s of it). To hold the whole run near
+twice phases 1-8 alone, phase 7 times 6 rounds at B=1
+and 4 at B=2 and B=4 (were 8 and 6), and phase 9 measures 4 s windows and
+runs its preprocess-pool server for bf16 only.
+
 With ``--profile`` phase 7 also profiles one B=1 request per tier, eager
 and replayed, and checks that the eager w8a8 tiers launch at least 3,000
 fewer kernels per request than before the quantization moved inside B4
 (``KERNELS_PER_REQUEST_BEFORE``).
 
 Prints the card's name and power limit, one JSON line per kernel shape, a
-``{"kernels": [...]}`` line, and as its last line
+``{"kernels": [...]}`` line (each kernel's ``launches`` on the bf16 or w8a8
+flagship path, and ``launches_by_path`` for every path), and as its last
+line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and when
 the ``vla_adapter_torch`` package beside this script is missing.
 """
@@ -247,10 +279,10 @@ def attention_bound_ms(b, h, hkv, s, d, valid, causal):
                                        else "bytes"), flops, nbytes
 
 
-def attention_shapes(cfg, tokenize):
+def attention_shapes(cfg, tokenize, batches=(1, 2)):
     """(name, forward batch, batch, heads, kv heads, seq, head dim, key
-    valid, causal, launches per forward) for B=1 and B=2 serving forwards;
-    the towers see 2 images per request."""
+    valid, causal, launches per forward) for serving forwards of each of
+    ``batches``; the towers see 2 images per request."""
     from vla_adapter_torch.data.transform import inference_ids
 
     _, _, text_valid = inference_ids(cfg, tokenize, INSTRUCTION)
@@ -260,7 +292,7 @@ def attention_shapes(cfg, tokenize):
     llm, dino, siglip = cfg.llm, cfg.vision.primary, cfg.vision.fused
     n_img = cfg.vision.num_images
     shapes = []
-    for b in (1, 2):
+    for b in batches:
         valid = np.tile(mm_valid, (b, 1))
         s_llm = valid.shape[1]
         shapes += [
@@ -537,14 +569,19 @@ def kernel_summary(records, launches):
     }]
 
 
-def w8a8_shapes(cfg, tokenize, min_dim: int = 256):
-    """Every w8a8 kernel call of one serving forward, for B=1 and B=4, as
+def w8a8_shapes(cfg, tokenize, min_dim: int = 256, batches=(1, 4)):
+    """Every w8a8 kernel call of one serving forward, for each of
+    ``batches`` (B=1 and B=4 unless given), as
     dicts: kernel, shape name(s), forward batch, dims and launches per
     forward under the "fused" backend (for an MLP also ``dense_matmuls``,
     the w8a8 matmuls it becomes under "dense"), and at B=1 the decoder
     layer of the "mega" backend with its launches under "mega". Widths
     below ``min_dim`` (``Runtime.act_int8_min_dim``) take the weight-only
-    upcast, as the models gate them; matmuls of one shape are merged."""
+    upcast, as the models gate them; matmuls of one shape are merged.
+    FiLM towers add two matmuls per block on each image's language vector;
+    the original head's blocks keep three (q, o, ffn), their self stream's
+    K/V being weight-only slices of the head's stacks, which (like the Pro
+    head's four) run as two stacked launches per stream."""
     from vla_adapter_torch.data.transform import inference_ids
     from vla_adapter_torch.ops import fused_mlp, megalayer, w8a8_matmul
 
@@ -559,7 +596,7 @@ def w8a8_shapes(cfg, tokenize, min_dim: int = 256):
     towers = [("dinov2", cfg.vision.primary), ("so400m", cfg.vision.fused)]
     n_img = cfg.vision.num_images
     shapes = []
-    for b in (1, 4):
+    for b in batches:
         mats = {}
 
         def mm(name, m, k, n, per):
@@ -604,6 +641,10 @@ def w8a8_shapes(cfg, tokenize, min_dim: int = 256):
                4 * layers)
             mlp(f"{name}_mlp", tokens, v.hidden_size, v.mlp_dim,
                 v.hidden_size, v.mlp_activation, False, layers)
+            if cfg.vision.use_film and v.film_llm_dim is not None:
+                # film_scale and film_shift on each image's language vector
+                mm(f"{name}_film", n_img, v.film_llm_dim, v.hidden_size,
+                   2 * layers)
         e = cfg.vision.embed_dim
         if cfg.vision.fused is not None:  # FusedProjector
             mlp("projector_fc1_fc2", cfg.num_patches, e, 4 * e, d, "gelu",
@@ -617,7 +658,11 @@ def w8a8_shapes(cfg, tokenize, min_dim: int = 256):
             mm("proprio_fc2", 1, d, d, 1)
         chunk, hh = consts.num_actions_chunk, head.hidden_dim
         mm("head_fc_in", chunk, consts.action_dim * d, hh, 1)
-        mm("head_q_kself_vself_o_ffn", chunk, hh, hh, 5 * head.num_blocks)
+        if head.use_pro_version:
+            mm("head_q_kself_vself_o_ffn", chunk, hh, hh,
+               5 * head.num_blocks)
+        else:  # the self stream's K/V: the stacks' slices, weight-only
+            mm("head_q_o_ffn", chunk, hh, hh, 3 * head.num_blocks)
         mm("head_fc_out", chunk, hh, consts.action_dim, 1)
         shapes += list(mats.values())
         adapter = consts.num_action_query_tokens + int(cfg.use_proprio)
@@ -631,13 +676,46 @@ def w8a8_shapes(cfg, tokenize, min_dim: int = 256):
     return shapes
 
 
-def expected_w8a8_launches(shapes, impl: str) -> dict:
-    """Launches of each w8a8 kernel in one B=1 forward under a backend."""
+def dense_shapes(shapes):
+    """The w8a8 calls of ``shapes`` as the "dense" backend makes them: each
+    fused MLP becomes its matmuls (fc1, and up where gated: K -> F; fc2:
+    F -> D), merged with the matmuls of the same rows and dims; the stacked
+    ones stay; the decoder-layer kernel ("mega" only) goes."""
+    from vla_adapter_torch.ops import megalayer, w8a8_matmul
+
+    out, mats = [], {}
+    for sh in shapes:
+        if sh["kernel"] == megalayer.KERNEL_NAME:
+            continue
+        if sh["kernel"] == w8a8_matmul.STACKED_KERNEL_NAME:
+            out.append(sh)
+            continue
+        if "f" in sh:
+            name = sh["shape"][0].removesuffix("_fc1_fc2")
+            parts = [([f"{name}_fc1"], sh["k"], sh["f"]),
+                     ([f"{name}_fc2"], sh["f"], sh["d"])]
+            if sh["gated"]:
+                parts.append(([f"{name}_up"], sh["k"], sh["f"]))
+        else:
+            parts = [(sh["shape"], sh["k"], sh["n"])]
+        for names, k, n in parts:
+            rec = mats.setdefault((sh["forward_batch"], sh["m"], k, n), {
+                "kernel": w8a8_matmul.KERNEL_NAME, "shape": [],
+                "forward_batch": sh["forward_batch"], "m": sh["m"], "k": k,
+                "n": n, "launches_per_forward": 0})
+            rec["shape"] += names
+            rec["launches_per_forward"] += sh["launches_per_forward"]
+    return list(mats.values()) + out
+
+
+def expected_w8a8_launches(shapes, impl: str, batch: int = 1) -> dict:
+    """Launches of each w8a8 kernel in one forward of ``batch`` (1 or 4)
+    under a backend."""
     from vla_adapter_torch.ops import fused_mlp, megalayer, w8a8_matmul
 
     counts = collections.Counter()
     for sh in shapes:
-        if sh["forward_batch"] != 1:
+        if sh["forward_batch"] != batch:
             continue
         if sh["kernel"] == megalayer.KERNEL_NAME:
             if impl == "mega":  # one launch per layer, the o-proj inside
@@ -1260,13 +1338,13 @@ def phase_graph(bf16_pred, rng, card: str, profile: bool = False):
              for im, p in _requests(cfg, rng, 1)]
     both = {f"{name} {mode}": (pred if mode == "graph" else eager[name])
             for name, pred in tiers.items() for mode in ("eager", "graph")}
-    times = _in_turns(both, rows1, 8)
+    times = _in_turns(both, rows1, 6)
     rec["b1"] = {name: _spread(v) for name, v in times.items()}
     for name in tiers:
         rec["b1"][f"{name} graph"]["faster_than_eager_pairs"] = sum(
             g < e for g, e in zip(times[f"{name} graph"],
                                   times[f"{name} eager"]))
-    for b, rounds in ((2, 6), (4, 6)):
+    for b, rounds in ((2, 4), (4, 4)):
         rows_b = [bf16_pred.preprocess(im, INSTRUCTION, p)
                   for im, p in _requests(cfg, rng, b)]
         times = _in_turns({name: tiers[name] for name in
@@ -1384,6 +1462,464 @@ def phase_checkpoint(bf16_pred, rng, card: str):
     return rec
 
 
+SERVER_CLIENTS = (1, 4, 16)
+# the buckets that only the server runs: no earlier phase forwards them
+SERVER_ONLY_BATCHES = (8, 16)
+SERVER_WINDOW_S = 4.0
+SERVER_WARMUP_S = 1.0
+
+
+def _server_request(cfg, seed):
+    rng = np.random.default_rng(seed)
+    size = cfg.vision.primary.image_size
+    return ([rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8)
+             for _ in range(cfg.vision.num_images)], INSTRUCTION,
+            rng.normal(size=cfg.constants.proprio_dim).astype(np.float32))
+
+
+def _check_served_exactly(pred, cfg, tier):
+    """One request alone through the server equals ``predict_action`` on
+    the same arrays; three requests that the batcher is made to coalesce
+    (max_batch=3, a long max_wait_ms, sent in a known order) equal
+    ``predict_action_rows`` on the same rows padded to the bucket of 4;
+    both bit for bit."""
+    import threading
+
+    from vla_adapter_torch.serve.loadtest import post_act
+    from vla_adapter_torch.serve.server import ActionServer
+
+    server = ActionServer(pred, host="127.0.0.1", port=0, dynamic_batch=True,
+                          max_batch=16, max_wait_ms=4.0)
+    port = server.serve_background()
+    try:
+        req = _server_request(cfg, 900)
+        got = post_act(f"http://127.0.0.1:{port}/act", *req, timeout=300)
+    finally:
+        server.shutdown()
+    want = pred.predict_action(*req)
+    if not (got.shape == (8, 7) and np.isfinite(got).all()
+            and np.array_equal(got, want)):
+        raise AssertionError(f"server {tier}: a single request differs from "
+                             f"predict_action by "
+                             f"{float(np.abs(got - want).max())}")
+    server = ActionServer(pred, host="127.0.0.1", port=0, dynamic_batch=True,
+                          max_batch=3, max_wait_ms=60_000.0)
+    port = server.serve_background()
+    reqs = [_server_request(cfg, 910 + i) for i in range(3)]
+    out, errors = {}, []
+
+    def call(i):
+        try:
+            out[i] = post_act(f"http://127.0.0.1:{port}/act", *reqs[i],
+                              timeout=300)
+        except Exception as err:  # noqa: BLE001 - reported below
+            errors.append(err)
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(3)]
+    try:
+        for t in threads:
+            t.start()
+            time.sleep(0.5)  # enqueued in this order
+        for t in threads:
+            t.join(timeout=300)
+        sizes = server.batcher.stats()["batch_sizes"]
+    finally:
+        server.shutdown()
+    if errors or sizes != [3]:
+        raise AssertionError(f"server {tier}: coalesced batch {sizes}, "
+                             f"errors {errors}")
+    rows = [pred.preprocess(*r) for r in reqs]
+    want = pred.predict_action_rows(rows + rows[-1:])
+    for i in range(3):
+        if not np.array_equal(out[i], want[i]):
+            raise AssertionError(
+                f"server {tier}: coalesced row {i} differs from "
+                f"predict_action_rows by {float(np.abs(out[i] - want[i]).max())}")
+    return {"single_bitwise_equal": True, "coalesced_batch": sizes,
+            "coalesced_bitwise_equal": True}
+
+
+def _buckets_vs_plain(pred, cfg) -> dict:
+    """The server-only buckets' forwards (their graphs replayed) against the
+    all-plain path on the same center-cropped rows: the max abs diff of
+    normalized actions per batch, within phase 5's bound (bf16) or phase
+    6's (w8a8)."""
+    plain = pred.with_runtime(dataclasses.replace(pred.rt, kernels="plain"),
+                              cuda_graph=False)
+    limit = W8A8_ACTIONS_ATOL if pred.act_int8 else FLAGSHIP_ACTIONS_ATOL
+    out = {}
+    for b in SERVER_ONLY_BATCHES:
+        rows = [pred.preprocess(*_server_request(cfg, 930 + i))
+                for i in range(b)]
+        got = pred.normalized_actions(rows)
+        if got.shape != (b, 8, 7) or not np.isfinite(got).all():
+            raise AssertionError(f"B={b}: actions {got.shape}, finite="
+                                 f"{np.isfinite(got).all()}")
+        out[str(b)] = float(np.abs(got - plain.normalized_actions(rows)).max())
+        if not out[str(b)] <= limit:
+            raise AssertionError(f"B={b}: kernel vs plain actions differ by "
+                                 f"{out[str(b)]} > {limit}")
+    return {"max_abs_diff_normalized_actions_kernel_vs_plain": out,
+            "limit": limit}
+
+
+def _host_breakdown(pred, cfg, reps: int = 10) -> dict:
+    """Median ms of what one B=1 request costs in the server process, part
+    by part, outside the load: the JSON and base64 decoding of its payload,
+    ``preprocess`` (prompt ids, the numpy center crop, proprio), and the
+    forward on preprocessed rows with the copy back and unnormalization."""
+    from vla_adapter_torch.serve.loadtest import act_payload
+    from vla_adapter_torch.serve.server import decode_payload
+
+    images, text, proprio = _server_request(cfg, 920)
+    body = json.dumps(act_payload(images, text, proprio))
+    row = pred.preprocess(images, text, proprio)
+
+    def median_ms(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    return {"payload_bytes": len(body),
+            "decode_ms": median_ms(lambda: decode_payload(json.loads(body))),
+            "preprocess_ms": median_ms(
+                lambda: pred.preprocess(images, text, proprio)),
+            "forward_ms": median_ms(lambda: pred.predict_action_rows([row]))}
+
+
+def _load_line(server, tier, clients, workers, card):
+    """run_load at ``clients`` closed-loop clients (in up to 4 spawned
+    processes) against a running server: the JSON line of phase 9."""
+    from vla_adapter_torch.serve.loadtest import run_load
+
+    before = len(server.batcher.stats()["batch_sizes"])
+    stats = run_load(f"http://127.0.0.1:{server.port}/act", clients,
+                     SERVER_WINDOW_S, image_hw=224, proprio_dim=8,
+                     instruction=INSTRUCTION, warmup_s=SERVER_WARMUP_S,
+                     processes=min(clients, 4), action_shape=(8, 7))
+    sizes = server.batcher.stats()["batch_sizes"][before:]
+    rec = {"card": card, "tier": tier, "clients": clients,
+           "preprocess_workers": workers,
+           "requests_per_s": stats["requests_per_s"],
+           "actions_per_s": 8 * stats["requests_per_s"],
+           "latency_ms": stats["latency_ms"], "completed": stats["completed"],
+           "errors": stats["errors"], "error_sample": stats["error_sample"],
+           "window_s": stats["duration_s"],
+           "batch_sizes": {str(k): v for k, v in sorted(
+               collections.Counter(sizes).items())},
+           "forwards": len(sizes)}
+    graphs = server.predictor.graphs.stats()
+    rec.update(graph_capture_s={k: v["capture_s"]
+                                for k, v in graphs["keys"].items()},
+               pool_bytes=graphs["pool_bytes"])
+    print("server " + json.dumps(rec), flush=True)
+    if rec["errors"] or not rec["completed"]:
+        raise AssertionError(f"server {tier} at {clients} clients: "
+                             f"{rec['errors']} errors, {rec['completed']} "
+                             f"completed: {rec['error_sample']}")
+    return rec
+
+
+def phase_server(bf16_pred, card: str):
+    """The /act server (path A): the port's ``ActionServer`` on 127.0.0.1
+    with the dynamic batcher (max_batch=16, max_wait_ms=4), over the
+    flagship in bf16 and in w8a8 "auto", with the reference's center crop
+    (224 px images: no JPEG round-trip). Every bucket's graph (1, 2, 4, 8,
+    16; "auto" serves 8 and 16 with "dense") is captured before the load.
+    Then: one request alone and one coalesced batch, bit for bit against
+    the Predictor; ``run_load`` at 1, 4 and 16 closed-loop clients for a
+    fixed window each, every response a finite (8, 7) array, no error; a
+    second server with ``preprocess_workers=4`` at 16 clients (bf16). The
+    launch counts are read around the load of each tier. Before all this,
+    the buckets only the server runs (``SERVER_ONLY_BATCHES``): B1 at their
+    attention shapes, B4/B5 at the matmuls "auto" runs there ("dense"),
+    each against its plain version, and each tier's forwards at those
+    batches against the all-plain path (:func:`_buckets_vs_plain`)."""
+    import torch
+
+    from vla_adapter_torch.infer.predict import Predictor
+    from vla_adapter_torch.models.layers import resolve_w8a8_impl
+    from vla_adapter_torch.ops import (
+        attention_kernel,
+        cuda_lib,
+        fused_mlp,
+        w8a8_matmul,
+    )
+    from vla_adapter_torch.serve.loadtest import prewarm
+    from vla_adapter_torch.serve.server import ActionServer
+
+    cfg = bf16_pred.cfg
+    common = dict(cfg=cfg, params=bf16_pred.params,
+                  tokenize=bf16_pred.tokenize, norm_stats=bf16_pred.norm_stats,
+                  center_crop=True, device="cuda")
+    rec = {"card": card, "tiers": {}}
+    if any(resolve_w8a8_impl("auto", b) != "dense"
+           for b in SERVER_ONLY_BATCHES):
+        raise AssertionError("auto no longer serves the server-only buckets "
+                             "with dense: check its kernels there")
+    rec["attention_records"] = phase_kernel_vs_plain(attention_shapes(
+        cfg, bf16_pred.tokenize, batches=SERVER_ONLY_BATCHES))
+    rec["w8a8_records"] = phase_w8a8_kernels(dense_shapes(w8a8_shapes(
+        cfg, bf16_pred.tokenize, batches=SERVER_ONLY_BATCHES)))
+    launches = collections.Counter()
+    for tier in ("bf16", "auto"):
+        pred = Predictor(act_int8=tier == "auto", **common)
+        t0 = time.perf_counter()
+        prewarm(pred, 16)
+        warm_s = time.perf_counter() - t0
+        cell = {"prewarm_s": warm_s, **_check_served_exactly(pred, cfg, tier),
+                "buckets_vs_plain": _buckets_vs_plain(pred, cfg),
+                "host": _host_breakdown(pred, cfg)}
+        server = ActionServer(pred, host="127.0.0.1", port=0,
+                              dynamic_batch=True, max_batch=16,
+                              max_wait_ms=4.0)
+        server.serve_background()
+        try:
+            cuda_lib.reset_launches()
+            cell["load"] = [_load_line(server, tier, n, 0, card)
+                            for n in SERVER_CLIENTS]
+            counts = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        finally:
+            server.shutdown()
+        if tier == "bf16":  # the image pipeline in 4 worker processes
+            server = ActionServer(pred, host="127.0.0.1", port=0,
+                                  dynamic_batch=True, max_batch=16,
+                                  max_wait_ms=4.0, preprocess_workers=4)
+            server.serve_background()
+            try:
+                cell["pool"] = _load_line(server, tier, 16, 4, card)
+            finally:
+                server.shutdown()
+        graphs = pred.graphs.stats()
+        if len(graphs["keys"]) != 5:
+            raise AssertionError(f"server {tier}: graph keys "
+                                 f"{sorted(graphs['keys'])}")
+        need = {attention_kernel.KERNEL_NAME}
+        if pred.act_int8:
+            need |= {w8a8_matmul.KERNEL_NAME, w8a8_matmul.STACKED_KERNEL_NAME,
+                     fused_mlp.KERNEL_NAME, fused_mlp.GATED_KERNEL_NAME}
+        if not all(counts.get(k) for k in need):
+            raise AssertionError(f"server {tier}: launches {counts}, every "
+                                 f"one of {sorted(need)} expected")
+        cell.update(launches=counts, graphs=graphs)
+        launches.update(counts)
+        rec["tiers"][tier] = cell
+        print(f"server_{tier} " + json.dumps(
+            {k: v for k, v in cell.items() if k not in ("load", "pool")}),
+            flush=True)
+        del pred, server
+        torch.cuda.empty_cache()
+    return rec, dict(launches)
+
+
+def original_film_config():
+    """``VLAConfig()`` with the original head (``use_pro_version=False``)
+    and FiLM on both towers, conditioned on the LLM's 896-wide prompt
+    embedding: full width, full depth."""
+    from vla_adapter_torch.core.config import VLAConfig
+
+    cfg = VLAConfig()
+    d = cfg.llm.hidden_size
+    v = cfg.vision
+    return dataclasses.replace(
+        cfg, head=dataclasses.replace(cfg.head, use_pro_version=False),
+        vision=dataclasses.replace(
+            v, use_film=True,
+            primary=dataclasses.replace(v.primary, film_llm_dim=d),
+            fused=dataclasses.replace(v.fused, film_llm_dim=d)))
+
+
+def phase_original_film(bf16_pred, rng, card: str, seed: int):
+    """The original VLA-Adapter model (path B) at full width and depth:
+    random bf16 weights from a seeded CUDA generator, served in every tier
+    (bf16; int8; w8a8 "fused", "dense", "auto" at B=1 and B=4; "mega" at
+    B=1). Per tier: the launch counts around its requests against those
+    :func:`w8a8_shapes` derives; each replayed graph against its eager
+    forward, bit for bit; the kernel path against the all-plain path;
+    each quantized tier against bf16 (``forward_error_report``'s quantity,
+    and the function itself on the card); B=1 latency under graphs in
+    turns. The kernels at the new call sites (B4 at FiLM's projections, B5
+    at the original head's shared stacks) against their plain versions.
+    The checkpoint round trip without FiLM, and the exporter's refusal of
+    FiLM."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from vla_adapter_torch.infer.predict import SERVING_RUNTIME, Predictor
+    from vla_adapter_torch.models.layers import (
+        init_random_,
+        resolve_w8a8_impl,
+    )
+    from vla_adapter_torch.models.quantize import forward_error_report
+    from vla_adapter_torch.models.vla import VLAModel
+    from vla_adapter_torch.ops import attention_kernel, cuda_lib, w8a8_matmul
+    from vla_adapter_torch.weights.export import export_checkpoint_dir
+    from vla_adapter_torch.weights.load import load_vla
+
+    cfg = original_film_config()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    model = init_random_(VLAModel(cfg, SERVING_RUNTIME, device="cuda"), gen)
+    params = model.state_dict()
+    del model
+    common = dict(cfg=cfg, params=params, tokenize=bf16_pred.tokenize,
+                  norm_stats=bf16_pred.norm_stats, center_crop=False,
+                  device="cuda")
+    rec = {"card": card, "parameters": sum(v.numel() for v in params.values()),
+           "film_parameters": sum(v.numel() for k, v in params.items()
+                                  if ".film_" in k)}
+
+    # --- the kernels at the new call sites ---
+    shapes = w8a8_shapes(cfg, bf16_pred.tokenize)
+    new_sites = [dict(sh, model="original_film") for sh in shapes
+                 if any("film" in n for n in sh["shape"])
+                 or sh["kernel"] == w8a8_matmul.STACKED_KERNEL_NAME]
+    rec["kernel_records"] = phase_w8a8_kernels(new_sites)
+
+    # --- every tier: launches, graph vs eager, kernel vs plain ---
+    auto = Predictor(act_int8=True, **common)
+    tiers = {"bf16": Predictor(**common), "int8": Predictor(int8=True,
+                                                             **common),
+             "fused": auto.with_runtime(auto.rt, w8a8_impl="fused"),
+             "dense": auto.with_runtime(auto.rt, w8a8_impl="dense"),
+             "auto": auto,
+             "mega": auto.with_runtime(auto.rt, w8a8_impl="mega")}
+    n_llm = cfg.llm.num_layers
+    attn_per_forward = (n_llm + cfg.vision.primary.resolved_feature_layer + 1
+                        + cfg.vision.fused.resolved_feature_layer + 1)
+    rows4 = [tiers["bf16"].preprocess(im, INSTRUCTION, p)
+             for im, p in _requests(cfg, rng, 4)]
+    a_bf16 = tiers["bf16"].normalized_actions(rows4)
+    a_bf16_rows = _per_row_actions(tiers["bf16"], rows4)
+    launches = collections.Counter()
+    rec["tiers"] = {}
+    for name, pred in tiers.items():
+        eager = pred.with_runtime(pred.rt, cuda_graph=False)
+        cell = {}
+        cuda_lib.reset_launches()
+        want = collections.Counter()
+        for b in (1,) if name == "mega" else (1, 4):
+            impl = (resolve_w8a8_impl(pred.w8a8_impl, b) if pred.act_int8
+                    else None)
+            for text in GRAPH_INSTRUCTIONS:
+                rows = [pred.preprocess(im, text, p)
+                        for im, p in _requests(cfg, rng, b)]
+                got = pred.normalized_actions(rows)
+                with cuda_lib.recording():  # the yardstick's launches apart
+                    ref = eager.normalized_actions(rows)
+                if not (got.shape == (b, 8, 7) and np.isfinite(got).all()
+                        and np.array_equal(got, ref)):
+                    raise AssertionError(
+                        f"original_film {name} B={b}: replayed actions "
+                        f"differ from eager by {float(np.abs(got - ref).max())}")
+                if impl is not None:
+                    want.update(expected_w8a8_launches(shapes, impl, b))
+                want[attention_kernel.KERNEL_NAME] += (
+                    attn_per_forward - (n_llm if impl == "mega" else 0))
+        counts = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        if counts != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"original_film {name}: launches {counts}, "
+                                 f"expected {dict(want)}")
+        launches.update(counts)
+        cell["launches"] = counts
+        cell["graphs"] = pred.graphs.stats()
+        cell["graph_bitwise_equal"] = True
+        # the kernel path against the all-plain path, and against bf16
+        plain = pred.with_runtime(dataclasses.replace(pred.rt,
+                                                      kernels="plain"),
+                                  cuda_graph=False)
+        act = (_per_row_actions if name == "mega"
+               else (lambda p, r: p.normalized_actions(r)))
+        a_kernel, a_plain = act(pred, rows4), act(plain, rows4)
+        cell["max_abs_diff_kernel_vs_plain"] = float(
+            np.abs(a_kernel - a_plain).max())
+        bound = W8A8_ACTIONS_ATOL if pred.act_int8 else FLAGSHIP_ACTIONS_ATOL
+        if not cell["max_abs_diff_kernel_vs_plain"] <= bound:
+            raise AssertionError(f"original_film {name}: kernel vs plain "
+                                 f"{cell['max_abs_diff_kernel_vs_plain']}")
+        if name != "bf16":
+            ref = a_bf16_rows if name == "mega" else a_bf16
+            cell["max_abs_diff_vs_bf16"] = float(np.abs(a_kernel - ref).max())
+            if not cell["max_abs_diff_vs_bf16"] <= QUANTIZED_VS_BF16_LIMIT:
+                raise AssertionError(f"original_film {name} vs bf16: "
+                                     f"{cell['max_abs_diff_vs_bf16']}")
+        rec["tiers"][name] = cell
+        print(f"original_film {name} " + json.dumps(cell), flush=True)
+    for kernel in {sh["kernel"] for sh in shapes}:
+        if not launches[kernel]:
+            raise AssertionError(f"{kernel} never launched on the original "
+                                 f"model's path")
+
+    # --- forward_error_report on the card ---
+    rec["forward_error_report"] = {
+        tier: forward_error_report(cfg, params, act_int8=act, device="cuda")
+        for tier, act in (("int8", False), ("w8a8", True))}
+    for tier, rep in rec["forward_error_report"].items():
+        if not rep["max_abs_action_diff"] <= QUANTIZED_VS_BF16_LIMIT:
+            raise AssertionError(f"forward_error_report {tier}: {rep}")
+
+    # --- B=1 under graphs, in turns ---
+    rows1 = rows4[:1]
+    times = _in_turns(tiers, rows1, 8)
+    rec["b1_graph"] = {name: _spread(v) for name, v in times.items()}
+    print("original_film_b1 " + json.dumps(rec["b1_graph"]), flush=True)
+    del tiers, auto, eager, plain
+    torch.cuda.empty_cache()
+
+    # --- checkpoints: the original head without FiLM; FiLM refused ---
+    cfg_plain = dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, use_film=False,
+        primary=dataclasses.replace(cfg.vision.primary, film_llm_dim=None),
+        fused=dataclasses.replace(cfg.vision.fused, film_llm_dim=None)))
+    state = {k: v for k, v in params.items() if ".film_" not in k}
+    tmp = Path(tempfile.mkdtemp(prefix="vla_ckpt_"))
+    try:
+        try:
+            export_checkpoint_dir(params, cfg, tmp / "film")
+        except NotImplementedError as err:
+            rec["film_export_refused"] = str(err)
+        else:
+            raise AssertionError("the exporter wrote a FiLM checkpoint")
+        t0 = time.perf_counter()
+        export_checkpoint_dir(state, cfg_plain, tmp / "ckpt",
+                              norm_stats=bf16_pred.norm_stats)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_vla(tmp / "ckpt", tokenize=bf16_pred.tokenize,
+                          center_crop=False)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    differ = [k for k, v in state.items()
+              if not (loaded.params[k].dtype == v.dtype
+                      and torch.equal(loaded.params[k], v))]
+    if set(loaded.params) != set(state) or differ:
+        raise AssertionError(f"original head checkpoint: weights differ: "
+                             f"{differ[:5]}")
+    src = Predictor(cfg=cfg_plain, params=state, tokenize=bf16_pred.tokenize,
+                    norm_stats=bf16_pred.norm_stats, center_crop=False,
+                    device="cuda")
+    got, want = loaded.predict_action_rows(rows4), src.predict_action_rows(rows4)
+    if not (np.isfinite(got).all() and np.array_equal(got, want)):
+        raise AssertionError("original head checkpoint: actions differ by "
+                             f"{float(np.abs(got - want).max())}")
+    rec["checkpoint"] = {"export_s": export_s, "load_bf16_s": load_s,
+                         "state_dict_bitwise_equal": True,
+                         "actions_bitwise_equal": True}
+    print("original_film_checkpoint " + json.dumps(
+        {k: rec[k] for k in ("checkpoint", "film_export_refused",
+                             "forward_error_report")}), flush=True)
+    del loaded, src, params, state
+    torch.cuda.empty_cache()
+    return rec, dict(launches)
+
+
 def w8a8_kernel_summary(records, launches):
     """The kernels line's entries for the four w8a8 kernels: per-call
     times and bounds of phase 3 summed over the launches of one B=1 forward
@@ -1481,6 +2017,13 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
+    phase_s = {}
+    t_start = time.perf_counter()
+
+    def lap(name):  # wall seconds of each phase, printed and kept
+        phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+
     # 1. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     cuda_lib.load_libraries(SOURCES)
@@ -1492,11 +2035,13 @@ def main() -> int:
                 print(f"  ptxas {source}: " + line.strip(), flush=True)
     card = card_line()
     print(f"card: {card}", flush=True)
+    lap("1 build")
 
     # 2. attention kernel vs plain at the main path's shapes
     cfg, predictor, n_params, rng = build_flagship(args.seed)
     print(f"flagship: {n_params / 1e9:.3f} B parameters in bf16", flush=True)
     records = phase_kernel_vs_plain(attention_shapes(cfg, predictor.tokenize))
+    lap("2 attention")
 
     # 3. the w8a8 kernels vs plain at the w8a8 main path's shapes
     shapes = w8a8_shapes(cfg, predictor.tokenize)
@@ -1505,35 +2050,60 @@ def main() -> int:
     print(f"megalayer: {1e3 * mega['ms']:.1f} us per call, the fused "
           f"backend's launches of the same layer "
           f"{1e3 * mega['fused_chain_ms']:.1f} us", flush=True)
+    lap("3 w8a8 kernels")
 
     # 4. the on-card weight quantizer
     quantizer = phase_quantizer(predictor.params)
+    lap("4 quantizer")
 
     # 5. the bf16 flagship forward through Predictor
     flagship, launches = phase_flagship(predictor, rng, card)
     print(f"kernels launched on the bf16 main path: {sorted(launches)}",
           flush=True)
+    lap("5 flagship bf16")
 
     # 6. the w8a8 and int8 flagship forwards through Predictor
     w8a8, w8a8_launches = phase_w8a8(predictor, shapes, rng, card)
     print(f"kernels launched on the w8a8 main path: {sorted(w8a8_launches)}",
           flush=True)
+    lap("6 flagship w8a8")
 
     # 7. every tier as a CUDA graph against eager
     graphs = phase_graph(predictor, rng, card, profile=args.profile)
+    lap("7 graphs")
 
     # 8. the flagship exported and loaded back without JAX
     checkpoint = phase_checkpoint(predictor, rng, card)
+    lap("8 checkpoint")
+
+    # 9. the /act server with dynamic batching (path A)
+    server, server_launches = phase_server(predictor, card)
+    print(f"kernels launched on the server path: {sorted(server_launches)}",
+          flush=True)
+    lap("9 server")
+
+    # 10. the original head with FiLM towers, every tier (path B)
+    original, original_launches = phase_original_film(predictor, rng, card,
+                                                      args.seed)
+    print(f"kernels launched on the original model's path: "
+          f"{sorted(original_launches)}", flush=True)
+    lap("10 original_film")
     kernels = (kernel_summary(records, launches)
                + w8a8_kernel_summary(w8a8_records, w8a8_launches)
                + megalayer_kernel_summary(w8a8_records, w8a8_launches))
+    paths = {"flagship_bf16": launches, "flagship_w8a8": w8a8_launches,
+             "server": server_launches, "original_film": original_launches}
+    for entry in kernels:
+        entry["launches_by_path"] = {path: counts.get(entry["name"], 0)
+                                     for path, counts in paths.items()}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "shapes": records,
                        "w8a8_shapes": w8a8_records, "quantizer": quantizer,
                        "flagship": flagship, "flagship_w8a8": w8a8,
                        "graph": graphs, "checkpoint": checkpoint,
-                       "kernels": kernels}, f,
+                       "server": server, "original_film": original,
+                       "kernels": kernels, "phase_s": phase_s}, f,
                       indent=1)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

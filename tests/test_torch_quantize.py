@@ -7,6 +7,7 @@ and a quantized JAX tree carried by ``from_jax_params`` against the port
 quantizing the carried float tree itself.
 """
 
+import collections
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -180,3 +181,30 @@ def test_chip_smoke_derives_the_flagship_w8a8_launches():
     for sh in shapes:
         assert sh["k"] % 16 == 0 and sh.get("n", 2) % 2 == 0
         assert sh.get("f", 16) % 16 == 0
+
+
+@pytest.mark.parametrize("batch", [8, 16])
+def test_chip_smoke_dense_shapes_cover_the_server_buckets(batch):
+    """The server's buckets 8 and 16, which "auto" serves with "dense":
+    the matmuls chip_smoke.py holds against their plain versions there are
+    every w8a8 launch of such a forward, each MLP split into its matmuls."""
+    from vla_adapter_torch.core.config import VLAConfig
+    from vla_adapter_torch.data.tokenization import MockTokenizer
+
+    tok = MockTokenizer()
+    shapes = chip_smoke.w8a8_shapes(VLAConfig(), lambda t: tok(t).input_ids,
+                                    batches=(batch,))
+    dense = chip_smoke.dense_shapes(shapes)
+    got = collections.Counter()
+    for sh in dense:
+        assert sh["forward_batch"] == batch and "f" not in sh
+        assert sh["k"] % 16 == 0 and sh["n"] % 2 == 0
+        got[sh["kernel"]] += sh["launches_per_forward"]
+    assert dict(got) == chip_smoke.expected_w8a8_launches(shapes, "dense",
+                                                          batch)
+    assert len({(sh["kernel"], sh["m"], sh["k"], sh["n"])
+                for sh in dense}) == len(dense)
+    llm = [sh for sh in dense if "qwen2_mlp_fc1" in sh["shape"]]
+    assert len(llm) == 1 and llm[0]["shape"] == ["qwen2_mlp_fc1",
+                                                  "qwen2_mlp_up"]
+    assert llm[0]["m"] == batch * 640

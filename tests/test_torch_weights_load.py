@@ -161,9 +161,15 @@ def test_timm_patch_conv_and_qkv(params):
         assert torch.equal(state[key], want[key])
 
 
-def test_non_pro_head_raises():
-    with pytest.raises(NotImplementedError, match="non-Pro"):
-        convert.action_head_state_from_torch({}, 2, use_pro_version=False)
+def test_non_pro_head_raises(params):
+    """The original (non-Pro) head reads its own names: a Pro head's
+    checkpoint has no shared k_proj/v_proj, so converting it as an original
+    head raises, naming the missing projection (the original head itself
+    is converted in tests/test_torch_head_variants.py)."""
+    head = export._sub(from_jax_params(params, TCFG), "action_head.")
+    pro = export.head_state_to_torch(head, 2, use_pro_version=True)
+    with pytest.raises(KeyError, match="k_proj"):
+        convert.action_head_state_from_torch(pro, 2, use_pro_version=False)
 
 
 def test_native_prismatic_names_map_to_hf():

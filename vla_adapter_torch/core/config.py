@@ -50,8 +50,9 @@ class ViTConfig:
     layernorm_eps: float = 1e-6
     qkv_bias: bool = True
     feature_layer: Optional[int] = None
-    # FiLM conditioning: not ported yet (off in the flagship); the port
-    # raises when it is set.
+    # When set, every block applies FiLM modulation x*(1+gamma)+beta between
+    # its attention and MLP sublayers, conditioned on a language vector of
+    # this dimension (the reference's film_vit_wrapper; off in the flagship).
     film_llm_dim: Optional[int] = None
 
     @property

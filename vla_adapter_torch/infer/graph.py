@@ -8,19 +8,24 @@ at the key's first request, as the JIT compiles once per shape, and then
 replays it: one launch of the whole graph per request.
 
 Per key it holds static device buffers for the inputs (ids, prompt
-length, text valid, uint8 pixels and, if present, proprio) and pinned host
-buffers that each request is copied through. Everything from the uint8
-pixels on (their normalization included) is inside the graph, computed by
-the same code as the eager path, so the two agree bit for bit.
+length, text valid, pixels and, if present, proprio) and pinned host
+buffers that each request is copied through. The pixels' buffer takes the
+dtype of the first request's pixels: uint8 (normalized inside the graph)
+or fp32 (normalized on the host, ``device_normalize=False``); a replay
+with pixels of another dtype raises. Everything from the pixels on (their
+normalization included) is inside the graph, computed by the same code as
+the eager path, so the two agree bit for bit.
 
 At a key's first request the forward runs once eagerly on a side stream:
 that builds the kernels, sets their shared-memory limits, creates the
 per-device scratches and fills the plans' caches, none of which may happen
 during a capture. Then it is captured. All graphs of one instance share
-one memory pool; a replay and the copy of its output to the host happen
-under one lock, so no replay sees another graph's reuse of its output
-buffer. A capture that fails raises, naming the key; nothing falls back to
-the eager path.
+one memory pool. Captures, replays and the copy of an output to the host
+happen under :data:`CARD_LOCK`, one lock for the process: no replay sees
+another graph's reuse of its output buffer, and no thread touches the card
+while another captures (a capture in the global mode fails if one does).
+A capture that fails raises, naming the key; nothing falls back to the
+eager path.
 
 Launch counts (``ops/cuda_lib.py``): the warm-up and the capture each
 count into their own ``Counter`` (the two must agree), and every replay
@@ -40,9 +45,26 @@ import torch
 
 from vla_adapter_torch.ops import cuda_lib
 
-# the static buffer's dtype of each input (proprio only where present)
+# the static buffer's dtype of each input (proprio only where present);
+# pixels: uint8, or fp32 where they were normalized on the host
 INPUT_DTYPES = {"ids": torch.long, "plen": torch.long, "valid": torch.int32,
-                "pixels": torch.uint8, "proprio": torch.float32}
+                "proprio": torch.float32}
+PIXEL_DTYPES = {np.dtype(np.uint8): torch.uint8,
+                np.dtype(np.float32): torch.float32}
+
+# Every capture, replay and eager card forward of the process takes turns
+# under this lock (module docstring).
+CARD_LOCK = threading.RLock()
+
+
+def input_dtype(name: str, arr: np.ndarray) -> torch.dtype:
+    """The static buffer's dtype for input ``name`` given as ``arr``."""
+    if name != "pixels":
+        return INPUT_DTYPES[name]
+    if arr.dtype not in PIXEL_DTYPES:
+        raise ValueError(f"pixels of dtype {arr.dtype}: expected uint8 or "
+                         "float32")
+    return PIXEL_DTYPES[arr.dtype]
 
 
 @dataclass
@@ -75,7 +97,6 @@ class GraphedForward:
                        torch.device("cuda", torch.cuda.current_device()))
         self.pool = torch.cuda.graph_pool_handle()
         self.captures: Dict[Hashable, Capture] = {}
-        self._lock = threading.Lock()
 
     def __call__(self, key: Hashable, ids: np.ndarray, plen: np.ndarray,
                  valid: np.ndarray, pixels: np.ndarray,
@@ -83,19 +104,21 @@ class GraphedForward:
         arrays = {"ids": ids, "plen": plen, "valid": valid, "pixels": pixels}
         if proprio is not None:
             arrays["proprio"] = proprio
-        with self._lock:
+        with CARD_LOCK:
             cap = self.captures.get(key)
             if cap is None:
                 cap = self.captures[key] = self._capture(key, arrays)
             for name, arr in arrays.items():
                 pinned = cap.pinned[name]
-                if tuple(arr.shape) != tuple(pinned.shape):
-                    raise ValueError(f"graph {key}: {name} {arr.shape}, the "
-                                     f"capture took {tuple(pinned.shape)}")
+                if (tuple(arr.shape) != tuple(pinned.shape)
+                        or input_dtype(name, arr) != pinned.dtype):
+                    raise ValueError(
+                        f"graph {key}: {name} {arr.dtype} {arr.shape}, the "
+                        f"capture took {pinned.dtype} {tuple(pinned.shape)}")
                 pinned.numpy()[...] = arr
                 cap.static[name].copy_(pinned, non_blocking=True)
             cap.graph.replay()
-            cuda_lib.LAUNCHES.update(cap.launches)
+            cuda_lib.add_launches(cap.launches)
             cap.replays += 1
             cap.out_host.copy_(cap.out, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
@@ -109,9 +132,10 @@ class GraphedForward:
                  ) -> Capture:
         static, pinned = {}, {}
         for name, arr in arrays.items():
+            dtype = input_dtype(name, arr)
             static[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(
-                self.device, INPUT_DTYPES[name])
-            pinned[name] = torch.empty(arr.shape, dtype=INPUT_DTYPES[name],
+                self.device, dtype)
+            pinned[name] = torch.empty(arr.shape, dtype=dtype,
                                        pin_memory=True)
         with torch.cuda.device(self.device):
             side = torch.cuda.Stream()

@@ -3,7 +3,10 @@
 A request is host preprocessing (prompt ids, the image pipeline as uint8,
 proprio normalization), ONE model forward on the device under
 ``torch.inference_mode()`` with the pixels normalized there, and host-side
-unnormalization of the action chunk.
+unnormalization of the action chunk. ``device_normalize=False`` normalizes
+the pixels on the host instead (fp32 rows); ``enable_preprocess_pool`` runs
+the image pipeline in a process pool (``data/image_processing.PixelPool``),
+as a server does.
 
 Three serving tiers over the same checkpoint: bf16 (the default), weight-
 only int8 (``int8=True``) and w8a8 (``act_int8=True``), the last with three
@@ -20,6 +23,7 @@ it eagerly, as the CPU always does.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -29,12 +33,13 @@ import torch
 
 from vla_adapter_torch.core.config import VLAConfig
 from vla_adapter_torch.data.image_processing import (
+    PixelPool,
     image_processor_for,
     prepare_image,
 )
 from vla_adapter_torch.data.normalization import normalize, unnormalize
 from vla_adapter_torch.data.transform import inference_ids
-from vla_adapter_torch.infer.graph import GraphedForward
+from vla_adapter_torch.infer.graph import CARD_LOCK, GraphedForward
 from vla_adapter_torch.models.layers import Runtime, resolve_w8a8_impl
 from vla_adapter_torch.models.quantize import quantize_state_dict
 from vla_adapter_torch.models.vla import VLAModel
@@ -75,6 +80,9 @@ class Predictor:
     proprio present), captured at that key's first request (None: on the
     card yes, on the CPU no; True on the CPU raises ValueError). False
     runs it eagerly, launch by launch.
+    device_normalize: ship uint8 pixels and normalize them on the device
+    (True), or normalize them on the host (``ImageProcessor.__call__``) and
+    ship fp32 (False): the same fp32 arithmetic either side.
     """
 
     cfg: VLAConfig
@@ -88,6 +96,7 @@ class Predictor:
     act_int8: bool = False
     w8a8_impl: str = "auto"
     cuda_graph: Optional[bool] = None
+    device_normalize: bool = True
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -126,6 +135,7 @@ class Predictor:
         self._pix_std = torch.from_numpy(std).to(self.device)
         self.graphs = (GraphedForward(self._device_forward, self.device)
                        if self.cuda_graph else None)
+        self._pixel_pool: Optional[PixelPool] = None
 
     def _device_state(self, expected) -> Dict[str, torch.Tensor]:
         """``params`` on the device as the model expects them: int8
@@ -169,6 +179,14 @@ class Predictor:
             w8a8_impl=self.w8a8_impl if w8a8_impl is None else w8a8_impl,
             cuda_graph=self.cuda_graph if cuda_graph is None else cuda_graph)
 
+    def enable_preprocess_pool(self, workers: int = 4) -> None:
+        """Run each request's image pipeline in a pool of ``workers``
+        processes, so that concurrent requests preprocess on several cores
+        instead of taking turns under one interpreter lock (a server calls
+        this through ``ActionServer(preprocess_workers=N)``; whoever calls
+        it closes ``_pixel_pool``)."""
+        self._pixel_pool = PixelPool(workers)
+
     def _resolve_unnorm_key(self, unnorm_key: Optional[str]) -> str:
         if unnorm_key is None:
             if len(self.norm_stats) != 1:
@@ -191,16 +209,23 @@ class Predictor:
     def preprocess(self, images: Sequence[np.ndarray], instruction: str,
                    proprio: Optional[np.ndarray] = None,
                    unnorm_key: Optional[str] = None) -> Dict[str, np.ndarray]:
-        """Host work for one request: prompt ids, uint8 pixels, proprio."""
+        """Host work for one request: prompt ids, pixels (uint8, or fp32
+        normalized under ``device_normalize=False``), proprio."""
         cfg = self.cfg
         key = self._resolve_unnorm_key(unnorm_key)
         ids, plen, valid = inference_ids(cfg, self.tokenize, instruction)
         crop = 0.9 if self.center_crop else None
         size = cfg.vision.primary.image_size
-        pixels = np.stack([
-            self.image_processor.geom_only(
-                prepare_image(img, size=size, center_crop_scale=crop))
-            for img in images])
+        if self._pixel_pool is not None:
+            pixels = self._pixel_pool.run(images, size, crop,
+                                          self.image_processor,
+                                          self.device_normalize)
+        else:
+            proc = (self.image_processor.geom_only if self.device_normalize
+                    else self.image_processor)
+            pixels = np.stack([
+                proc(prepare_image(img, size=size, center_crop_scale=crop))
+                for img in images])
         row = {"ids": ids, "plen": plen, "valid": valid, "pixels": pixels}
         if cfg.use_proprio and proprio is not None:
             row["proprio"] = normalize(
@@ -211,12 +236,14 @@ class Predictor:
 
     def _device_forward(self, ids, plen, valid, pixels, proprio
                         ) -> torch.Tensor:
-        """The forward from device tensors (uint8 pixels, normalized here):
-        fp32 normalized actions. The graphs capture exactly this."""
+        """The forward from device tensors (uint8 pixels are normalized
+        here, fp32 ones were on the host): fp32 normalized actions. The
+        graphs capture exactly this."""
         model = self._model_for_batch(ids.shape[0])
-        pixels = pixels.float() / 255.0
-        pixels = ((pixels - self._pix_mean) / self._pix_std).to(self.rt.dtype)
-        return model(ids, plen, valid, pixels, proprio)["actions"].float()
+        if pixels.dtype == torch.uint8:
+            pixels = (pixels.float() / 255.0 - self._pix_mean) / self._pix_std
+        return model(ids, plen, valid, pixels.to(self.rt.dtype),
+                     proprio)["actions"].float()
 
     @torch.inference_mode()
     def _forward(self, ids, plen, valid, pixels, proprio) -> np.ndarray:
@@ -224,14 +251,15 @@ class Predictor:
             key = self.graph_key(ids.shape[0], proprio is not None)
             return self.graphs(key, ids, plen, valid, pixels, proprio)
         dev = self.device
-        return self._device_forward(
-            torch.from_numpy(ids).to(dev, torch.long),
-            torch.from_numpy(plen).to(dev, torch.long),
-            torch.from_numpy(valid).to(dev, torch.int32),
-            torch.from_numpy(pixels).to(dev),
-            None if proprio is None
-            else torch.from_numpy(proprio).to(dev, torch.float32),
-        ).cpu().numpy()
+        with CARD_LOCK if dev.type == "cuda" else contextlib.nullcontext():
+            return self._device_forward(
+                torch.from_numpy(ids).to(dev, torch.long),
+                torch.from_numpy(plen).to(dev, torch.long),
+                torch.from_numpy(valid).to(dev, torch.int32),
+                torch.from_numpy(pixels).to(dev),
+                None if proprio is None
+                else torch.from_numpy(proprio).to(dev, torch.float32),
+            ).cpu().numpy()
 
     def normalized_actions(self, rows: Sequence[Dict[str, np.ndarray]]
                            ) -> np.ndarray:

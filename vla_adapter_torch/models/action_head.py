@@ -1,14 +1,21 @@
-"""Bridge-attention action head, Pro blocks (counterpart of
+"""Bridge-attention action head, original and Pro blocks (counterpart of
 vla_adapter_tpu/models/action_head.py).
 
 Input: the per-layer VLM hidden states (B, L+1, T + Q, D): T "task"
 positions and Q action-query positions; block i reads entry i + 1. The
 task and adapter (action states + proprio token) K/V streams do not depend
-on the evolving chunk latents, so all layers' projections run as four
-batched products before the block loop (``BatchedDense``), as in the JAX
-package. Each Pro block attends over three streams [self | adapter | task],
-each with its own K/V and interleaved RoPE on K (and q); a tanh gate scales
-the task-stream logits. The original ``BridgeBlock`` is not ported yet.
+on the evolving chunk latents, so all layers' projections run as batched
+products before the block loop (``BatchedDense``), as in the JAX package.
+Each block attends over three streams [self | adapter | task]; a tanh gate
+scales the task-stream logits; then ``ffn(attn_out + x)``.
+
+* Pro (``use_pro_version``): each stream has its own K/V (four stacks
+  ``k_adapter``/``v_adapter``/``k_task``/``v_task``, plus ``k_self``/
+  ``v_self`` in the block), with interleaved RoPE on K and q.
+* Original (``BridgeBlock``): one shared K/V projection per layer, the
+  head's stacks ``k_proj``/``v_proj``, applied to the adapter and task
+  streams before the loop and to the self stream inside it through the
+  layer's slice (``BatchedDense.layer``); no RoPE.
 """
 
 from __future__ import annotations
@@ -106,6 +113,35 @@ class BridgeBlockPro(nn.Module):
         return F.relu(self.ffn_fc(self.ffn_norm(out + x)))
 
 
+class BridgeBlock(nn.Module):
+    """Original block: the K/V projections are the head's shared stacks;
+    the block gets its layer's adapter and task K/V and the self stream's
+    K/V, projected by the head from its input."""
+
+    def __init__(self, cfg: ActionHeadConfig, rt: Runtime, device=None):
+        super().__init__()
+        self.cfg, self.rt = cfg, rt
+        d = cfg.hidden_dim
+        self.gating_factor = new_param((1,), rt, device)
+        self.q_proj = Dense(d, d, rt=rt, device=device)
+        self.o_proj = Dense(d, d, rt=rt, device=device)
+        self.ffn_norm = LayerNorm(d, 1e-5, rt=rt, device=device)
+        self.ffn_fc = Dense(d, d, rt=rt, device=device)
+
+    def init_params_(self, gen: torch.Generator) -> None:
+        normal_init_(self.gating_factor, 1.0, gen)  # see BridgeBlockPro
+
+    def forward(self, x, k_adapter, v_adapter, k_task, v_task, k_self,
+                v_self):
+        h = self.cfg.num_attn_heads
+        ratio_g = torch.tanh(self.gating_factor.to(self.rt.dtype))
+        streams = [(_heads(k_self, h), _heads(v_self, h)),
+                   (k_adapter, v_adapter), (k_task, v_task)]
+        out = self.o_proj(_attend(_heads(self.q_proj(x), h), streams,
+                                  ratio_g))
+        return F.relu(self.ffn_fc(self.ffn_norm(out + x)))
+
+
 class L1RegressionActionHead(nn.Module):
     """Regress the normalized action chunk from per-layer hidden states.
 
@@ -116,22 +152,22 @@ class L1RegressionActionHead(nn.Module):
                  num_actions_chunk: int, num_task_tokens: int, rt: Runtime,
                  device=None):
         super().__init__()
-        if not cfg.use_pro_version:
-            raise NotImplementedError(
-                "the original BridgeBlock head is not ported yet")
         self.cfg, self.rt = cfg, rt
         self.action_dim = action_dim
         self.num_actions_chunk = num_actions_chunk
         self.num_task_tokens = num_task_tokens
         d, nb = cfg.hidden_dim, cfg.num_blocks
-        for name in ("k_adapter", "v_adapter", "k_task", "v_task"):
+        stacks = (("k_adapter", "v_adapter", "k_task", "v_task")
+                  if cfg.use_pro_version else ("k_proj", "v_proj"))
+        for name in stacks:
             setattr(self, name, BatchedDense(llm_dim, d, nb, rt=rt,
                                              device=device))
         self.input_norm = LayerNorm(action_dim * llm_dim, 1e-5, rt=rt,
                                     device=device)
         self.fc_in = Dense(action_dim * llm_dim, d, rt=rt, device=device)
-        self.blocks = nn.ModuleList(
-            BridgeBlockPro(cfg, rt, device) for _ in range(nb))
+        block = BridgeBlockPro if cfg.use_pro_version else BridgeBlock
+        self.blocks = nn.ModuleList(block(cfg, rt, device)
+                                    for _ in range(nb))
         self.out_norm = LayerNorm(d, 1e-5, rt=rt, device=device)
         self.fc_out = Dense(d, action_dim, rt=rt, device=device)
 
@@ -147,16 +183,26 @@ class L1RegressionActionHead(nn.Module):
             p = proprio_features[:, None].to(dt).expand(b, nb, 1, llm_dim)
             h_adapter = torch.cat([h_adapter, p], dim=2)
 
-        k_adapter = _rope_batched(_heads(self.k_adapter(h_adapter), h),
-                                  cfg.rope_base)
-        v_adapter = _heads(self.v_adapter(h_adapter), h)
-        k_task = _rope_batched(_heads(self.k_task(h_task), h), cfg.rope_base)
-        v_task = _heads(self.v_task(h_task), h)
+        if cfg.use_pro_version:
+            k_adapter = _rope_batched(_heads(self.k_adapter(h_adapter), h),
+                                      cfg.rope_base)
+            v_adapter = _heads(self.v_adapter(h_adapter), h)
+            k_task = _rope_batched(_heads(self.k_task(h_task), h),
+                                   cfg.rope_base)
+            v_task = _heads(self.v_task(h_task), h)
+        else:  # the shared stacks over both streams
+            k_adapter = _heads(self.k_proj(h_adapter), h)
+            v_adapter = _heads(self.v_proj(h_adapter), h)
+            k_task = _heads(self.k_proj(h_task), h)
+            v_task = _heads(self.v_proj(h_task), h)
 
         x = torch.zeros((b, self.num_actions_chunk, self.action_dim * llm_dim),
                         dtype=dt, device=hidden_states.device)
         x = F.relu(self.fc_in(self.input_norm(x)))
         for i, block in enumerate(self.blocks):
-            x = block(x, k_adapter[:, i], v_adapter[:, i], k_task[:, i],
-                      v_task[:, i])
+            streams = (k_adapter[:, i], v_adapter[:, i], k_task[:, i],
+                       v_task[:, i])
+            if not cfg.use_pro_version:  # the self stream: layer i's slice
+                streams += (self.k_proj.layer(x, i), self.v_proj.layer(x, i))
+            x = block(x, *streams)
         return self.fc_out(self.out_norm(x))

@@ -250,6 +250,22 @@ class BatchedDense(nn.Module):
                    self.weight_scale, out_dtype=rt.dtype)
         return y.reshape(num_l, b, s, -1).transpose(0, 1)
 
+    def layer(self, x: torch.Tensor, index: int) -> torch.Tensor:
+        """x (..., in) through layer ``index`` of the stack alone, weight
+        only: the float kernel's slice, or the int8 slice upcast with the
+        per-column scale on the product's output, as the original head's
+        self stream takes it (no w8a8, as in the JAX package). Only this
+        layer's slice is upcast."""
+        dt = self.rt.dtype
+        if self.rt.weights_int8:
+            y = F.linear(x.to(dt), self.weight_q[index].to(dt)) \
+                * self.weight_scale[index].to(dt)
+        else:
+            y = torch.matmul(x.to(dt), self.kernel[index].to(dt))
+        if self.bias is not None:
+            y = y + self.bias[index].to(dt)
+        return y
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rt = self.rt
         dt = rt.dtype

@@ -7,12 +7,14 @@ embedding -> positional embedding (patch tokens only under
 else on the full sequence) -> pre-norm blocks with optional LayerScale ->
 the raw output of block ``feature_layer``, no final norm, prefix tokens
 stripped. Only ``feature_layer + 1`` blocks are built: later blocks never
-reach the output. Input is NHWC.
+reach the output. Input is NHWC. With ``film_llm_dim`` set, every block
+modulates its tokens between the sublayers by the language vector (FiLM).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
@@ -111,7 +113,10 @@ class LayerScale(nn.Module):
 
 
 class ViTBlock(nn.Module):
-    """Pre-norm block (FiLM is not ported)."""
+    """Pre-norm block. With ``cfg.film_llm_dim`` set, FiLM between the
+    attention and MLP sublayers: ``x * (1 + gamma) + beta``, gamma and beta
+    two Dense projections of the language vector (the reference's
+    film_vit_wrapper; a checkpoint's are zero at init, the identity)."""
 
     def __init__(self, cfg: ViTConfig, rt: Runtime, device=None):
         super().__init__()
@@ -124,12 +129,23 @@ class ViTBlock(nn.Module):
         if cfg.layer_scale_init is not None:
             self.ls1 = LayerScale(e, rt, device)
             self.ls2 = LayerScale(e, rt, device)
+        self.film_scale = self.film_shift = None
+        if cfg.film_llm_dim is not None:
+            self.film_scale = Dense(cfg.film_llm_dim, e, rt=rt, device=device)
+            self.film_shift = Dense(cfg.film_llm_dim, e, rt=rt, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                lang: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.attn(self.norm1(x))
         if self.ls1 is not None:
             h = self.ls1(h)
         x = x + h
+        if self.film_scale is not None:
+            if lang is None:
+                raise ValueError("a FiLM block needs the language vector")
+            gamma = self.film_scale(lang)[:, None, :]
+            beta = self.film_shift(lang)[:, None, :]
+            x = x * (1.0 + gamma) + beta
         h = self.mlp(self.norm2(x))
         if self.ls2 is not None:
             h = self.ls2(h)
@@ -137,12 +153,12 @@ class ViTBlock(nn.Module):
 
 
 class VisionTransformer(nn.Module):
-    """Feature extractor: images (B, H, W, 3) NHWC -> (B, N_patches, E)."""
+    """Feature extractor: images (B, H, W, 3) NHWC -> (B, N_patches, E);
+    a FiLM tower also takes the language vector (B, film_llm_dim), which a
+    tower without FiLM ignores."""
 
     def __init__(self, cfg: ViTConfig, rt: Runtime, device=None):
         super().__init__()
-        if cfg.film_llm_dim is not None:
-            raise NotImplementedError("FiLM vision towers are not ported yet")
         self.cfg, self.rt = cfg, rt
         e = cfg.hidden_size
         self.patch_embed = PatchEmbed(cfg.patch_size, 3, e, rt=rt,
@@ -166,7 +182,8 @@ class VisionTransformer(nn.Module):
             if tok is not None:
                 tok.zero_()
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                lang: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg, dt = self.cfg, self.rt.dtype
         x = self.patch_embed(images.to(dt))
         b, _, e = x.shape
@@ -178,6 +195,10 @@ class VisionTransformer(nn.Module):
             x = torch.cat(prefix + [x], dim=1) + self.pos_embed.to(dt)
         if self.norm_pre is not None:
             x = self.norm_pre(x)
+        if cfg.film_llm_dim is None:
+            lang = None
+        elif lang is not None:
+            lang = lang.to(dt)
         for block in self.blocks:
-            x = block(x)
+            x = block(x, lang)
         return x[:, cfg.num_prefix_tokens:]

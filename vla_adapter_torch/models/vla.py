@@ -12,7 +12,10 @@ Reference quirks kept on purpose:
   * the action-state window starts ONE position before the action block:
     multimodal index ``num_patches + prompt_len - 1``;
   * the "task" stream is multimodal positions [0, num_patches);
-  * the proprio token goes only into the head.
+  * the proprio token goes only into the head;
+  * FiLM towers (``vision.use_film``) are conditioned on the mean prompt
+    embedding over valid text tokens, action-query positions excluded,
+    taken after the queries are spliced in.
 """
 
 from __future__ import annotations
@@ -42,18 +45,22 @@ class FusedVisionBackbone(nn.Module):
     def __init__(self, cfg: VLAConfig, rt: Runtime, device=None):
         super().__init__()
         vcfg = cfg.vision
-        if vcfg.use_film:
-            raise NotImplementedError("FiLM vision towers are not ported yet")
         self.featurizer = VisionTransformer(vcfg.primary, rt, device)
         self.fused_featurizer = (VisionTransformer(vcfg.fused, rt, device)
                                  if vcfg.fused is not None else None)
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+    def forward(self, pixel_values: torch.Tensor,
+                lang: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``lang`` (B, D): the FiLM towers' language vector, one per
+        request, repeated for each of its images."""
         b, n_img, h, w, c = pixel_values.shape
         flat = pixel_values.reshape(b * n_img, h, w, c)
-        feats = self.featurizer(flat[..., 0:3])
+        flat_lang = (None if lang is None else
+                     lang[:, None].expand(-1, n_img, -1).reshape(b * n_img, -1))
+        feats = self.featurizer(flat[..., 0:3], flat_lang)
         if self.fused_featurizer is not None:
-            feats = torch.cat([feats, self.fused_featurizer(flat[..., 3:6])],
+            feats = torch.cat([feats, self.fused_featurizer(flat[..., 3:6],
+                                                            flat_lang)],
                               dim=-1)
         return feats.reshape(b, n_img * feats.shape[1], feats.shape[2])
 
@@ -114,8 +121,19 @@ class VLAModel(nn.Module):
         rows = torch.arange(b, device=dev)[:, None]
         text_embeds[rows, q_pos] = self.action_queries.to(dt)
 
+        # --- FiLM's language vector: mean prompt embedding (queries out) ---
+        lang_cond = None
+        if cfg.vision.use_film:
+            pos = torch.arange(text_embeds.shape[1], device=dev)[None]
+            start = prompt_len.long()[:, None]
+            in_queries = (pos >= start) & (pos < start + num_q)
+            lang_mask = text_valid.float() * (~in_queries).float()
+            lang_cond = ((text_embeds * lang_mask[..., None]).sum(dim=1)
+                         / lang_mask.sum(dim=1, keepdim=True).clamp(min=1.0))
+
         # --- vision + multimodal splice [tok0 | patches | text 1:] ---
-        projected = self.projector(self.vision_backbone(pixel_values))
+        projected = self.projector(self.vision_backbone(pixel_values,
+                                                        lang_cond))
         mm_embeds = torch.cat(
             [text_embeds[:, :1], projected.to(dt), text_embeds[:, 1:]], dim=1)
         text_valid = (text_valid != 0).to(torch.int32)

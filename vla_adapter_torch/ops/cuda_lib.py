@@ -12,8 +12,10 @@ included, so a build takes seconds, not minutes.
 can show that its main path went through the kernels. Inside
 :func:`recording` (a CUDA graph's warm-up and capture) the count goes to
 the recording's own ``Counter`` instead, and whoever replays the graph
-adds that ``Counter`` to ``LAUNCHES`` at each replay, so the counts per
-request stay those of an eager run.
+adds that ``Counter`` to ``LAUNCHES`` at each replay
+(:func:`add_launches`), so the counts per request stay those of an eager
+run. Both update ``LAUNCHES`` under a lock, so that the counts of requests
+served from several threads at once (a server) are not lost.
 """
 
 from __future__ import annotations
@@ -49,17 +51,29 @@ _SOURCE_LOCKS: dict = collections.defaultdict(threading.Lock)
 
 
 _RECORDING = threading.local()
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    LAUNCHES.clear()
+    with _COUNT_LOCK:
+        LAUNCHES.clear()
 
 
 def count_launch(name: str) -> None:
     """One launch of kernel ``name``: into this thread's :func:`recording`
     if one is open, or else into ``LAUNCHES``."""
     counter = getattr(_RECORDING, "counter", None)
-    (LAUNCHES if counter is None else counter)[name] += 1
+    if counter is not None:
+        counter[name] += 1
+        return
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+
+
+def add_launches(counts) -> None:
+    """Add a graph's recorded launches to ``LAUNCHES`` (one replay)."""
+    with _COUNT_LOCK:
+        LAUNCHES.update(counts)
 
 
 @contextlib.contextmanager

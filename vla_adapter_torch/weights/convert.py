@@ -136,10 +136,19 @@ def vla_state_from_hf(sd: Mapping[str, torch.Tensor],
     return out
 
 
-# the Pro head's per-block projections that stay in the block, and those
-# the port hoists into (L, in, out) stacks of the head (models/action_head.py)
+# each head's per-block projections that stay in the block, and those the
+# port hoists into (L, in, out) stacks of the head (models/action_head.py)
 PRO_BLOCK_NAMES = ("q_proj", "k_self", "v_self", "o_proj")
 PRO_HOISTED_NAMES = ("k_adapter", "v_adapter", "k_task", "v_task")
+ORIGINAL_BLOCK_NAMES = ("q_proj", "o_proj")
+ORIGINAL_HOISTED_NAMES = ("k_proj", "v_proj")
+
+
+def head_names(use_pro_version: bool):
+    """(per-block names, hoisted stack names) of a head."""
+    if use_pro_version:
+        return PRO_BLOCK_NAMES, PRO_HOISTED_NAMES
+    return ORIGINAL_BLOCK_NAMES, ORIGINAL_HOISTED_NAMES
 
 
 def action_head_state_from_torch(sd: Mapping[str, torch.Tensor],
@@ -150,12 +159,9 @@ def action_head_state_from_torch(sd: Mapping[str, torch.Tensor],
 
     torch layout: {prefix}layer_norm1 / fc1 / mlp_resnet_blocks.{i}.* /
     layer_norm2 / fc2. The Pro blocks' unused ``film_gen`` parameters are
-    ignored. The hoisted K/V projections become ``(L, in, out)`` kernels.
-    The original (non-Pro) BridgeBlock head is not ported yet and raises,
-    as the port's model does."""
-    if not use_pro_version:
-        raise NotImplementedError("the non-Pro BridgeBlock head is not "
-                                  "ported yet")
+    ignored. The hoisted K/V projections (the Pro head's four, the original
+    head's shared ``k_proj``/``v_proj``) become ``(L, in, out)`` kernels."""
+    block_names, hoisted_names = head_names(use_pro_version)
     p = prefix
     out = {}
     for src, dst in (("layer_norm1", "input_norm"), ("fc1", "fc_in"),
@@ -168,12 +174,12 @@ def action_head_state_from_torch(sd: Mapping[str, torch.Tensor],
 
     for i in range(num_blocks):
         for kind in ("weight", "bias"):
-            for n in PRO_BLOCK_NAMES:
+            for n in block_names:
                 out[f"blocks.{i}.{n}.{kind}"] = blk(i, f"{n}.{kind}")
             out[f"blocks.{i}.ffn_norm.{kind}"] = blk(i, f"ffn.0.{kind}")
             out[f"blocks.{i}.ffn_fc.{kind}"] = blk(i, f"ffn.1.{kind}")
         out[f"blocks.{i}.gating_factor"] = blk(i, "gating_factor")
-    for n in PRO_HOISTED_NAMES:
+    for n in hoisted_names:
         out[f"{n}.kernel"] = torch.stack([blk(i, f"{n}.weight").T
                                           for i in range(num_blocks)])
         out[f"{n}.bias"] = torch.stack([blk(i, f"{n}.bias")

@@ -26,11 +26,7 @@ from vla_adapter_torch.core.config import (
     VLAConfig,
     vla_config_to_dict,
 )
-from vla_adapter_torch.weights.convert import (
-    PRO_BLOCK_NAMES,
-    PRO_HOISTED_NAMES,
-    StateDict,
-)
+from vla_adapter_torch.weights.convert import StateDict, head_names
 from vla_adapter_torch.weights.safetensors_io import save_file
 
 
@@ -83,7 +79,16 @@ def vit_state_to_timm(state: Mapping[str, torch.Tensor], cfg: ViTConfig,
 def vla_state_to_hf(state: Mapping[str, torch.Tensor],
                     cfg: VLAConfig) -> StateDict:
     """The backbone of a ``VLAModel`` state_dict -> the flat HF layout of
-    ``model.safetensors``."""
+    ``model.safetensors``. A FiLM backbone raises: the layout has no names
+    for the FiLM projections (neither has the JAX package's exporter), and
+    a checkpoint without them would serve another model."""
+    if cfg.vision.use_film or any(
+            t is not None and t.film_llm_dim is not None
+            for t in (cfg.vision.primary, cfg.vision.fused)):
+        raise NotImplementedError(
+            "export of a FiLM vision backbone: the reference's checkpoint "
+            "layout has no names for the towers' film_scale/film_shift "
+            "projections, so they would be lost; refusing to write it")
     out = qwen2_state_to_hf(_sub(state, "language_model."), cfg.llm,
                             prefix="language_model.model.")
     out.update(vit_state_to_timm(
@@ -103,10 +108,8 @@ def head_state_to_torch(head: Mapping[str, torch.Tensor], num_blocks: int,
                         use_pro_version: bool,
                         prefix: str = "model.") -> StateDict:
     """``action_head`` names (prefix taken off) -> the reference's
-    L1RegressionActionHead state dict."""
-    if not use_pro_version:
-        raise NotImplementedError("the non-Pro BridgeBlock head is not "
-                                  "ported yet")
+    L1RegressionActionHead state dict (Pro or original blocks)."""
+    block_names, hoisted_names = head_names(use_pro_version)
     p = prefix
     out = {}
     for dst, src in (("layer_norm1", "input_norm"), ("fc1", "fc_in"),
@@ -116,12 +119,12 @@ def head_state_to_torch(head: Mapping[str, torch.Tensor], num_blocks: int,
     for i in range(num_blocks):
         b = f"{p}mlp_resnet_blocks.{i}."
         for kind in ("weight", "bias"):
-            for n in PRO_BLOCK_NAMES:
+            for n in block_names:
                 out[f"{b}{n}.{kind}"] = head[f"blocks.{i}.{n}.{kind}"]
             out[f"{b}ffn.0.{kind}"] = head[f"blocks.{i}.ffn_norm.{kind}"]
             out[f"{b}ffn.1.{kind}"] = head[f"blocks.{i}.ffn_fc.{kind}"]
         out[b + "gating_factor"] = head[f"blocks.{i}.gating_factor"]
-        for n in PRO_HOISTED_NAMES:
+        for n in hoisted_names:
             out[f"{b}{n}.weight"] = head[f"{n}.kernel"][i].T
             out[f"{b}{n}.bias"] = head[f"{n}.bias"][i]
     return out
@@ -137,9 +140,10 @@ def export_checkpoint_dir(state: Mapping[str, torch.Tensor], cfg: VLAConfig,
                           out_dir, norm_stats: Optional[Dict] = None) -> Path:
     """Write a ``VLAModel`` state_dict (float, any device) as a
     reference-layout checkpoint directory."""
+    backbone = vla_state_to_hf(state, cfg)  # refuses before any write
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    save_file(vla_state_to_hf(state, cfg), out_dir / "model.safetensors",
+    save_file(backbone, out_dir / "model.safetensors",
               metadata={"format": "pt"})
     _save_torch(head_state_to_torch(_sub(state, "action_head."),
                                     cfg.head.num_blocks,
