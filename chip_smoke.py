@@ -4,9 +4,10 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. build: compile every CUDA kernel of the serving paths from
-   ``vla_adapter_torch/csrc`` with nvcc (sm_90a), one nvcc per source, all
-   started together, and print ptxas' register and spill lines.
+1. build: compile every CUDA kernel of the serving and training paths
+   from ``vla_adapter_torch/csrc`` with nvcc (sm_90a), one nvcc per
+   source, all started together, and print ptxas' register and spill
+   lines.
 2. attention kernel vs plain: at the shapes one serving forward gives it
    (Qwen2 14/2 heads, S=640, D=64, key padding, and causal; DINOv2 16
    heads, S=261, D=64; so400m 16 heads, S=256, D=72; for B=1 and B=2),
@@ -85,6 +86,29 @@ Phases, in order; any failure exits non-zero:
    call sites against their plain versions, and the checkpoint round trip
    of the original head without FiLM (the exporter refuses FiLM).
 
+11. the finetune path (:func:`phase_train`): the attention backward
+   kernel (B1-bwd) against its plain version at the training shapes of
+   micro-batch 16 (LLM with the dummy batch's key padding, DINOv2,
+   so400m; a causal case and a GQA case at S = 37 with empty rows): its
+   plan, dq/dk/dv within ``ATTENTION_BWD_RTOL``, a rerun bit for bit, and
+   its time beside the plain version's, SDPA's backward (the yardstick)
+   and the bound; the straight-through w8a8 product (forward and dx) bit
+   for bit with its plain version at every frozen-base shape; then
+   ``train.loop.finetune`` of the flagship recipe ("vla-adapter+libero-
+   spatial": LoRA r=64 over the int8 base, remat of the towers and the
+   decoder) at batch 16 for 10 steps over one repeated dummy batch with a
+   checkpoint every 5, the main path: falling finite losses, frozen
+   tensors unchanged and trainable ones moved bit for bit, the launches
+   of B1, B1-bwd and B4 per step as :func:`expected_train_launches`
+   derives them, s/step, samples/s and peak memory; one step through the
+   kernels against the plain versions (:func:`kernel_vs_plain_step`);
+   accumulation over 2 micro-batches with a bf16 carry and bf16 moments;
+   a resume from the step-5 checkpoint whose losses equal the unbroken
+   run's bit for bit; and a float-base run merged
+   (``weights.merge.merge_checkpoint``), exported, loaded with
+   ``load_vla`` and served under a CUDA graph within phase 5's bound of
+   the trained LoRA model.
+
 Phases 9 and 10 took 100 s on an NVIDIA H100 80GB HBM3 at 700 W beside
 110 s for phases 1-8 (their per-phase seconds are printed; phase 9's
 kernel checks at B=8 and 16 about 20 s of it). To hold the whole run near
@@ -99,7 +123,8 @@ fewer kernels per request than before the quantization moved inside B4
 
 Prints the card's name and power limit, one JSON line per kernel shape, a
 ``{"kernels": [...]}`` line (each kernel's ``launches`` on the bf16 or w8a8
-flagship path, and ``launches_by_path`` for every path), and as its last
+flagship path, B1-bwd's on the train path, and ``launches_by_path`` for
+every path), and as its last
 line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and when
 the ``vla_adapter_torch`` package beside this script is missing.
@@ -128,11 +153,18 @@ PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 SOURCES = ("fused_attention.cu", "w8a8_matmul.cu", "fused_mlp_w8a8.cu",
-           "megalayer_w8a8.cu")
+           "megalayer_w8a8.cu", "attention_bwd.cu")
 
 # kernel vs plain: bf16 output of |out| < 4, the two differ in fp32
 # summation order and exp rounding, so by about one bf16 ulp (2^-6 at 2-4).
 KERNEL_ATOL = 2e-2
+# the attention backward kernel (B1-bwd) vs its plain version (autograd
+# through the twin of xla_attention), per output, max |kernel - plain| over
+# max |plain|: the kernel rounds ds to bf16 for its dq/dk products (the
+# plain version keeps it fp32 into an fp32 product), sums dk/dv of a GQA
+# group in fp32 (the plain version rounds each head's to bf16 first) and
+# sums in another order, each a relative 2^-9 per term, well inside 1e-2.
+ATTENTION_BWD_RTOL = 1e-2
 # flagship, kernel vs plain attention, normalized actions: 73 attention
 # calls in bf16 through 24+23+26 random-weight layers and a 24-block head.
 FLAGSHIP_ACTIONS_ATOL = 1e-1
@@ -379,6 +411,642 @@ def phase_kernel_vs_plain(shapes):
         print("attention_shape " + json.dumps(rec), flush=True)
         records.append(rec)
     return records
+
+
+def attention_bwd_shapes(cfg, batch: int, seed: int):
+    """(name, batch, heads, kv heads, seq, head dim, key valid, causal,
+    calls per micro-batch) of the backward at the flagship finetune's
+    micro-batch: the LLM with the dummy batch's key padding, the towers
+    (2 images per sample), and two checks off the main path: the LLM
+    shape causal, and GQA at a sequence not a multiple of 16 whose first
+    row has no valid key."""
+    from vla_adapter_torch.data.dummy import make_dummy_batch
+
+    tv = make_dummy_batch(cfg, batch, np.random.default_rng(seed))[
+        "text_valid"]
+    mm_valid = np.concatenate([tv[:, :1], np.ones((batch, cfg.num_patches),
+                                                  np.int32), tv[:, 1:]], 1)
+    llm, dino, siglip = cfg.llm, cfg.vision.primary, cfg.vision.fused
+    n_img = cfg.vision.num_images
+    s_llm = mm_valid.shape[1]
+    odd = np.ones((2, 37), np.int32)
+    odd[0, :5] = 0
+    odd[0, 30:] = 0
+    return [
+        ("llm", batch, llm.num_heads, llm.num_kv_heads, s_llm, llm.head_dim,
+         mm_valid, False, llm.num_layers),
+        ("dinov2", batch * n_img, dino.num_heads, dino.num_heads,
+         dino.num_patches + dino.num_prefix_tokens, dino.head_dim, None,
+         False, dino.resolved_feature_layer + 1),
+        ("so400m", batch * n_img, siglip.num_heads, siglip.num_heads,
+         siglip.num_patches + siglip.num_prefix_tokens, siglip.head_dim,
+         None, False, siglip.resolved_feature_layer + 1),
+        ("llm_causal", batch, llm.num_heads, llm.num_kv_heads, s_llm,
+         llm.head_dim, mm_valid, True, 0),
+        ("gqa_s37_d72", 2, 14, 2, 37, 72, odd, False, 0),
+    ]
+
+
+def attention_bwd_bound_ms(b, h, hkv, s, d, valid, causal):
+    """Least time for one backward: five products of 2 h d operations per
+    (query, valid key) pair (the recomputed q.k, dv, dp, dq, dk) at the
+    bf16 peak, or q, k, v, dO read and dq, dk, dv written once at the HBM
+    rate, whichever is longer."""
+    key_ok = valid.astype(np.int64)
+    pairs = (int(np.cumsum(key_ok, axis=1).sum()) if causal
+             else int(s * key_ok.sum()))
+    flops = 10 * h * d * pairs
+    nbytes = 2 * (3 * b * h * s * d + 4 * b * hkv * s * d) + 4 * valid.size
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes"), flops, nbytes
+
+
+def phase_attention_bwd(shapes, card: str):
+    """B1-bwd against its plain version at each shape: the plan, the
+    relative error of dq, dk, dv, a rerun bit for bit, and the times of the
+    kernel, the plain version, SDPA's backward (the yardstick, GQA expanded
+    before the call; the port never calls it) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from vla_adapter_torch.ops.attention_kernel import (
+        attention_bwd,
+        attention_bwd_plan,
+        attention_bwd_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    records = []
+    for name, b, h, hkv, s, d, valid_np, causal, per_step in shapes:
+        plan = attention_bwd_plan(b, h, hkv, s, d)
+        print(f"attention_bwd plan {name}: {json.dumps(plan)}", flush=True)
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+        # the model's layout: (B, S, H, D) buffers seen as (B, H, S, D)
+        q, dout = (randn(b, s, h, d).transpose(1, 2) for _ in range(2))
+        k, v = (randn(b, s, hkv, d).transpose(1, 2) for _ in range(2))
+        valid = (None if valid_np is None
+                 else torch.from_numpy(valid_np).to(dev))
+        got = attention_bwd(q, k, v, valid, dout, causal=causal)
+        again = attention_bwd(q, k, v, valid, dout, causal=causal)
+        want = attention_bwd_reference(q, k, v, valid, dout, causal=causal)
+        torch.cuda.synchronize()
+        errs = {}
+        for gname, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            if not torch.isfinite(g.float()).all():
+                raise AssertionError(f"attention_bwd {name}: {gname} not "
+                                     f"finite")
+            if not torch.equal(g, a):
+                raise AssertionError(f"attention_bwd {name}: {gname} "
+                                     f"differs between two runs")
+            scale = float(w.float().abs().max())
+            errs[gname] = float((g.float() - w.float()).abs().max()) / max(
+                scale, 1e-30)
+            if not errs[gname] <= ATTENTION_BWD_RTOL:
+                raise AssertionError(
+                    f"attention_bwd {name}: {gname} max |kernel - plain| / "
+                    f"max |plain| = {errs[gname]} > {ATTENTION_BWD_RTOL}")
+        ms = device_ms(lambda: attention_bwd(q, k, v, valid, dout,
+                                             causal=causal))
+        plain_ms = eager_ms(lambda: attention_bwd_reference(
+            q, k, v, valid, dout, causal=causal), reps=3, rounds=3)
+        # SDPA's backward: forward once outside the timed calls
+        qx = q.detach().requires_grad_(True)
+        kx = k.repeat_interleave(h // hkv, dim=1).detach().requires_grad_(True)
+        vx = v.repeat_interleave(h // hkv, dim=1).detach().requires_grad_(True)
+        mask = None
+        if valid is not None:
+            mask = valid.bool()[:, None, None, :]
+        if causal:
+            tril = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+            mask = tril if mask is None else mask & tril
+        out = F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask)
+        lib_ms = eager_ms(lambda: torch.autograd.grad(
+            out, (qx, kx, vx), dout, retain_graph=True), reps=5, rounds=3)
+        key_valid = (np.ones((b, s), np.int32) if valid_np is None
+                     else valid_np)
+        bound, bound_by, flops, nbytes = attention_bwd_bound_ms(
+            b, h, hkv, s, d, key_valid, causal)
+        rec = {"card": card, "shape": name, "batch": b, "heads": h,
+               "kv_heads": hkv, "seq": s, "head_dim": d, "causal": causal,
+               "calls_per_micro_batch": per_step, "rel_err": errs,
+               "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                                  for g, w in zip(got, want)),
+               "deterministic": True, "ms": ms, "plain_ms": plain_ms,
+               "sdpa_bwd_ms": lib_ms, "bound_ms": bound,
+               "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+               "plan": plan}
+        print("attention_bwd_shape " + json.dumps(rec), flush=True)
+        records.append(rec)
+    return records
+
+
+def ste_shapes(cfg, batch: int):
+    """Distinct (M, in, out) of the frozen base's w8a8 matmuls at the
+    finetune's micro-batch (the towers see 2 images per sample)."""
+    from vla_adapter_torch.core.config import TrainConfig
+    from vla_adapter_torch.models.vla import VLAModel
+    from vla_adapter_torch.train.loop import build_runtime
+
+    rt = build_runtime(TrainConfig(model=cfg, base_int8=True))
+    model = VLAModel(cfg, rt, device="meta")
+    v, n_img = cfg.vision, cfg.vision.num_images
+    rows = {"featurizer": batch * n_img * (v.primary.num_patches
+                                           + v.primary.num_prefix_tokens),
+            "language_model": batch * (cfg.num_patches + cfg.max_text_tokens),
+            "projector": batch * cfg.num_patches}
+    if v.fused is not None:
+        rows["fused_featurizer"] = batch * n_img * (
+            v.fused.num_patches + v.fused.num_prefix_tokens)
+    shapes = set()
+    for name, mod in model.named_modules():
+        if getattr(mod, "ste", False):
+            owner = next(o for o in ("fused_featurizer", "featurizer",
+                                     "language_model", "projector")
+                         if o in name.split("."))
+            shapes.add((owner, rows[owner], mod.in_features, mod.features))
+    return sorted(shapes)
+
+
+def phase_ste(shapes, card: str):
+    """The straight-through w8a8 product on the card (kernel B4 forward,
+    and B4 on the transposed int8 weight for dx) against its plain version
+    at the frozen base's shapes: forward and dx bit for bit; the backward
+    timed (eager, one B4 launch and two elementwise passes)."""
+    import torch
+
+    from vla_adapter_torch.models.layers import W8A8STE
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    records = []
+    for owner, m, k, n in shapes:
+        x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+        dy = torch.randn(m, n, generator=gen, device=dev).bfloat16()
+        wq = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        ws = torch.rand(n, generator=gen, device=dev) * 0.01 + 1e-3
+        wqt = wq.t().contiguous()
+        got, want = [], []
+        for kernels, out in (("kernel", got), ("plain", want)):
+            xr = x.detach().requires_grad_(True)
+            y = W8A8STE.apply(xr, wq, ws, wqt, kernels)
+            (dx,) = torch.autograd.grad(y, xr, dy)
+            out += [y, dx]
+        torch.cuda.synchronize()
+        for what, g, w in zip(("forward", "dx"), got, want):
+            if not (torch.isfinite(g.float()).all() and torch.equal(g, w)):
+                raise AssertionError(
+                    f"STE {owner} ({m}, {k}->{n}) {what}: kernel differs from "
+                    f"plain by {float((g.float() - w.float()).abs().max())}")
+
+        def backward(kernels):
+            xr = x.detach().requires_grad_(True)
+            y = W8A8STE.apply(xr, wq, ws, wqt, kernels)
+            return lambda: torch.autograd.grad(y, xr, dy, retain_graph=True)
+
+        rec = {"card": card, "shape": owner, "m": m, "in": k, "out": n,
+               "forward_bitwise": True, "dx_bitwise": True,
+               "dx_ms": eager_ms(backward("kernel"), reps=5, rounds=3),
+               "dx_plain_ms": eager_ms(backward("plain"), reps=2, rounds=2)}
+        print("ste_shape " + json.dumps(rec), flush=True)
+        records.append(rec)
+    return records
+
+
+def expected_train_launches(model) -> dict:
+    """Kernel launches per micro-batch of the finetune, from the training
+    model: B1 on every attention layer, twice where its stack ("vit",
+    "llm") recomputes; B1-bwd's two kernels once per attention layer; B4
+    once per frozen w8a8 matmul in the forward, again where it recomputes,
+    and once more for dx, except where no gradient reaches the matmul's
+    input (the first tower block's q/k/v read the patch embeddings, which
+    train nothing)."""
+    from vla_adapter_torch.models.qwen2 import Qwen2Attention
+    from vla_adapter_torch.models.vit import ViTAttention, ViTBlock
+    from vla_adapter_torch.ops import w8a8_matmul
+    from vla_adapter_torch.ops.attention_kernel import (
+        BWD_KERNEL_NAME,
+        BWD_LAUNCHES_PER_CALL,
+        KERNEL_NAME,
+    )
+
+    rt = model.rt
+    attn = b4 = 0
+    for name, mod in model.named_modules():
+        stack = ("llm" if name.startswith("language_model") else
+                 "vit" if name.startswith("vision_backbone") else None)
+        twice = 2 if stack and rt.remat_policy_of(stack) else 1
+        if isinstance(mod, (Qwen2Attention, ViTAttention)):
+            attn += twice
+        if getattr(mod, "ste", False):
+            b4 += twice + 1
+    for tower in model.vision_backbone.children():
+        block0 = tower.blocks[0]
+        assert isinstance(block0, ViTBlock)
+        b4 -= sum(p.ste for p in (block0.attn.q_proj, block0.attn.k_proj,
+                                  block0.attn.v_proj))
+    layers = sum(isinstance(m, (Qwen2Attention, ViTAttention))
+                 for m in model.modules())
+    return {KERNEL_NAME: attn,
+            BWD_KERNEL_NAME: BWD_LAUNCHES_PER_CALL * layers,
+            w8a8_matmul.KERNEL_NAME: b4}
+
+
+def _check_train_launches(launches, per_micro, micro_batches, what):
+    want = {k: v * micro_batches for k, v in per_micro.items()}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, derived {want}")
+    extra = {k: v for k, v in launches.items() if k not in want and v}
+    if extra:
+        raise AssertionError(f"{what}: other kernels launched: {extra}")
+
+
+# kernel path vs plain path, one finetune step of the flagship from the
+# same weights, batch and noise. The loss is held to 0.5%, five times the
+# 0.09% read on an H100. The VLM's gradients (LoRA pairs of the LLM and
+# both towers, the projector) are taken under one upstream gradient, a
+# seeded normal draw at the head's input (the hidden states it reads), so
+# that the random-init 24-block head is out of their loop; each must reach
+# a cosine of VLM_GRAD_COSINE with the plain path's. On an H100 they read
+# 0.9969-0.9989; with the kernel path's attention backward missing the
+# softmax's rowsum(dp * p) term (tests/torch_faults.py) the lowest read
+# 0.40, with it missing the GQA sum 0.59, and the check failed. The
+# head's own gradients pass through no kernel (its attention is plain, its
+# matmuls float); they see the kernels only through the head's input, and
+# in bf16 they are dominated by rounding: on an H100 the plain path
+# against itself with its pixels scaled by 1 + 2^-8 (one bf16 ulp) read a
+# cosine of 0.23 for block 0's q_proj. They are held only to that spread:
+# the plain path's own cosine under the perturbation, less
+# HEAD_GRAD_COSINE_MARGIN.
+TRAIN_LOSS_RTOL = 5e-3
+VLM_GRAD_COSINE = 0.99
+HEAD_GRAD_COSINE_MARGIN = 0.1
+PIXEL_PERTURBATION = 1.0 + 2.0 ** -8
+
+
+def train_config(seed: int):
+    """The flagship recipe's TrainConfig at micro-batch 16, 10 steps,
+    a checkpoint every 5."""
+    from vla_adapter_torch.core.experiments import get_experiment
+
+    tcfg = get_experiment("vla-adapter+libero-spatial").to_train_config()
+    return dataclasses.replace(
+        tcfg, batch_size=16, save_freq=5, log_freq=100, seed=seed,
+        optim=dataclasses.replace(tcfg.optim, max_steps=10))
+
+
+HEAD_GRAD_NAMES = ("action_head.blocks.0.q_proj.weight",
+                   "action_head.fc_in.weight")
+VLM_GRAD_NAMES = (
+    "language_model.layers.0.self_attn.q_proj.lora_a",
+    "language_model.layers.0.self_attn.q_proj.lora_b",
+    "language_model.layers.23.mlp.down_proj.lora_b",
+    "projector.fc1.lora_b",
+    *(f"vision_backbone.featurizer.blocks.{i}.mlp.fc1.lora_b"
+      for i in (1, 11, 21)),
+    *(f"vision_backbone.fused_featurizer.blocks.{i}.attn.v_proj.lora_b"
+      for i in (1, 12, 25)))
+
+
+def kernel_vs_plain_step(tcfg, init, batch, dev, head_names=HEAD_GRAD_NAMES,
+                         vlm_names=VLM_GRAD_NAMES) -> dict:
+    """The first step's loss and gradients through the kernels, through
+    their plain versions, and through the plain versions with the input
+    pixels scaled by ``PIXEL_PERTURBATION``, from the same weights
+    (``init``) and noise: ``head_names`` from the loss, ``vlm_names``
+    from one seeded upstream gradient at the head's input. Returns the
+    losses, and each gradient's max |kernel - plain| over max |plain| and
+    cosines kernel/plain and perturbed/plain (1 where both are zero: a
+    lora_a's gradient at the first step, its lora_b being 0)."""
+    import torch
+
+    from vla_adapter_torch.models.layers import prepare_ste_
+    from vla_adapter_torch.models.vla import VLAModel
+    from vla_adapter_torch.train import step as tstep
+    from vla_adapter_torch.train.loop import build_runtime
+    from vla_adapter_torch.train.partition import mark_trainable_
+
+    grads, loss, upstream = {}, {}, None
+    for path, kernels, scale in (("plain", "plain", 1.0),
+                                 ("kernel", "kernel", 1.0),
+                                 ("perturbed", "plain", PIXEL_PERTURBATION)):
+        device_batch = tstep.to_device(batch, dev)
+        device_batch["pixel_values"] = device_batch["pixel_values"] * scale
+        m = VLAModel(tcfg.model, build_runtime(tcfg, kernels), device="meta")
+        m.load_state_dict(init, strict=True, assign=True)
+        mark_trainable_(m, tcfg.lora.enabled)
+        prepare_ste_(m)
+        params = dict(m.named_parameters())
+        out = m(**{k: device_batch[k] for k in tstep.MODEL_INPUTS
+                   if k in device_batch}, train=True,
+                generator=tstep.noise_generator(tcfg.seed, 0, 0, dev),
+                return_hidden_states=True)
+        lval = tstep.l1_action_loss(out["actions"],
+                                    device_batch["actions"])[0]
+        hidden = out["hidden_states"]
+        if upstream is None:
+            upstream = torch.randn(hidden.shape, device=dev, generator=(
+                torch.Generator(device=dev).manual_seed(tcfg.seed)))
+        gs = torch.autograd.grad(lval, [params[n] for n in head_names],
+                                 retain_graph=True)
+        gs += torch.autograd.grad((hidden.float() * upstream).sum(),
+                                  [params[n] for n in vlm_names])
+        loss[path] = lval.item()
+        grads[path] = {n: g.float() for n, g in
+                       zip(head_names + vlm_names, gs)}
+        del m, params, out, lval, hidden, gs
+        torch.cuda.empty_cache()
+
+    def cosine(g, w):
+        if not (g.any() or w.any()):
+            return 1.0
+        return float((g * w).sum() / (g.norm() * w.norm()).clamp_min(1e-30))
+
+    out = {"loss": loss, "head_grads": list(head_names),
+           "vlm_grads": list(vlm_names), "grad_rel_err": {},
+           "grad_cosine": {}, "grad_cosine_perturbed": {}}
+    for n in head_names + vlm_names:
+        g, w = grads["kernel"][n], grads["plain"][n]
+        out["grad_rel_err"][n] = float((g - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+        out["grad_cosine"][n] = cosine(g, w)
+        out["grad_cosine_perturbed"][n] = cosine(grads["perturbed"][n], w)
+    return out
+
+
+def check_kernel_vs_plain(rec) -> None:
+    loss = rec["loss"]
+    if abs(loss["kernel"] - loss["plain"]) > TRAIN_LOSS_RTOL * abs(
+            loss["plain"]):
+        raise AssertionError(f"kernel vs plain loss: {loss}")
+    cos = rec["grad_cosine"]
+    for n in rec["vlm_grads"]:
+        if not cos[n] >= VLM_GRAD_COSINE:
+            raise AssertionError(f"kernel vs plain gradient of {n} under "
+                                 f"the upstream at the head's input: "
+                                 f"cosine {cos[n]} < {VLM_GRAD_COSINE}")
+    for n in rec["head_grads"]:
+        floor = rec["grad_cosine_perturbed"][n] - HEAD_GRAD_COSINE_MARGIN
+        if not cos[n] >= floor:
+            raise AssertionError(f"kernel vs plain gradient of {n}: cosine "
+                                 f"{cos[n]} < {floor}")
+
+
+def _train_run(tcfg, batch, steps, root, **kw):
+    """finetune over one repeated batch, launches counted around it."""
+    import itertools
+
+    import torch
+
+    from vla_adapter_torch.ops import cuda_lib
+    from vla_adapter_torch.train.loop import finetune
+
+    tcfg = dataclasses.replace(tcfg, run_root_dir=str(root))
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = finetune(tcfg, data_iter=itertools.repeat(batch),
+                     max_steps=steps, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    memory = {"max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "resident_before_bytes": resident}
+    return state, launches, wall, memory
+
+
+def phase_train(cfg, card: str, seed: int):
+    """The finetune path on the flagship (phase 11; see the module
+    docstring). Returns (record, launches of the main run, B1-bwd records)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from vla_adapter_torch.data.dummy import make_dummy_batch
+    from vla_adapter_torch.data.normalization import dataset_statistics
+    from vla_adapter_torch.data.tokenization import MockTokenizer
+    from vla_adapter_torch.infer.predict import Predictor
+    from vla_adapter_torch.models.layers import Runtime
+    from vla_adapter_torch.models.vla import VLAModel
+    from vla_adapter_torch.train.checkpoints import (
+        find_resume_checkpoint,
+        load_params,
+    )
+    from vla_adapter_torch.train.loop import build_runtime, initial_state
+    from vla_adapter_torch.train.partition import mark_trainable_
+    from vla_adapter_torch.weights.export import export_checkpoint_dir
+    from vla_adapter_torch.weights.load import load_vla
+    from vla_adapter_torch.weights.merge import merge_checkpoint
+
+    dev = "cuda"
+    tcfg = train_config(seed)
+    batch_size = tcfg.batch_size
+    if tcfg.model != cfg:
+        raise AssertionError("the recipe does not train VLAConfig()")
+    batch = make_dummy_batch(cfg, batch_size, np.random.default_rng(seed))
+    rec = {"card": card, "batch_size": batch_size, "seconds": {}}
+    t_last = [time.perf_counter()]
+
+    def lap(name):  # wall seconds of each step group of the phase
+        now = time.perf_counter()
+        rec["seconds"][name], t_last[0] = now - t_last[0], now
+
+    # 1. B1-bwd against plain at the training shapes
+    bwd_records = phase_attention_bwd(
+        attention_bwd_shapes(cfg, batch_size, seed), card)
+    # 2. the STE product
+    lap("1 attention_bwd")
+    rec["ste"] = phase_ste(ste_shapes(cfg, batch_size), card)
+    lap("2 ste")
+
+    root = Path(tempfile.mkdtemp(prefix="vla_train_"))
+    try:
+        # 3. the flagship finetune over the int8 base: the main path
+        rt = build_runtime(tcfg)
+        model = VLAModel(cfg, rt, device="meta")
+        per_micro = expected_train_launches(model)
+        init = initial_state(tcfg, rt, dev)
+        trainable_names = set(mark_trainable_(model, tcfg.lora.enabled))
+        state, launches, wall, memory = _train_run(tcfg, batch, 10,
+                                                   root / "main", rt=rt)
+        losses = [h["loss"] for h in state.history]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"finetune losses {losses}")
+        _check_train_launches(launches, per_micro, 10, "finetune")
+        final = state.model.state_dict()
+        changed = [k for k, v in init.items()
+                   if k not in trainable_names and not torch.equal(final[k], v)]
+        still = [k for k in trainable_names if torch.equal(final[k], init[k])]
+        if changed or still:
+            raise AssertionError(f"frozen tensors changed: {changed[:5]}; "
+                                 f"trainable tensors that did not move: "
+                                 f"{still[:5]}")
+        ste_bytes = sum(m.weight_qt.numel() for m in state.model.modules()
+                        if getattr(m, "ste", False))
+        step_s = statistics.median(h["step_time"] for h in state.history[2:])
+        main = {"losses": losses, "median_s_per_step_3_10": step_s,
+                "samples_per_s": batch_size / step_s, "wall_s": wall,
+                **memory,
+                "launches": launches, "launches_per_step_derived": per_micro,
+                "trainable_tensors": len(trainable_names),
+                "trainable_params": sum(init[k].numel()
+                                        for k in trainable_names),
+                "transposed_int8_copy_bytes": ste_bytes,
+                "frozen_unchanged": True, "trainable_moved": True}
+        print("train_main " + json.dumps(dict(main, card=card)), flush=True)
+        rec["main"] = main
+        main_losses = losses
+        del state, final
+        shutil.rmtree(root / "main")
+        torch.cuda.empty_cache()
+
+        lap("3 finetune")
+
+        # 4. kernel against plain, one step's loss and named grads
+        step4 = kernel_vs_plain_step(tcfg, init, batch, dev)
+        print("train_kernel_vs_plain " + json.dumps(dict(step4, card=card)),
+              flush=True)
+        check_kernel_vs_plain(step4)
+        rec["kernel_vs_plain"] = step4
+        lap("4 kernel_vs_plain")
+
+        # 5. accumulation: 2 micro-batches, bf16 carry and moments
+        acfg = dataclasses.replace(
+            tcfg, grad_accumulation_steps=2, accum_dtype="bfloat16",
+            optim=dataclasses.replace(tcfg.optim, moments_dtype="bfloat16"))
+        abatch = make_dummy_batch(cfg, batch_size,
+                                  np.random.default_rng(seed), accum_steps=2)
+        state, launches, wall, _ = _train_run(acfg, abatch, 3,
+                                              root / "accum")
+        alosses = [h["loss"] for h in state.history]
+        if not np.isfinite(alosses).all():
+            raise AssertionError(f"accumulation losses {alosses}")
+        _check_train_launches(launches, per_micro, 6, "accumulation")
+        mu = next(iter(state.opt_state["mu"].values()))
+        if mu.dtype != torch.bfloat16:
+            raise AssertionError(f"moments stored in {mu.dtype}")
+        rec["accumulation"] = {"losses": alosses, "launches": launches,
+                               "wall_s": wall}
+        print("train_accumulation " + json.dumps(dict(rec["accumulation"],
+                                                     card=card)), flush=True)
+        del state
+        shutil.rmtree(root / "accum")
+        torch.cuda.empty_cache()
+
+        lap("5 accumulation")
+
+        # 6. resume: 5 steps, then on to 10 from the step-5 checkpoint
+        _train_run(tcfg, batch, 5, root / "resume")
+        ckpt = find_resume_checkpoint(root / "resume" / tcfg.run_id)
+        meta = json.loads((ckpt / "meta.json").read_text())
+        state = _train_run(tcfg, batch, 10, root / "resume",
+                           resume=True)[0]
+        steps = [h["step"] for h in state.history]
+        rlosses = [h["loss"] for h in state.history]
+        if meta != {"step": 5} or steps != list(range(5, 10)):
+            raise AssertionError(f"resume: checkpoint {meta}, steps {steps}")
+        if rlosses != main_losses[5:]:
+            raise AssertionError(f"resumed losses {rlosses} != the unbroken "
+                                 f"run's {main_losses[5:]}")
+        rec["resume"] = {"checkpoint_meta": meta, "losses": rlosses,
+                         "bitwise_equal_to_unbroken": True}
+        print("train_resume " + json.dumps(dict(rec["resume"], card=card)),
+              flush=True)
+        del state
+        shutil.rmtree(root / "resume")
+        torch.cuda.empty_cache()
+
+        lap("6 resume")
+
+        # 7. train -> merge -> export -> load_vla -> Predictor, float base
+        fcfg = dataclasses.replace(tcfg, base_int8=False)
+        state = _train_run(fcfg, batch, 3, root / "float")[0]
+        trained = {k: v.detach().clone() for k, v in
+                   state.model.state_dict().items()}
+        del state
+        torch.cuda.empty_cache()
+        ckpt = find_resume_checkpoint(root / "float" / fcfg.run_id)
+        merged = load_params(merge_checkpoint(ckpt, root / "merged",
+                                              fcfg.lora.scale, device=dev))
+        srng = np.random.default_rng(seed)
+        stats = {"libero_spatial": dataset_statistics(
+            srng.uniform(-1, 1, size=(1000, 7)),
+            proprio=srng.normal(size=(1000, 8)),
+            action_mask=[True] * 6 + [False])}
+        export_checkpoint_dir(merged, cfg, root / "export", norm_stats=stats)
+        del merged
+        tok = MockTokenizer()
+        tokenize = lambda t: tok(t).input_ids  # noqa: E731
+        served = load_vla(root / "export", tokenize=tokenize,
+                          center_crop=False, device=dev)
+        lora_rt = Runtime(dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                          lora_rank=fcfg.lora.rank,
+                          lora_scale=fcfg.lora.scale)
+        lora_pred = Predictor(cfg=cfg, params=trained, tokenize=tokenize,
+                              norm_stats=stats, rt=lora_rt, center_crop=False,
+                              device=dev, cuda_graph=False)
+        rows = [served.preprocess(im, INSTRUCTION, p)
+                for im, p in _requests(cfg, srng, 4)]
+        got = served.normalized_actions(rows)
+        want = lora_pred.normalized_actions(rows)
+        diff = float(np.abs(got - want).max())
+        if not (served.cuda_graph and np.isfinite(got).all()
+                and got.shape == (4, cfg.constants.num_actions_chunk,
+                                  cfg.constants.action_dim)
+                and diff <= FLAGSHIP_ACTIONS_ATOL):
+            raise AssertionError(f"merged model serves actions {diff} from "
+                                 f"the trained LoRA model's")
+        rec["merge_serve"] = {"max_abs_diff_normalized": diff,
+                              "cuda_graph": served.cuda_graph}
+        print("train_merge_serve " + json.dumps(dict(rec["merge_serve"],
+                                                    card=card)), flush=True)
+        del served, lora_pred, trained, init
+        torch.cuda.empty_cache()
+        lap("7 merge_serve")
+        print("train_seconds " + json.dumps(rec["seconds"]), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return rec, rec["main"]["launches"], bwd_records
+
+
+def attention_bwd_kernel_summary(records, launches):
+    """B1-bwd's entry: per-call times and bounds of phase 11 summed over
+    the calls of one micro-batch of 16 (24 LLM + 23 DINOv2 + 26 so400m
+    calls, two kernel launches each)."""
+    from vla_adapter_torch.ops.attention_kernel import BWD_KERNEL_NAME
+
+    main = [r for r in records if r["calls_per_micro_batch"]]
+
+    def total(key):
+        return sum(r[key] * r["calls_per_micro_batch"] for r in main)
+
+    ops = sum(r["flops"] * r["calls_per_micro_batch"] for r in main)
+    nbytes = sum(r["bytes"] * r["calls_per_micro_batch"] for r in main)
+    t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return [{
+        "name": BWD_KERNEL_NAME, "route": "cuda",
+        "source": "vla_adapter_torch/csrc/attention_bwd.cu",
+        "replaces": "vla_adapter_tpu/ops/attention.py:100",
+        "launches": launches.get(BWD_KERNEL_NAME, 0),
+        "max_abs_err": max(r["max_abs_err"] for r in records),
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": total("sdpa_bwd_ms"),
+        "per": f"sum over the {sum(r['calls_per_micro_batch'] for r in main)}"
+               " calls (two kernel launches each) of one micro-batch of 16 "
+               "(SDPA's backward on k and v expanded to every query head)",
+    }]
 
 
 def build_flagship(seed: int):
@@ -2088,11 +2756,19 @@ def main() -> int:
     print(f"kernels launched on the original model's path: "
           f"{sorted(original_launches)}", flush=True)
     lap("10 original_film")
+
+    # 11. the finetune path: B1-bwd, the STE product, the flagship finetune
+    train, train_launches, bwd_records = phase_train(cfg, card, args.seed)
+    print(f"kernels launched on the train path: {sorted(train_launches)}",
+          flush=True)
+    lap("11 train")
     kernels = (kernel_summary(records, launches)
                + w8a8_kernel_summary(w8a8_records, w8a8_launches)
-               + megalayer_kernel_summary(w8a8_records, w8a8_launches))
+               + megalayer_kernel_summary(w8a8_records, w8a8_launches)
+               + attention_bwd_kernel_summary(bwd_records, train_launches))
     paths = {"flagship_bf16": launches, "flagship_w8a8": w8a8_launches,
-             "server": server_launches, "original_film": original_launches}
+             "server": server_launches, "original_film": original_launches,
+             "train": train_launches}
     for entry in kernels:
         entry["launches_by_path"] = {path: counts.get(entry["name"], 0)
                                      for path, counts in paths.items()}
@@ -2103,6 +2779,7 @@ def main() -> int:
                        "flagship": flagship, "flagship_w8a8": w8a8,
                        "graph": graphs, "checkpoint": checkpoint,
                        "server": server, "original_film": original,
+                       "train": train, "attention_bwd_shapes": bwd_records,
                        "kernels": kernels, "phase_s": phase_s}, f,
                       indent=1)
     print(f"card: {card}", flush=True)

@@ -1,6 +1,7 @@
-"""Model configuration tree (copy of the serving part of
-vla_adapter_tpu/core/config.py; training configs are not ported yet), and
-its JSON encoding in a checkpoint's ``config.json``.
+"""Configuration trees (copy of vla_adapter_tpu/core/config.py): the
+model's, the training run's (``LoRAConfig``, ``OptimizerConfig``,
+``TrainConfig``, with the JAX package's defaults), and the model's JSON
+encoding in a checkpoint's ``config.json``.
 
 Canonical geometry:
   vision  : fused DINOv2 ViT-L/14-reg4 (1024) + SigLIP so400m/14 (1152) @224px
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 from vla_adapter_torch.core.constants import (
     NormalizationType,
@@ -229,3 +230,83 @@ def vla_config_from_dict(d: dict) -> VLAConfig:
     d["llm"] = Qwen2Config(**d["llm"])
     d["head"] = ActionHeadConfig(**d["head"])
     return VLAConfig(**d)
+
+
+# ---------------------------------------------------------------------------
+# LoRA / training
+
+
+@dataclass(frozen=True)
+class LoRAConfig:
+    """LoRA finetuning (the reference's finetune.py: r=64, alpha=2r,
+    dropout 0, every linear of the VLM, Gaussian init)."""
+
+    enabled: bool = True
+    rank: int = 64
+    alpha: float = 128.0
+    dropout: float = 0.0
+    target: str = "all-linear"
+
+    @property
+    def scale(self) -> float:
+        return self.alpha / self.rank
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW with a linear warmup of the multiplier from 0.1 to 1 over
+    ``warmup_fraction * max_steps`` steps and a x``decay_factor`` drop at
+    ``num_steps_before_decay`` (the reference's MultiStepLR)."""
+
+    learning_rate: float = 5e-4
+    weight_decay: float = 0.0
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    warmup_fraction: float = 0.1
+    num_steps_before_decay: int = 100_000
+    decay_factor: float = 0.1
+    grad_clip_norm: Optional[float] = None
+    max_steps: int = 200_005
+    # Storage dtype of the Adam moments ("bfloat16" halves them; the update
+    # math stays fp32: train/optim.py). None = fp32 moments.
+    moments_dtype: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: VLAConfig = VLAConfig()
+    lora: LoRAConfig = LoRAConfig()
+    optim: OptimizerConfig = OptimizerConfig()
+    # "l1": continuous regression through the bridge head (the VLA-Adapter
+    # recipe). The token objective is not ported yet.
+    objective: str = "l1"
+    batch_size: int = 16          # global batch
+    grad_accumulation_steps: int = 1
+    seed: int = 42
+    # The JAX package's mesh axes; the port trains on one device and
+    # refuses any other layout (train/loop.py).
+    data_axis: int = -1
+    fsdp_axis: int = 1
+    tensor_axis: int = 1
+    remat_llm: bool = True        # recompute each layer in the backward
+    # "nothing" (recompute the whole layer) or "attn_only" (the attention
+    # half only); "dots", "dots_no_batch" and "mlp_saved" are not ported.
+    remat_policy: str = "nothing"
+    # Per-component overrides, ((component, policy), ...).
+    remat_policy_overrides: Tuple[Tuple[str, str], ...] = ()
+    # Which stacks recompute when remat_llm: "vit", "llm", "head".
+    remat_components: Tuple[str, ...] = ("vit", "llm")
+    # Store the frozen (not trained) parameters in bf16.
+    frozen_bf16: bool = True
+    # Run the frozen base's matmuls w8a8 (forward, and dx in the backward
+    # through a straight-through estimator; models/layers.py). The head,
+    # proprio projector and LoRA adapters stay float.
+    base_int8: bool = False
+    # Storage dtype of the grad-accumulation carry (None = fp32).
+    accum_dtype: Optional[str] = None
+    save_freq: int = 10_000
+    save_latest_checkpoint_only: bool = True
+    run_root_dir: str = "runs"
+    run_id: Optional[str] = None
+    val_freq: int = 10_000
+    log_freq: int = 10

@@ -16,6 +16,12 @@ scales the task-stream logits; then ``ffn(attn_out + x)``.
   head's stacks ``k_proj``/``v_proj``, applied to the adapter and task
   streams before the loop and to the self stream inside it through the
   layer's slice (``BatchedDense.layer``); no RoPE.
+
+In training the zero chunk latents get the caller's noise (the JAX
+package's N(0, train_noise_std) draw, drawn outside the head by
+``models/vla.py``), and under ``rt.remat`` with "head" among its
+components each block recomputes in the backward (under any policy, as
+in the JAX package).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from vla_adapter_torch.models.layers import (
     Dense,
     LayerNorm,
     Runtime,
+    checkpointed,
     new_param,
     normal_init_,
 )
@@ -146,7 +153,8 @@ class L1RegressionActionHead(nn.Module):
     """Regress the normalized action chunk from per-layer hidden states.
 
     forward(hidden_states (B, L+1, T + Q, D), proprio_features (B, 1, D) or
-    None) -> (B, num_actions_chunk, action_dim) in rt.dtype."""
+    None, noise (num_actions_chunk, action_dim * D) fp32 or None, added to
+    the zero latents) -> (B, num_actions_chunk, action_dim) in rt.dtype."""
 
     def __init__(self, cfg: ActionHeadConfig, llm_dim: int, action_dim: int,
                  num_actions_chunk: int, num_task_tokens: int, rt: Runtime,
@@ -172,7 +180,8 @@ class L1RegressionActionHead(nn.Module):
         self.fc_out = Dense(d, action_dim, rt=rt, device=device)
 
     def forward(self, hidden_states: torch.Tensor,
-                proprio_features: Optional[torch.Tensor]) -> torch.Tensor:
+                proprio_features: Optional[torch.Tensor],
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg, dt = self.cfg, self.rt.dtype
         b, _, _, llm_dim = hidden_states.shape
         nb, h, t = cfg.num_blocks, cfg.num_attn_heads, self.num_task_tokens
@@ -198,11 +207,16 @@ class L1RegressionActionHead(nn.Module):
 
         x = torch.zeros((b, self.num_actions_chunk, self.action_dim * llm_dim),
                         dtype=dt, device=hidden_states.device)
+        if noise is not None:
+            x = x + noise.to(dt)
         x = F.relu(self.fc_in(self.input_norm(x)))
+        remat = (self.rt.remat_policy_of("head") is not None
+                 and torch.is_grad_enabled())
         for i, block in enumerate(self.blocks):
             streams = (k_adapter[:, i], v_adapter[:, i], k_task[:, i],
                        v_task[:, i])
             if not cfg.use_pro_version:  # the self stream: layer i's slice
                 streams += (self.k_proj.layer(x, i), self.v_proj.layer(x, i))
-            x = block(x, *streams)
+            x = checkpointed(block, x, *streams) if remat else block(x,
+                                                                     *streams)
         return self.fc_out(self.out_norm(x))

@@ -1,6 +1,6 @@
 """Shared building blocks: the runtime, Dense and BatchedDense in their
-float, weight-only int8 and w8a8 forms, norms (counterpart of
-vla_adapter_tpu/models/layers.py). LoRA is not ported yet.
+float, weight-only int8 and w8a8 forms, LoRA, the training twin of the
+w8a8 product, norms (counterpart of vla_adapter_tpu/models/layers.py).
 
 Every module keeps its float parameters in ``rt.param_dtype`` and computes
 in ``rt.dtype``; norms compute in fp32. Parameter names follow the JAX
@@ -8,6 +8,12 @@ package's tree (weights/from_jax.py maps one onto the other); a Dense
 stores its kernel as the PyTorch ``(out, in)`` weight. Under
 ``rt.weights_int8`` a Dense holds ``weight_q`` (out, in) int8 and
 ``weight_scale`` (out,) float32 instead (models/quantize.py fills them).
+
+With ``rt.lora_rank > 0`` every Dense also holds ``lora_a`` (in, r),
+N(0, 1/r) at init, and ``lora_b`` (r, out), zeros (the JAX package's
+layout and init), and adds ``lora_scale * (x @ lora_a) @ lora_b`` in
+rt.dtype. Which tensors train is the partition's business
+(``train/partition.py``).
 
 ``init_params_(generator)`` on a module fills its own parameters from a
 ``torch.Generator``; :func:`init_random_` walks a model with it.
@@ -34,6 +40,10 @@ from vla_adapter_torch.ops.w8a8_matmul import (
 )
 
 W8A8_IMPLS = ("dense", "fused", "mega")
+REMAT_COMPONENTS = ("vit", "llm", "head")
+REMAT_POLICIES = ("nothing", "attn_only")
+# the JAX package's other policies, which name XLA's saveable values
+REMAT_NOT_PORTED = ("dots", "dots_no_batch", "mlp_saved")
 
 
 @dataclass(frozen=True)
@@ -56,6 +66,16 @@ class Runtime:
     kernel, B6; the ViT and projector MLPs as in "fused"). "auto" is a
     Predictor value, resolved per batch by :func:`resolve_w8a8_impl`, and
     never picks "mega".
+    lora_rank / lora_scale: LoRA adapters on every Dense (0: none).
+    remat: recompute each layer of the ``remat_components`` stacks ("vit",
+    "llm", "head") in the backward (``torch.utils.checkpoint``), under
+    ``remat_policy`` or a per-component override in
+    ``remat_policy_overrides`` (((component, policy), ...)): "nothing"
+    (the whole layer) or "attn_only" (the attention half of a ViT block or
+    decoder layer; the head recomputes its whole block).
+    train_base_int8 (with weights_int8, act_int8 and the "dense" backend):
+    every w8a8 matmul runs :class:`W8A8STE`, the w8a8 forward with a
+    straight-through backward for dx.
     """
 
     dtype: torch.dtype = torch.bfloat16
@@ -65,6 +85,13 @@ class Runtime:
     act_int8: bool = False
     act_int8_min_dim: int = 256
     w8a8_impl: str = "dense"
+    lora_rank: int = 0
+    lora_scale: float = 1.0
+    remat: bool = False
+    remat_policy: str = "nothing"
+    remat_policy_overrides: tuple = ()
+    remat_components: tuple = REMAT_COMPONENTS
+    train_base_int8: bool = False
 
     def __post_init__(self):
         if self.kernels not in IMPLS:
@@ -75,6 +102,31 @@ class Runtime:
                              "resolve_w8a8_impl before a model is built)")
         if self.act_int8 and not self.weights_int8:
             raise ValueError("act_int8 needs weights_int8")
+        if self.train_base_int8 and not (self.act_int8
+                                         and self.w8a8_impl == "dense"):
+            raise ValueError("train_base_int8 needs act_int8 and the "
+                             "'dense' w8a8 backend (the fused kernels have "
+                             "no backward)")
+        for component in self.remat_components:
+            if component not in REMAT_COMPONENTS:
+                raise ValueError(f"remat component {component!r}: expected "
+                                 f"one of {REMAT_COMPONENTS}")
+        for policy in ({self.remat_policy}
+                       | {p for _, p in self.remat_policy_overrides}):
+            if policy in REMAT_NOT_PORTED:
+                raise NotImplementedError(
+                    f"remat policy {policy!r} is not ported yet "
+                    "(ROADMAP.md A.5); use 'nothing' or 'attn_only'")
+            if policy not in REMAT_POLICIES:
+                raise ValueError(f"unknown remat policy {policy!r}")
+
+    def remat_policy_of(self, component: str):
+        """The policy under which stack ``component`` ("vit", "llm" or
+        "head") recomputes, or None."""
+        if not (self.remat and component in self.remat_components):
+            return None
+        return next((policy for name, policy in self.remat_policy_overrides
+                     if name == component), self.remat_policy)
 
     def w8a8(self, *dims: int) -> bool:
         """Whether a matmul with these widths runs w8a8."""
@@ -140,6 +192,73 @@ def int8_params(module: nn.Module, shape, device) -> None:
         requires_grad=False)
 
 
+def checkpointed(fn, *args):
+    """``fn(*args)`` recomputed in the backward (PyTorch's non-reentrant
+    checkpoint: nothing inside is kept but the inputs)."""
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+class W8A8STE(torch.autograd.Function):
+    """The w8a8 product with a straight-through backward, the training twin
+    of the serving path for a frozen int8 base (the JAX package's
+    ``w8a8_matmul_ste``).
+
+    Forward: :func:`w8a8_product`'s math, ``quantize_rows(x)``, the int8
+    product and the rank-1 dequant (kernel B4 with the quantization inside
+    on the card, the plain version on the CPU or under kernels="plain"),
+    in x's dtype. Backward: the activation quantization is the identity;
+    ``dys = dy.f32 * weight_scale``, ``(dq, d_scale) = quantize_rows(dys)``,
+    ``dx = (dq @ weight_q) * d_scale`` in dy's dtype, the int8 product
+    again on B4 (quantization inside) against ``weight_qt``, the
+    ``(in, out)`` int8 copy of the weight that B4 reads as its (N, K)
+    operand (:func:`prepare_ste_`), with unit column scales: x 1.0 is
+    exact, so the result is the JAX function's bit for bit. The weight and
+    its scale get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight_q, weight_scale, weight_qt, kernels):
+        ctx.save_for_backward(weight_q, weight_scale, weight_qt)
+        ctx.kernels = kernels
+        lead, k = x.shape[:-1], x.shape[-1]
+        linear = w8a8_linear_reference if kernels == "plain" else w8a8_linear
+        y = linear(x.reshape(-1, k), weight_q, weight_scale,
+                   out_dtype=x.dtype)
+        return y.reshape(*lead, weight_q.shape[0])
+
+    @staticmethod
+    def backward(ctx, dy):
+        weight_q, weight_scale, weight_qt = ctx.saved_tensors
+        lead, n = dy.shape[:-1], dy.shape[-1]
+        dys = dy.reshape(-1, n).float() * weight_scale.float()
+        ones = torch.ones(weight_q.shape[1], dtype=torch.float32,
+                          device=dy.device)
+        if ctx.kernels == "plain" or dy.device.type == "cpu":
+            dx = w8a8_linear_reference(dys, weight_q.t(), ones,
+                                       out_dtype=dy.dtype)
+        else:
+            if weight_qt is None:
+                raise ValueError("W8A8STE: no transposed int8 weight on the "
+                                 "card (models.layers.prepare_ste_)")
+            dx = w8a8_linear(dys, weight_qt, ones, out_dtype=dy.dtype)
+        return dx.reshape(*lead, weight_q.shape[1]), None, None, None, None
+
+
+@torch.no_grad()
+def prepare_ste_(model: nn.Module) -> int:
+    """Give every Dense that trains through :class:`W8A8STE` its
+    ``weight_qt``, the ``(in, out)`` copy of its int8 weight that kernel B4
+    reads for dx (made from ``weight_q`` as it stands: call after loading
+    or quantizing the frozen base). Returns the bytes the copies take."""
+    total = 0
+    for module in model.modules():
+        if isinstance(module, Dense) and module.ste:
+            module.weight_qt = module.weight_q.t().contiguous()
+            total += module.weight_qt.numel()
+    return total
+
+
 def w8a8_product(x: torch.Tensor, weight_q: torch.Tensor,
                  weight_scale: torch.Tensor, rt: Runtime) -> torch.Tensor:
     """quantize_rows(x) and the int8 product with the rank-1 dequant, one
@@ -175,8 +294,10 @@ def fused_mlp(x: torch.Tensor, fc1: "Dense", fc2: "Dense", act: str,
 
 
 class Dense(nn.Module):
-    """y = x @ W^T + b in rt.dtype. Under rt.weights_int8: w8a8 (kernel B4)
-    when rt.w8a8 admits both widths, else the weight-only int8 upcast."""
+    """y = x @ W^T + b in rt.dtype. Under rt.weights_int8: w8a8 (kernel B4;
+    :class:`W8A8STE` under rt.train_base_int8) when rt.w8a8 admits both
+    widths, else the weight-only int8 upcast. With rt.lora_rank, plus the
+    LoRA delta."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  *, rt: Runtime, device=None):
@@ -188,8 +309,17 @@ class Dense(nn.Module):
         else:
             self.weight = new_param((features, in_features), rt, device)
         self.bias = new_param((features,), rt, device) if use_bias else None
+        if rt.lora_rank > 0:
+            self.lora_a = new_param((in_features, rt.lora_rank), rt, device)
+            self.lora_b = new_param((rt.lora_rank, features), rt, device)
+        self.ste = rt.train_base_int8 and rt.w8a8(in_features, features)
+        if self.ste:
+            self.register_buffer("weight_qt", None, persistent=False)
 
     def init_params_(self, gen: torch.Generator) -> None:
+        if self.rt.lora_rank > 0:
+            normal_init_(self.lora_a, 1.0 / self.rt.lora_rank, gen)
+            self.lora_b.zero_()
         if self.rt.weights_int8:
             raise ValueError("random init of an int8 Dense: init the float "
                              "model and quantize it (models/quantize.py)")
@@ -202,15 +332,26 @@ class Dense(nn.Module):
         dt = rt.dtype
         if not rt.weights_int8:
             bias = None if self.bias is None else self.bias.to(dt)
-            return F.linear(x.to(dt), self.weight.to(dt), bias)
-        if rt.w8a8(self.in_features, self.features):
+            y = F.linear(x.to(dt), self.weight.to(dt), bias)
+            return self._lora(x, y)
+        if self.ste:
+            y = W8A8STE.apply(x.to(dt), self.weight_q, self.weight_scale,
+                              self.weight_qt, rt.kernels)
+        elif rt.w8a8(self.in_features, self.features):
             y = w8a8_product(x, self.weight_q, self.weight_scale, rt)
         else:  # weight-only: int8 upcast, per-channel scale on the output
             y = F.linear(x.to(dt), self.weight_q.to(dt)) \
                 * self.weight_scale.to(dt)
         if self.bias is not None:
             y = y + self.bias.to(dt)
-        return y
+        return self._lora(x, y)
+
+    def _lora(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        if self.rt.lora_rank == 0:
+            return y
+        dt = self.rt.dtype
+        delta = (x.to(dt) @ self.lora_a.to(dt)) @ self.lora_b.to(dt)
+        return y + self.rt.lora_scale * delta
 
 
 class BatchedDense(nn.Module):

@@ -6,7 +6,9 @@ validity. Returns every hidden state: index 0 the embeddings, i in 1..L-1
 the output of layer i, index L the final-norm output (the HF convention the
 action head indexes). Under the "mega" w8a8 backend each decoder layer runs
 from the attention core on as one kernel (B6), at batch 1 and
-bidirectional only. Cached decoding is not ported yet.
+bidirectional only. Under ``rt.remat`` with "llm" among its components
+each layer (policy "nothing") or its attention half ("attn_only")
+recomputes in the backward. Cached decoding is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from vla_adapter_torch.models.layers import (
     Dense,
     RMSNorm,
     Runtime,
+    checkpointed,
     fused_mlp,
     normal_init_,
 )
@@ -87,6 +90,7 @@ class Qwen2DecoderLayer(nn.Module):
     def __init__(self, cfg: Qwen2Config, rt: Runtime, device=None):
         super().__init__()
         self.rt = rt
+        self.remat = rt.remat_policy_of("llm")
         self.eps = eps = cfg.rms_norm_eps
         self.input_layernorm = RMSNorm(cfg.hidden_size, eps, rt=rt, device=device)
         self.self_attn = Qwen2Attention(cfg, rt, device)
@@ -97,7 +101,18 @@ class Qwen2DecoderLayer(nn.Module):
     def forward(self, x, cos, sin, valid, causal: bool) -> torch.Tensor:
         if self.rt.mega:
             return self._mega(x, cos, sin, valid, causal)
-        x = x + self.self_attn(self.input_layernorm(x), cos, sin, valid, causal)
+        if self.remat == "nothing" and torch.is_grad_enabled():
+            return checkpointed(self._forward, x, cos, sin, valid, causal)
+        return self._forward(x, cos, sin, valid, causal)
+
+    def _attn_delta(self, x, cos, sin, valid, causal: bool):
+        return self.self_attn(self.input_layernorm(x), cos, sin, valid, causal)
+
+    def _forward(self, x, cos, sin, valid, causal: bool) -> torch.Tensor:
+        if self.remat == "attn_only" and torch.is_grad_enabled():
+            x = x + checkpointed(self._attn_delta, x, cos, sin, valid, causal)
+        else:
+            x = x + self._attn_delta(x, cos, sin, valid, causal)
         return x + self.mlp(self.post_attention_layernorm(x))
 
     def _mega(self, x, cos, sin, valid, causal: bool) -> torch.Tensor:

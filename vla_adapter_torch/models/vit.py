@@ -9,6 +9,8 @@ the raw output of block ``feature_layer``, no final norm, prefix tokens
 stripped. Only ``feature_layer + 1`` blocks are built: later blocks never
 reach the output. Input is NHWC. With ``film_llm_dim`` set, every block
 modulates its tokens between the sublayers by the language vector (FiLM).
+Under ``rt.remat`` with "vit" among its components each block (policy
+"nothing") or its attention half ("attn_only") recomputes in the backward.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from vla_adapter_torch.models.layers import (
     normal_init_,
     new_param,
     activation,
+    checkpointed,
     fused_mlp,
 )
 from vla_adapter_torch.ops.attention import dot_product_attention
@@ -36,11 +39,13 @@ class PatchEmbed(Dense):
     """The stride-p p x p patch convolution as one product over flattened
     (p, p, C) patches; the weight is the Flax (kh, kw, in, out) kernel
     flattened and transposed. It stays float under the int8 tiers, as the
-    JAX package's convolution does."""
+    JAX package's convolution does, and has no LoRA adapters (the JAX
+    package's is a convolution, not a Dense)."""
 
     def __init__(self, patch: int, in_channels: int, hidden: int, *,
                  rt: Runtime, device=None):
-        rt = dataclasses.replace(rt, weights_int8=False, act_int8=False)
+        rt = dataclasses.replace(rt, weights_int8=False, act_int8=False,
+                                 train_base_int8=False, lora_rank=0)
         super().__init__(patch * patch * in_channels, hidden, rt=rt,
                          device=device)
         self.patch = patch
@@ -120,6 +125,7 @@ class ViTBlock(nn.Module):
 
     def __init__(self, cfg: ViTConfig, rt: Runtime, device=None):
         super().__init__()
+        self.remat = rt.remat_policy_of("vit")
         e, eps = cfg.hidden_size, cfg.layernorm_eps
         self.norm1 = LayerNorm(e, eps, rt=rt, device=device)
         self.attn = ViTAttention(cfg, rt, device)
@@ -136,10 +142,20 @@ class ViTBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 lang: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.remat == "nothing" and torch.is_grad_enabled():
+            return checkpointed(self._forward, x, lang)
+        return self._forward(x, lang)
+
+    def _attn_delta(self, x: torch.Tensor) -> torch.Tensor:
         h = self.attn(self.norm1(x))
-        if self.ls1 is not None:
-            h = self.ls1(h)
-        x = x + h
+        return h if self.ls1 is None else self.ls1(h)
+
+    def _forward(self, x: torch.Tensor,
+                 lang: Optional[torch.Tensor]) -> torch.Tensor:
+        if self.remat == "attn_only" and torch.is_grad_enabled():
+            x = x + checkpointed(self._attn_delta, x)
+        else:
+            x = x + self._attn_delta(x)
         if self.film_scale is not None:
             if lang is None:
                 raise ValueError("a FiLM block needs the language vector")

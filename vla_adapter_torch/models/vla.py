@@ -16,10 +16,18 @@ Reference quirks kept on purpose:
   * FiLM towers (``vision.use_film``) are conditioned on the mean prompt
     embedding over valid text tokens, action-query positions excluded,
     taken after the queries are spliced in.
+
+Training (``train=True``) adds N(0, ``head.train_noise_std``) noise of one
+(chunk, action_dim * D) draw to the head's zero latents, drawn here from
+the caller's ``generator`` (outside any recomputed region, so a
+recompute cannot draw it again). Under ``rt.train_base_int8`` the head and
+the proprio projector are built with a float Runtime: they are trained
+whole, with exact gradients.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -35,6 +43,17 @@ from vla_adapter_torch.models.projector import (
 )
 from vla_adapter_torch.models.qwen2 import Qwen2Model
 from vla_adapter_torch.models.vit import VisionTransformer
+
+
+def head_noise(cfg: VLAConfig, generator: Optional[torch.Generator],
+               device) -> torch.Tensor:
+    """The head's training noise: one N(0, train_noise_std) draw of its
+    latents' shape (chunk, action_dim * llm_dim), fp32, shared by every row
+    of the batch (the JAX package's draw over ``x.shape[1:]``)."""
+    consts = cfg.constants
+    return cfg.head.train_noise_std * torch.randn(
+        (consts.num_actions_chunk, consts.action_dim * cfg.llm.hidden_size),
+        generator=generator, dtype=torch.float32, device=device)
 
 
 class FusedVisionBackbone(nn.Module):
@@ -74,6 +93,8 @@ class VLAModel(nn.Module):
       text_valid   (B, T) — nonzero on prompt + queries (+ stop)
       pixel_values (B, n_img, H, W, C) NHWC float
       proprio      (B, proprio_dim) float or None
+    train: add the head's training noise (:func:`head_noise`, drawn from
+    ``generator``).
     Returns {"actions": (B, chunk, action_dim) normalized} and, with
     return_hidden_states, the head input (B, L+1, num_patches + Q, D).
     """
@@ -89,12 +110,17 @@ class VLAModel(nn.Module):
         self.vision_backbone = FusedVisionBackbone(cfg, rt, device)
         proj_cls = FusedProjector if cfg.vision.fused is not None else Projector
         self.projector = proj_cls(cfg.vision.embed_dim, d, rt, device)
+        head_rt = rt
+        if rt.train_base_int8:
+            head_rt = dataclasses.replace(rt, weights_int8=False,
+                                          act_int8=False,
+                                          train_base_int8=False)
         self.proprio_projector = (
-            ProprioProjector(consts.proprio_dim, d, rt, device)
+            ProprioProjector(consts.proprio_dim, d, head_rt, device)
             if cfg.use_proprio else None)
         self.action_head = L1RegressionActionHead(
             cfg.head, d, consts.action_dim, consts.num_actions_chunk,
-            cfg.num_patches, rt, device)
+            cfg.num_patches, head_rt, device)
 
     def init_params_(self, gen: torch.Generator) -> None:
         normal_init_(self.action_queries, 0.02, gen)
@@ -107,6 +133,8 @@ class VLAModel(nn.Module):
         pixel_values: torch.Tensor,
         proprio: Optional[torch.Tensor] = None,
         return_hidden_states: bool = False,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         cfg, dt = self.cfg, self.rt.dtype
         num_q = cfg.num_action_query_tokens
@@ -157,7 +185,11 @@ class VLAModel(nn.Module):
         proprio_features = None
         if self.proprio_projector is not None and proprio is not None:
             proprio_features = self.proprio_projector(proprio)[:, None, :]
-        out = {"actions": self.action_head(head_input, proprio_features)}
+        noise = None
+        if train and cfg.head.train_noise_std > 0:
+            noise = head_noise(cfg, generator, dev)
+        out = {"actions": self.action_head(head_input, proprio_features,
+                                           noise)}
         if return_hidden_states:
             out["hidden_states"] = head_input
         return out

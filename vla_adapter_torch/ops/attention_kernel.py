@@ -1,4 +1,5 @@
-"""Fused attention: the hand-written CUDA kernel and its plain version.
+"""Fused attention and its backward: the hand-written CUDA kernels and
+their plain versions.
 
 Counterpart of ``vla_adapter_tpu/ops/pallas_attention.py:fused_attention``.
 The kernel (``csrc/fused_attention.cu``) computes fp32 scores from bf16
@@ -13,6 +14,14 @@ recomputed) only where not even one warp's block fits.
 :func:`attention_reference` repeats that arithmetic in plain PyTorch. The
 CPU tests and CPU runs use it; :func:`fused_attention` takes it only for a
 tensor on the CPU. A CUDA tensor always goes to the kernel, or raises.
+
+The backward (B1-bwd, ``csrc/attention_bwd.cu``; the JAX package has no
+backward kernel: its ``_attention_bwd`` is ``jax.vjp(xla_attention)``)
+computes dq, dk and dv of :func:`xla_attention_reference`, the plain twin
+of the JAX package's ``xla_attention`` (exact fp32 softmax, p rounded to
+bf16 only for the p @ v product). :func:`attention_bwd` launches it on a
+CUDA tensor and takes :func:`attention_bwd_reference` (autograd through
+the twin) on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -28,6 +37,10 @@ from vla_adapter_torch.ops import cuda_lib
 NEG_INF = -2.0e9  # the Pallas kernel's large negative (no inf - inf NaNs)
 KERNEL_NAME = "fused_attention"
 _SOURCE = "fused_attention.cu"
+BWD_KERNEL_NAME = "attention_bwd"
+BWD_SOURCE = "attention_bwd.cu"
+# each backward launches two kernels: dq and the row statistics, then dk, dv
+BWD_LAUNCHES_PER_CALL = 2
 _MAX_HEAD_DIM = 128
 
 # H100 SXM: SMs (the default; the wrapper passes the device's count),
@@ -131,16 +144,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_operand(name: str, t: torch.Tensor) -> None:
+def _check_operand(name: str, t: torch.Tensor,
+                   who: str = KERNEL_NAME) -> None:
     if t.dtype != torch.bfloat16:
-        raise TypeError(f"fused_attention: {name} must be bfloat16, "
-                        f"got {t.dtype}")
+        raise TypeError(f"{who}: {name} must be bfloat16, got {t.dtype}")
     if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]):
         raise ValueError(
-            f"fused_attention: {name} needs a contiguous head dim and "
-            f"strides that are multiples of 8, got {t.stride()}")
+            f"{who}: {name} needs a contiguous head dim and strides that "
+            f"are multiples of 8, got {t.stride()}")
     if t.data_ptr() % 16:
-        raise ValueError(f"fused_attention: {name} is not 16-byte aligned")
+        raise ValueError(f"{who}: {name} is not 16-byte aligned")
 
 
 def fused_attention(
@@ -202,3 +215,167 @@ def fused_attention(
                            f"(cudaError {err})")
     cuda_lib.count_launch(KERNEL_NAME)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The backward (B1-bwd)
+
+_BWD_ROW_WARPS = 4    # csrc/attention_bwd.cu: kRowWarpsMax
+_BWD_COL_KEYS = 64    # kColWarps warps of 16 keys
+_BWD_ROW_BYTES = 64 * 16 * 6  # p (fp32) and bf16(dp) per warp per 64 keys
+
+
+@functools.lru_cache(maxsize=None)
+def attention_bwd_plan(batch: int, heads: int, kv_heads: int, seq: int,
+                       dim: int) -> dict:
+    """How ``csrc/attention_bwd.cu`` runs a shape (cached: do not modify
+    the result): kernel 1 (dq and the row statistics) with ``row_warps``
+    warps of 16 query rows per CTA, as many as its shared memory (each
+    warp keeps p and bf16(dp) of its rows: 6 KB per 64 keys) and 4 allow;
+    kernel 2 (dk, dv) with 64 keys per CTA. Raises where not even one
+    warp's rows fit (S > ~2300)."""
+    dp = -(-dim // 16) * 16
+    tiles = -(-seq // _KEY_TILE)
+    tile_bytes = _KEY_TILE * (dp + 8) * 2
+    ring = 2 * (tile_bytes + 4 * _KEY_TILE)
+    units = (heads // kv_heads) * -(-seq // 16)
+    fit = (_BLOCK_SMEM - ring) // (tiles * _BWD_ROW_BYTES)
+    if fit < 1:
+        raise ValueError(f"attention_bwd: seq {seq} too long for one warp's "
+                         f"rows in shared memory")
+    warps = min(_BWD_ROW_WARPS, units, fit)
+    return {"row_warps": warps,
+            "row_ctas": batch * kv_heads * -(-units // warps),
+            "row_smem_bytes": ring + warps * tiles * _BWD_ROW_BYTES,
+            "col_ctas": batch * kv_heads * -(-seq // _BWD_COL_KEYS),
+            "col_smem_bytes": 2 * (2 * tile_bytes + 3 * 4 * _KEY_TILE)}
+
+
+def xla_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain twin of the JAX package's ``xla_attention`` in (B, H, S, D)
+    layout: fp32 scores from the inputs' values, masked by a select to
+    NEG_INF, an fp32 softmax, p rounded to the input dtype for p @ v
+    (fp32 accumulation). A row with no valid key averages v over all S
+    keys. The function whose gradient B1-bwd computes."""
+    b, h, s, d = q.shape
+    groups = h // k.shape[1]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    kx = k.repeat_interleave(groups, dim=1)
+    vx = v.repeat_interleave(groups, dim=1)
+    scores = torch.matmul(q.float(), kx.float().transpose(-1, -2)) * sm_scale
+    mask = None
+    if valid is not None:
+        mask = (valid != 0)[:, None, None, :]
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        tril = (pos[None, :] <= pos[:, None])[None, None]
+        mask = tril if mask is None else mask & tril
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.matmul(p.to(q.dtype).float(), vx.float())
+    return out.to(q.dtype)
+
+
+def attention_bwd_reference(q, k, v, valid, dout, *, causal: bool = False,
+                            sm_scale: Optional[float] = None):
+    """Plain version of B1-bwd: (dq, dk, dv) of
+    :func:`xla_attention_reference` at ``dout`` by autograd (the JAX
+    package's ``jax.vjp(xla_attention)``). q, dout (B, H, S, D); k, v
+    (B, Hkv, S, D)."""
+    with torch.enable_grad():
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = xla_attention_reference(qs, ks, vs, valid, causal=causal,
+                                      sm_scale=sm_scale)
+        return torch.autograd.grad(out, (qs, ks, vs), dout)
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = cuda_lib.load_library(BWD_SOURCE)
+    fn = lib.vla_attention_bwd_bf16
+    if not fn.argtypes:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([p] * 9 + [i] * 5 + [ll] * 22
+                       + [ctypes.c_float, i, i, p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: Optional[torch.Tensor],
+    dout: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+):
+    """B1-bwd: (dq, dk, dv) of attention at the output gradient ``dout``.
+    q, dout (B, H, S, D); k, v (B, Hkv, S, D); valid (B, S) or None.
+
+    On a CUDA tensor this launches the kernel pair of
+    ``csrc/attention_bwd.cu`` (bf16, the layouts and limits of
+    :func:`fused_attention`, S up to ~2300); dq comes out as (B, H, S, D)
+    viewed over a (B, S, H, D) buffer, dk and dv likewise over
+    (B, S, Hkv, D), so each ``.transpose(1, 2)`` is contiguous for the
+    projections' backward. On a CPU tensor it returns
+    :func:`attention_bwd_reference`."""
+    if q.device.type == "cpu":
+        return attention_bwd_reference(q, k, v, valid, dout, causal=causal,
+                                       sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_bwd: unsupported device {q.device}")
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    if (k.shape != (b, hkv, s, d) or v.shape != k.shape
+            or dout.shape != q.shape or h % hkv):
+        raise ValueError(f"attention_bwd: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} dout "
+                         f"{tuple(dout.shape)}")
+    if d % 8 or d > _MAX_HEAD_DIM or s < 1:
+        raise ValueError(f"attention_bwd: head dim {d} must be a multiple "
+                         f"of 8 and <= {_MAX_HEAD_DIM}; seq {s} >= 1")
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        if t.device != q.device:
+            raise ValueError(f"attention_bwd: {name} on {t.device}")
+        _check_operand(name, t, BWD_KERNEL_NAME)
+    if valid is not None:
+        if valid.shape != (b, s) or valid.device != q.device:
+            raise ValueError(f"attention_bwd: valid {tuple(valid.shape)} "
+                             f"on {valid.device}")
+        valid = valid.to(torch.int32).contiguous()
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    plan = attention_bwd_plan(b, h, hkv, s, d)
+    dev = q.device
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    dk, dv = (torch.empty((b, s, hkv, d), dtype=q.dtype,
+                          device=dev).transpose(1, 2) for _ in range(2))
+    stats = torch.empty((3, b, h, s), dtype=torch.float32, device=dev)
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        err = lib.vla_attention_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            None if valid is None else valid.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, h, hkv, s, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *dout.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
+            *dv.stride()[:3], 0 if valid is None else valid.stride(0),
+            float(sm_scale), int(causal), plan["row_warps"],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attention_bwd: kernel launch failed "
+                           f"(cudaError {err})")
+    for _ in range(BWD_LAUNCHES_PER_CALL):
+        cuda_lib.count_launch(BWD_KERNEL_NAME)
+    return dq, dk, dv

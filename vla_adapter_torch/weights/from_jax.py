@@ -17,12 +17,19 @@ the mapping is by rule:
   (a BatchedDense stack (L, in, out) becomes (L, out, in)) and
   ``kernel_scale`` becomes ``weight_scale``, for a model built with
   ``Runtime(weights_int8=True)``. A float tree serves an int8 model as
-  well: the Predictor quantizes it (models/quantize.py).
+  well: the Predictor quantizes it (models/quantize.py);
+* LoRA adapters ``lora_a`` (in, r) and ``lora_b`` (r, out) keep their
+  names and layout.
+
+``from_jax_opt_state(opt_state, cfg)`` carries an optax Adam state (the
+JAX training state's ``opt_state``, ``jax.device_get``-ed) over as the
+port's optimizer state (``train/optim.py``): the step count and the
+moments ``mu``, ``nu`` by the port's parameter names.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -102,3 +109,34 @@ def from_jax_params(params: Mapping[str, Any],
         for layer in range(arr.shape[0]):
             put(head + (str(layer),) + tail[:-1], tail[-1], arr[layer])
     return state
+
+
+def _adam_state(node):
+    """The first node of an optax state tree with ``count``, ``mu`` and
+    ``nu`` (ScaleByAdamState), depth first."""
+    if all(hasattr(node, a) for a in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def from_jax_opt_state(opt_state, cfg: VLAConfig,
+                       moments_dtype: Optional[torch.dtype] = None) -> dict:
+    """An optax Adam state -> {"count": int64 scalar, "mu": {name: tensor},
+    "nu": {...}}, the moments in ``moments_dtype`` (default: float32)."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer "
+                         "state")
+    dtype = moments_dtype or torch.float32
+
+    def moments(tree):
+        return {k: v.to(dtype) for k, v in from_jax_params(tree, cfg).items()}
+
+    return {"count": torch.tensor(int(np.asarray(adam.count)),
+                                  dtype=torch.int64),
+            "mu": moments(adam.mu), "nu": moments(adam.nu)}
