@@ -89,10 +89,12 @@ Phases, in order; any failure exits non-zero:
 11. the finetune path (:func:`phase_train`): the attention backward
    kernel (B1-bwd) against its plain version at the training shapes of
    micro-batch 16 (LLM with the dummy batch's key padding, DINOv2,
-   so400m; a causal case and a GQA case at S = 37 with empty rows): its
-   plan, dq/dk/dv within ``ATTENTION_BWD_RTOL``, a rerun bit for bit, and
-   its time beside the plain version's, SDPA's backward (the yardstick)
-   and the bound; the straight-through w8a8 product (forward and dx) bit
+   so400m; a causal case, a GQA case at S = 37 with empty rows, and
+   S = 4000): its plan, dq/dk/dv within ``ATTENTION_BWD_RTOL``, a rerun bit
+   for bit, and its time (and each of its three kernels' alone) beside the
+   plain version's, SDPA's backward (the yardstick) and the bound, and
+   B1's forward with and without its lse output; the straight-through
+   w8a8 product (forward and dx) bit
    for bit with its plain version at every frozen-base shape; then
    ``train.loop.finetune`` of the flagship recipe ("vla-adapter+libero-
    spatial": LoRA r=64 over the int8 base, remat of the towers and the
@@ -119,7 +121,8 @@ runs its preprocess-pool server for bf16 only.
 With ``--profile`` phase 7 also profiles one B=1 request per tier, eager
 and replayed, and checks that the eager w8a8 tiers launch at least 3,000
 fewer kernels per request than before the quantization moved inside B4
-(``KERNELS_PER_REQUEST_BEFORE``).
+(``KERNELS_PER_REQUEST_BEFORE``); phase 11 profiles the third step of its
+main finetune run (device ms by kernel group, :class:`ProfiledStep`).
 
 Prints the card's name and power limit, one JSON line per kernel shape, a
 ``{"kernels": [...]}`` line (each kernel's ``launches`` on the bf16 or w8a8
@@ -279,6 +282,26 @@ def eager_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return _event_ms(run, rounds) / reps
 
 
+def kernel_ms(fn, reps: int = 10) -> float:
+    """Device time of one call as torch.profiler sees it: the durations of
+    every kernel ``reps`` calls launch, summed, over ``reps``. For a call a
+    CUDA graph cannot capture (SDPA's masked backward through cuDNN), with
+    no host time in it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / reps / 1e3
+
+
 def device_ms_cold(fn, reps: int = 20, rounds: int = 5) -> float:
     """:func:`device_ms` with L2 flushed before each call: a 64 MB write
     precedes every call in the graph, and the time of the writes alone is
@@ -417,9 +440,10 @@ def attention_bwd_shapes(cfg, batch: int, seed: int):
     """(name, batch, heads, kv heads, seq, head dim, key valid, causal,
     calls per micro-batch) of the backward at the flagship finetune's
     micro-batch: the LLM with the dummy batch's key padding, the towers
-    (2 images per sample), and two checks off the main path: the LLM
-    shape causal, and GQA at a sequence not a multiple of 16 whose first
-    row has no valid key."""
+    (2 images per sample), and three checks off the main path: the LLM
+    shape causal, GQA at a sequence not a multiple of 16 whose first row
+    has no valid key, and the LLM's heads at S = 4000 (no per-row storage,
+    so no length limit), batch 1 with its last 500 keys padded."""
     from vla_adapter_torch.data.dummy import make_dummy_batch
 
     tv = make_dummy_batch(cfg, batch, np.random.default_rng(seed))[
@@ -432,6 +456,8 @@ def attention_bwd_shapes(cfg, batch: int, seed: int):
     odd = np.ones((2, 37), np.int32)
     odd[0, :5] = 0
     odd[0, 30:] = 0
+    long = np.ones((1, 4000), np.int32)
+    long[0, 3500:] = 0
     return [
         ("llm", batch, llm.num_heads, llm.num_kv_heads, s_llm, llm.head_dim,
          mm_valid, False, llm.num_layers),
@@ -444,6 +470,8 @@ def attention_bwd_shapes(cfg, batch: int, seed: int):
         ("llm_causal", batch, llm.num_heads, llm.num_kv_heads, s_llm,
          llm.head_dim, mm_valid, True, 0),
         ("gqa_s37_d72", 2, 14, 2, 37, 72, odd, False, 0),
+        ("llm_s4000", 1, llm.num_heads, llm.num_kv_heads, 4000, llm.head_dim,
+         long, False, 0),
     ]
 
 
@@ -465,22 +493,28 @@ def attention_bwd_bound_ms(b, h, hkv, s, d, valid, causal):
 def phase_attention_bwd(shapes, card: str):
     """B1-bwd against its plain version at each shape: the plan, the
     relative error of dq, dk, dv, a rerun bit for bit, and the times of the
-    kernel, the plain version, SDPA's backward (the yardstick, GQA expanded
-    before the call; the port never calls it) and the bound."""
+    kernel (its three launches together, and each alone on the row
+    statistics of an earlier call), the plain version, SDPA's backward (the
+    yardstick, GQA expanded before the call; the port never calls it: its
+    kernels' device time, and eagerly, host launches included) and the
+    bound; B1's forward with and without its lse output beside it."""
     import torch
     import torch.nn.functional as F
 
+    from vla_adapter_torch.ops import cuda_lib
     from vla_adapter_torch.ops.attention_kernel import (
+        BWD_KERNELS,
         attention_bwd,
         attention_bwd_plan,
         attention_bwd_reference,
+        fused_attention,
     )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     records = []
     for name, b, h, hkv, s, d, valid_np, causal, per_step in shapes:
-        plan = attention_bwd_plan(b, h, hkv, s, d)
+        plan = attention_bwd_plan(b, h, hkv, s, d, cuda_lib.sm_count(dev))
         print(f"attention_bwd plan {name}: {json.dumps(plan)}", flush=True)
 
         def randn(*shape):
@@ -510,8 +544,21 @@ def phase_attention_bwd(shapes, card: str):
                 raise AssertionError(
                     f"attention_bwd {name}: {gname} max |kernel - plain| / "
                     f"max |plain| = {errs[gname]} > {ATTENTION_BWD_RTOL}")
+        # the training path's call: the forward's lse given
+        lse = fused_attention(q, k, v, valid, causal=causal,
+                              return_lse=True)[1]
+        stats = torch.empty((2, b, h, -(-s // 64) * 64), dtype=torch.float32,
+                            device=dev)
         ms = device_ms(lambda: attention_bwd(q, k, v, valid, dout,
-                                             causal=causal))
+                                             causal=causal, lse=lse,
+                                             stats=stats))
+        split_ms = {kn: device_ms(lambda kn=kn: attention_bwd(
+            q, k, v, valid, dout, causal=causal, lse=lse, stats=stats,
+            kernels=(kn,))) for kn in BWD_KERNELS}
+        fwd_ms = device_ms(lambda: fused_attention(q, k, v, valid,
+                                                   causal=causal))
+        fwd_lse_ms = device_ms(lambda: fused_attention(
+            q, k, v, valid, causal=causal, return_lse=True))
         plain_ms = eager_ms(lambda: attention_bwd_reference(
             q, k, v, valid, dout, causal=causal), reps=3, rounds=3)
         # SDPA's backward: forward once outside the timed calls
@@ -525,8 +572,13 @@ def phase_attention_bwd(shapes, card: str):
             tril = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
             mask = tril if mask is None else mask & tril
         out = F.scaled_dot_product_attention(qx, kx, vx, attn_mask=mask)
-        lib_ms = eager_ms(lambda: torch.autograd.grad(
-            out, (qx, kx, vx), dout, retain_graph=True), reps=5, rounds=3)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out, (qx, kx, vx), dout,
+                                       retain_graph=True)
+
+        lib_ms = kernel_ms(sdpa_bwd)
+        lib_eager_ms = eager_ms(sdpa_bwd, reps=5, rounds=3)
         key_valid = (np.ones((b, s), np.int32) if valid_np is None
                      else valid_np)
         bound, bound_by, flops, nbytes = attention_bwd_bound_ms(
@@ -536,8 +588,11 @@ def phase_attention_bwd(shapes, card: str):
                "calls_per_micro_batch": per_step, "rel_err": errs,
                "max_abs_err": max(float((g.float() - w.float()).abs().max())
                                   for g, w in zip(got, want)),
-               "deterministic": True, "ms": ms, "plain_ms": plain_ms,
-               "sdpa_bwd_ms": lib_ms, "bound_ms": bound,
+               "deterministic": True, "ms": ms, "split_ms": split_ms,
+               "fwd_ms": fwd_ms, "fwd_lse_ms": fwd_lse_ms,
+               "plain_ms": plain_ms, "sdpa_bwd_ms": lib_ms,
+               "sdpa_bwd_eager_ms": lib_eager_ms,
+               "ratio_to_sdpa_bwd": ms / lib_ms, "bound_ms": bound,
                "bound_by": bound_by, "flops": flops, "bytes": nbytes,
                "plan": plan}
         print("attention_bwd_shape " + json.dumps(rec), flush=True)
@@ -621,7 +676,7 @@ def phase_ste(shapes, card: str):
 def expected_train_launches(model) -> dict:
     """Kernel launches per micro-batch of the finetune, from the training
     model: B1 on every attention layer, twice where its stack ("vit",
-    "llm") recomputes; B1-bwd's two kernels once per attention layer; B4
+    "llm") recomputes; B1-bwd's three kernels once per attention layer; B4
     once per frozen w8a8 matmul in the forward, again where it recomputes,
     and once more for dx, except where no gradient reaches the matmul's
     input (the first tower block's q/k/v read the patch embeddings, which
@@ -798,8 +853,74 @@ def check_kernel_vs_plain(rec) -> None:
                                  f"{cos[n]} < {floor}")
 
 
-def _train_run(tcfg, batch, steps, root, **kw):
-    """finetune over one repeated batch, launches counted around it."""
+# device time of one finetune step by kernel, in the groups PERF.md reads
+TRAIN_PROFILE_GROUPS = (
+    ("B1-bwd D", ("attn_bwd_rows_kernel<", ", true>")),
+    ("B1-bwd dq", ("attn_bwd_rows_kernel<", ", false>")),
+    ("B1-bwd dk/dv", ("attn_bwd_dkdv_kernel",)),
+    ("B1", ("fused_attention_kernel",)),
+    ("B4 dx", ("w8a8_", "<float")),
+    ("B4 forward", ("w8a8_",)),
+    ("GEMMs (LoRA, head, float products)", ("gemm",)),
+    ("GEMMs (LoRA, head, float products)", ("nvjet",)),
+    ("GEMMs (LoRA, head, float products)", ("cutlass",)),
+    ("optimizer", ("multi_tensor",)),
+    ("elementwise and reductions", ("elementwise",)),
+    ("elementwise and reductions", ("reduce",)),
+)
+
+
+class ProfiledStep:
+    """An endless iterator over one batch that profiles one finetune step
+    (torch.profiler, CUDA activity): started at the fetch of step
+    ``step``'s batch and stopped at the next fetch, each after a device
+    sync, so the window holds that step's device work. ``summary`` then
+    holds the device ms by kernel group and the largest kernels."""
+
+    def __init__(self, batch, step: int):
+        self.batch, self.step, self.fetches = batch, step, 0
+        self.prof, self.summary = None, None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        fetch, self.fetches = self.fetches, self.fetches + 1
+        if fetch == self.step:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        elif fetch == self.step + 1 and self.prof is not None:
+            torch.cuda.synchronize()
+            self.prof.__exit__(None, None, None)
+            self.summary = self._summarize()
+        return self.batch
+
+    def _summarize(self):
+        from torch.autograd import DeviceType
+
+        by_name = collections.Counter()
+        for e in self.prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] += e.time_range.elapsed_us() / 1e3
+        groups = collections.Counter()
+        for name, ms in by_name.items():
+            low = name.lower()
+            group = next((g for g, keys in TRAIN_PROFILE_GROUPS
+                          if all(k.lower() in low for k in keys)), "other")
+            groups[group] += ms
+        return {"step_index": self.step,
+                "device_busy_ms": sum(by_name.values()),
+                "kernels": len(by_name), "by_group_ms": dict(groups),
+                "top": [[n[:90], ms] for n, ms in by_name.most_common(15)]}
+
+
+def _train_run(tcfg, batch, steps, root, data_iter=None, **kw):
+    """finetune over one repeated batch (or ``data_iter``), launches
+    counted around it."""
     import itertools
 
     import torch
@@ -813,7 +934,7 @@ def _train_run(tcfg, batch, steps, root, **kw):
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    state = finetune(tcfg, data_iter=itertools.repeat(batch),
+    state = finetune(tcfg, data_iter=data_iter or itertools.repeat(batch),
                      max_steps=steps, device="cuda", **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -823,9 +944,11 @@ def _train_run(tcfg, batch, steps, root, **kw):
     return state, launches, wall, memory
 
 
-def phase_train(cfg, card: str, seed: int):
+def phase_train(cfg, card: str, seed: int, profile: bool = False):
     """The finetune path on the flagship (phase 11; see the module
-    docstring). Returns (record, launches of the main run, B1-bwd records)."""
+    docstring); with ``profile``, the main run's third step under
+    torch.profiler. Returns (record, launches of the main run, B1-bwd
+    records)."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -877,8 +1000,14 @@ def phase_train(cfg, card: str, seed: int):
         per_micro = expected_train_launches(model)
         init = initial_state(tcfg, rt, dev)
         trainable_names = set(mark_trainable_(model, tcfg.lora.enabled))
-        state, launches, wall, memory = _train_run(tcfg, batch, 10,
-                                                   root / "main", rt=rt)
+        profiled = ProfiledStep(batch, 2) if profile else None
+        state, launches, wall, memory = _train_run(
+            tcfg, batch, 10, root / "main", data_iter=profiled, rt=rt)
+        if profiled is not None:
+            if profiled.summary is None:
+                raise AssertionError("the profiled finetune step never ran")
+            rec["profile"] = dict(profiled.summary, card=card)
+            print("train_profile " + json.dumps(rec["profile"]), flush=True)
         losses = [h["loss"] for h in state.history]
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
             raise AssertionError(f"finetune losses {losses}")
@@ -1022,8 +1151,12 @@ def phase_train(cfg, card: str, seed: int):
 def attention_bwd_kernel_summary(records, launches):
     """B1-bwd's entry: per-call times and bounds of phase 11 summed over
     the calls of one micro-batch of 16 (24 LLM + 23 DINOv2 + 26 so400m
-    calls, two kernel launches each)."""
-    from vla_adapter_torch.ops.attention_kernel import BWD_KERNEL_NAME
+    calls, three kernel launches each), with each kernel's share."""
+    from vla_adapter_torch.ops.attention_kernel import (
+        BWD_KERNEL_NAME,
+        BWD_KERNELS,
+        BWD_LAUNCHES_PER_CALL,
+    )
 
     main = [r for r in records if r["calls_per_micro_batch"]]
 
@@ -1043,9 +1176,13 @@ def attention_bwd_kernel_summary(records, launches):
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": total("sdpa_bwd_ms"),
+        "split_ms": {kn: sum(r["split_ms"][kn] * r["calls_per_micro_batch"]
+                             for r in main) for kn in BWD_KERNELS},
+        "library_eager_ms": total("sdpa_bwd_eager_ms"),
         "per": f"sum over the {sum(r['calls_per_micro_batch'] for r in main)}"
-               " calls (two kernel launches each) of one micro-batch of 16 "
-               "(SDPA's backward on k and v expanded to every query head)",
+               f" calls ({BWD_LAUNCHES_PER_CALL} kernel launches each) of one "
+               "micro-batch of 16 (SDPA's backward on k and v expanded to "
+               "every query head: its kernels' device time, and eager)",
     }]
 
 
@@ -2758,7 +2895,8 @@ def main() -> int:
     lap("10 original_film")
 
     # 11. the finetune path: B1-bwd, the STE product, the flagship finetune
-    train, train_launches, bwd_records = phase_train(cfg, card, args.seed)
+    train, train_launches, bwd_records = phase_train(cfg, card, args.seed,
+                                                     profile=args.profile)
     print(f"kernels launched on the train path: {sorted(train_launches)}",
           flush=True)
     lap("11 train")

@@ -56,6 +56,28 @@ def _inputs(b, h, hkv, s, d, padded, dev, seed=0):
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_row_statistics_leave_the_output_bits(device, shape):
+    """With the lse output (training) the kernel's output is bit for bit
+    the serving launch's, and each row's lse is within 1e-6 of the plain
+    version's, relative to max(|lse|, 1): rows with no valid key (about
+    -2e9) included."""
+    b, h, hkv, s, d, padded, causal = shape
+    q, k, v, valid = _inputs(b, h, hkv, s, d, padded, device)
+    if valid is not None:
+        valid[-1] = 0  # a batch row with no valid key
+    out = fused_attention(q, k, v, valid, causal=causal)
+    out_t, lse = fused_attention(q, k, v, valid, causal=causal,
+                                 return_lse=True)
+    want = attention_reference(q, k, v, valid, causal=causal,
+                               return_lse=True)[1]
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_t)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    err = ((lse - want).abs() / want.abs().clamp_min(1.0)).max().item()
+    assert err <= 1e-6, err
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain(device, shape):
     b, h, hkv, s, d, padded, causal = shape
     q, k, v, valid = _inputs(b, h, hkv, s, d, padded, device)

@@ -688,7 +688,7 @@ def test_finetune_validation(tmp_path, params):
 def test_chip_smoke_derives_the_flagship_train_launches():
     """chip_smoke.py holds the flagship finetune's launches per micro-batch
     to counts it derives from the training model: B1 on the 73 attention
-    layers twice (remat), B1-bwd's two kernels once, B4 forward twice
+    layers twice (remat), B1-bwd's three kernels once, B4 forward twice
     (towers, decoder) or once (projector) and dx once, except the towers'
     first q/k/v."""
     import chip_smoke
@@ -702,7 +702,7 @@ def test_chip_smoke_derives_the_flagship_train_launches():
     assert tcfg.model == tc.VLAConfig() and tcfg.batch_size == 16
     model = VLAModel(tcfg.model, tloop.build_runtime(tcfg), device="meta")
     assert chip_smoke.expected_train_launches(model) == {
-        KERNEL_NAME: 146, BWD_KERNEL_NAME: 2 * 73,
+        KERNEL_NAME: 146, BWD_KERNEL_NAME: 3 * 73,
         w8a8_matmul.KERNEL_NAME: 2 * 414 + 3 + 414 + 3 - 6}
     shapes = chip_smoke.ste_shapes(tcfg.model, 16)
     assert len(shapes) == 12

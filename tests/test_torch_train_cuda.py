@@ -26,7 +26,9 @@ from vla_adapter_torch.ops.attention_kernel import (
     BWD_LAUNCHES_PER_CALL,
     KERNEL_NAME,
     attention_bwd,
+    attention_bwd_d_reference,
     attention_bwd_reference,
+    fused_attention,
 )
 from vla_adapter_torch.train.loop import build_runtime, finetune
 
@@ -37,7 +39,10 @@ pytestmark = pytest.mark.cuda
 # version rounds each head's first), each a relative 2^-9 per term.
 BWD_RTOL = 1e-2
 
-# (batch, heads, kv heads, seq, head dim, key padding, causal)
+# (batch, heads, kv heads, seq, head dim, key padding, causal): the
+# training shapes, odd lengths, one key (the vjp's dq and dk are exactly
+# 0), 65 (one key in the last tile), long sequences (2048, 4000: no
+# per-row storage), D = 16, 72 and 128, and GQA groups of 7 (the LLM's).
 SHAPES = [
     (2, 14, 2, 640, 64, True, False),
     (2, 14, 2, 640, 64, True, True),
@@ -45,6 +50,11 @@ SHAPES = [
     (2, 16, 16, 256, 72, False, False),
     (2, 4, 2, 37, 72, True, True),
     (3, 6, 3, 100, 16, True, False),
+    (2, 4, 2, 1, 64, True, False),
+    (2, 4, 2, 65, 128, True, True),
+    (1, 14, 2, 2048, 64, True, True),
+    (1, 4, 1, 4000, 72, True, False),
+    (2, 7, 1, 300, 128, True, True),
 ]
 
 
@@ -56,7 +66,8 @@ def device():
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=[
-    "llm", "llm_causal", "dinov2", "so400m", "odd37_d72", "gqa_s100"])
+    "llm", "llm_causal", "dinov2", "so400m", "odd37_d72", "gqa_s100",
+    "s1", "s65_d128", "s2048_causal", "s4000_d72", "gqa7_d128_causal"])
 def test_attention_bwd_matches_plain_and_reruns_bitwise(shape, device):
     b, h, hkv, s, d, padded, causal = shape
     gen = torch.Generator(device=device).manual_seed(0)
@@ -81,6 +92,43 @@ def test_attention_bwd_matches_plain_and_reruns_bitwise(shape, device):
         assert g.transpose(1, 2).is_contiguous()
         err = float((g.float() - w.float()).abs().max())
         assert err <= BWD_RTOL * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[4], SHAPES[8]],
+                         ids=["llm", "odd37_d72", "s2048_causal"])
+def test_attention_bwd_d_kernel_matches_plain(shape, device):
+    """Kernel 1 alone: each row's D in the statistics scratch against
+    attention_bwd_d_reference, rows with a valid key (a row without has
+    ds = 0 and the kernel writes D = 0), and the forward's lse beside it,
+    times log2(e). D sums p * bf16(dp): where the kernel's fp32 dp and the
+    plain product's straddle a bf16 rounding, that term moves by p times
+    one bf16 ulp (2^-8 of |dp|), so the largest error is held to 1e-2 of
+    D's largest and the mean to 1e-5 (fp32 sums in another order)."""
+    b, h, hkv, s, d, padded, causal = shape
+    gen = torch.Generator(device=device).manual_seed(2)
+    q, dout = (torch.randn(b, s, h, d, generator=gen, device=device)
+               .bfloat16().transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, d, generator=gen, device=device)
+            .bfloat16().transpose(1, 2) for _ in range(2))
+    valid = torch.ones(b, s, dtype=torch.int32, device=device)
+    valid[0, s - s // 4:] = 0
+    valid[-1, :3] = 0
+    lse = fused_attention(q, k, v, valid, causal=causal, return_lse=True)[1]
+    stats = torch.empty((2, b, h, -(-s // 64) * 64), dtype=torch.float32,
+                        device=device)
+    attention_bwd(q, k, v, valid, dout, causal=causal, lse=lse, stats=stats,
+                  kernels=("d",))
+    want = attention_bwd_d_reference(q, k, v, valid, dout, causal=causal)
+    torch.cuda.synchronize()
+    live = lse > -1e9
+    got = stats[1, ..., :s]
+    scale = float(want[live].abs().max())
+    err = (got - want)[live].abs()
+    assert float(err.max()) <= 1e-2 * scale
+    assert float(err.mean()) <= 1e-5 * scale
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    torch.testing.assert_close(stats[0, ..., :s], lse * 1.4426950408889634,
+                               rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("m,k,n", [(640, 896, 4864), (37, 64, 48),

@@ -1,9 +1,10 @@
 """Deliberately wrong attention backwards (no JAX), to show that a check
 of the finetune's gradients catches a faulty backward.
 
-Each has the signature of ``ops.attention_kernel.attention_bwd`` and
-computes the vjp of ``xla_attention_reference`` by hand in fp32 with one
-term broken: the rowsum(dp * p) term of ds left out, or dk and dv taken
+Each has the signature of ``ops.attention_kernel.attention_bwd`` (the
+forward's ``lse`` accepted and not used) and computes the vjp of
+``xla_attention_reference`` by hand in fp32 with one term broken: the
+rowsum(dp * p) term of ds left out, or dk and dv taken
 from the first query head of each KV head's group instead of summed over
 the group. Put one in place of ``ops.attention.attention_bwd`` (the
 kernel path) or ``ops.attention.attention_bwd_reference`` (the plain
@@ -47,14 +48,14 @@ def _attention_bwd(q, k, v, valid, dout, causal, sm_scale, d_term,
 
 
 def attention_bwd_without_d_term(q, k, v, valid, dout, *, causal=False,
-                                 sm_scale=None):
+                                 sm_scale=None, lse=None):
     """ds = p * dp: the softmax's rowsum(dp * p) term left out."""
     return _attention_bwd(q, k, v, valid, dout, causal, sm_scale,
                           d_term=False, gqa_sum=True)
 
 
 def attention_bwd_without_gqa_sum(q, k, v, valid, dout, *, causal=False,
-                                  sm_scale=None):
+                                  sm_scale=None, lse=None):
     """dk and dv of the group's first query head only, not summed."""
     return _attention_bwd(q, k, v, valid, dout, causal, sm_scale,
                           d_term=True, gqa_sum=False)

@@ -11,6 +11,12 @@
 //   l   = sum_k float(p)                 sum of the ROUNDED probabilities
 //   out = bf16((p @ v) / l)              fp32 accumulation, deferred 1/l
 //
+// When training (a non-null `lse`), it also writes each row's log-sum-exp
+// lse = m + log(sum_k exp(s - m)), fp32, the sum over the UNROUNDED
+// exponentials, so that the backward's exp(s - lse) is the exact softmax
+// (attention_bwd.cu). A null pointer leaves every other output bit as it
+// was: the extra sum feeds nothing else.
+//
 // Design. The unit of work is one warp: 16 query rows of one head against
 // every key, with mma.sync m16n8k16 (bf16 in, fp32 accumulate). A CTA holds
 // `warps` units (1..8) of one (batch, kv head), so the query heads of a
@@ -77,12 +83,14 @@ struct Params {
   const __nv_bfloat16* v;
   const int32_t* valid;  // (B, S) with row stride valid_sb; null = all valid
   __nv_bfloat16* o;
+  float* lse;  // (B, H, S) with strides lse_sb, lse_sh; null when serving
   int heads, kv_heads, seq, dim;
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
   long long valid_sb;
+  long long lse_sb, lse_sh;
   float sm_scale;
   int causal;
   int warps;       // units (16 query rows of one head) per CTA
@@ -303,6 +311,7 @@ fused_attention_kernel(const Params p) {
 #pragma unroll
   for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
   float l_lo = 0.0f, l_hi = 0.0f;
+  float e_lo = 0.0f, e_hi = 0.0f;  // sums of the unrounded exp(s - m)
 
   issue(0);
   for (int item = 0; item < 2 * tiles; ++item) {
@@ -368,10 +377,12 @@ fused_attention_kernel(const Params p) {
         const int j = 2 * kk + half;
         // row g (keys 2t, 2t+1), then row g + 8, each pair rounded to bf16
         // by one packed conversion; l sums the rounded values
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(expf(sc[j][0] - m_lo),
-                                                        expf(sc[j][1] - m_lo));
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(expf(sc[j][2] - m_hi),
-                                                        expf(sc[j][3] - m_hi));
+        const float x0 = expf(sc[j][0] - m_lo), x1 = expf(sc[j][1] - m_lo);
+        const float x2 = expf(sc[j][2] - m_hi), x3 = expf(sc[j][3] - m_hi);
+        e_lo += x0 + x1;
+        e_hi += x2 + x3;
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(x0, x1);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x2, x3);
         const float2 lof = __bfloat1622float2(lo), hif = __bfloat1622float2(hi);
         l_lo += lof.x + lof.y;
         l_hi += hif.x + hif.y;
@@ -390,6 +401,16 @@ fused_attention_kernel(const Params p) {
   for (int off = 1; off < 4; off <<= 1) {
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  if (p.lse != nullptr) {  // uniform: the whole grid takes it or skips it
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      e_lo += __shfl_xor_sync(0xffffffffu, e_lo, off);
+      e_hi += __shfl_xor_sync(0xffffffffu, e_hi, off);
+    }
+    float* lse = p.lse + b * p.lse_sb + h * p.lse_sh;
+    if (t == 0 && r_lo < p.seq) lse[r_lo] = m_lo + logf(e_lo);
+    if (t == 0 && r_hi < p.seq) lse[r_hi] = m_hi + logf(e_hi);
   }
 
   __nv_bfloat16* o = p.o + b * p.o_sb + h * p.o_sh;
@@ -436,17 +457,18 @@ cudaError_t launch_branch(const Params& p, int batch, int one_pass, cudaStream_t
 // q (B, H, S, D), k/v (B, Hkv, S, D), o (B, H, S, D): bf16, element strides
 // per (batch, head, position), the head dim contiguous. D % 8 == 0, D <= 128,
 // every stride a multiple of 8 and the pointers 16-byte aligned (the wrapper
-// checks). valid: (B, S) int32 or null. warps (1..8, units of 16 query rows
-// per CTA) and one_pass come from attention_plan. Returns a cudaError_t.
+// checks). valid: (B, S) int32 or null. lse: (B, H, S) float32 (row stride
+// 1) or null. warps (1..8, units of 16 query rows per CTA) and one_pass come
+// from attention_plan. Returns a cudaError_t.
 extern "C" int vla_fused_attention_bf16(
-    const void* q, const void* k, const void* v, const void* valid, void* o,
+    const void* q, const void* k, const void* v, const void* valid, void* o, void* lse,
     int batch, int heads, int kv_heads, int seq, int dim,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    long long valid_sb, float sm_scale, int causal, int warps, int one_pass,
-    void* stream) {
+    long long valid_sb, long long lse_sb, long long lse_sh, float sm_scale, int causal,
+    int warps, int one_pass, void* stream) {
   if (warps < 1 || warps > kMaxWarps || seq < 1 || kv_heads < 1 ||
       heads % kv_heads)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -456,6 +478,7 @@ extern "C" int vla_fused_attention_bf16(
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.valid = static_cast<const int32_t*>(valid);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.heads = heads;
   p.kv_heads = kv_heads;
   p.seq = seq;
@@ -465,6 +488,8 @@ extern "C" int vla_fused_attention_bf16(
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.valid_sb = valid_sb;
+  p.lse_sb = lse_sb;
+  p.lse_sh = lse_sh;
   p.sm_scale = sm_scale;
   p.causal = causal;
   p.warps = warps;

@@ -10,9 +10,10 @@ TPU v5e measurement) has no counterpart: on the card the kernel always runs.
 Under autograd (grad enabled and q, k or v requiring it) the call goes
 through :class:`TrainableAttention`, the counterpart of the JAX package's
 ``jax.custom_vjp`` around the Pallas forward (``_attention_pallas_trainable``):
-the same forward, and a backward that recomputes attention from the saved
-``(q, k, v, valid)`` through kernel B1-bwd (``impl="kernel"`` on the card)
-or its plain version (on the CPU, or ``impl="plain"``).
+the same forward, and a backward through kernel B1-bwd (``impl="kernel"``
+on the card: from the saved ``(q, k, v, valid)`` and the forward's row
+log-sum-exp) or its plain version (on the CPU, or ``impl="plain"``:
+autograd through the recomputed forward).
 """
 
 from __future__ import annotations
@@ -55,26 +56,36 @@ def _forward(q, k, v, valid, causal: bool, sm_scale: float,
 
 
 class TrainableAttention(torch.autograd.Function):
-    """Attention in (B, S, H, D) layout with a recomputing backward: the
-    forward of :func:`dot_product_attention`, saving ``(q, k, v, valid)``
-    as the JAX residuals; the backward, B1-bwd (``impl="kernel"``: the
-    kernel on a CUDA tensor, its plain version on a CPU one) or its plain
-    version (``impl="plain"``), returns dq (B, S, H, D) and dk, dv
-    (B, S, Hkv, D), each contiguous."""
+    """Attention in (B, S, H, D) layout: the forward of
+    :func:`dot_product_attention`, saving ``(q, k, v, valid)`` as the JAX
+    residuals and, on the kernel path, each row's lse (the same launch;
+    under remat it comes from the recomputing forward); the backward,
+    B1-bwd (``impl="kernel"``: the kernel on a CUDA tensor, its plain
+    version on a CPU one) or its plain version (``impl="plain"``), returns
+    dq (B, S, H, D) and dk, dv (B, S, Hkv, D), each contiguous."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid, causal, sm_scale, impl):
-        ctx.save_for_backward(q, k, v, valid)
         ctx.causal, ctx.sm_scale, ctx.impl = causal, sm_scale, impl
-        return _forward(q, k, v, valid, causal, sm_scale, impl)
+        if impl != "kernel":
+            ctx.save_for_backward(q, k, v, valid)
+            return _forward(q, k, v, valid, causal, sm_scale, impl)
+        out, lse = fused_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), valid, causal=causal,
+                                   sm_scale=sm_scale, return_lse=True)
+        out = out.transpose(1, 2)
+        ctx.save_for_backward(q, k, v, valid, lse)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, valid = ctx.saved_tensors
-        bwd = attention_bwd_reference if ctx.impl == "plain" else attention_bwd
+        q, k, v, valid, *lse = ctx.saved_tensors
+        bwd, kw = attention_bwd_reference, {}
+        if ctx.impl != "plain":
+            bwd, kw = attention_bwd, {"lse": lse[0]}
         grads = bwd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     valid, dout.contiguous().transpose(1, 2),
-                    causal=ctx.causal, sm_scale=ctx.sm_scale)
+                    causal=ctx.causal, sm_scale=ctx.sm_scale, **kw)
         dq, dk, dv = (g.transpose(1, 2) for g in grads)
         return dq, dk, dv, None, None, None, None
 
