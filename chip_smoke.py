@@ -111,6 +111,49 @@ Phases, in order; any failure exits non-zero:
    ``load_vla`` and served under a CUDA graph within phase 5's bound of
    the trained LoRA model.
 
+12. generation (:func:`phase_generate`) on the flagship's Qwen2.5-0.5B
+   (the bf16 Predictor's language-model tensors; its w8a8 "fused" twin
+   quantized on the card): first B1 at the causal prefill (B=1, 4; S=128)
+   and B2/B4 at a decode step's rows (M=1, 2, 4; bit for bit with their
+   plain versions); "mega" must refuse to decode. Then, for bf16 and w8a8
+   at B=1 and 4, ``greedy_generate_cached`` of 64 tokens after prompts of
+   128 seeded ids, the main path, through the captured decode step, with
+   the launches of exactly that call against
+   :func:`expected_generate_launches`; the same call eagerly (the same
+   tokens) and 64 graphed steps against 64 eager steps from one prefill,
+   every state tensor bit for bit; the kernel path against the plain path
+   and the cached loop against the full recompute (``greedy_generate``'s
+   logits), each teacher-forced on the generated tokens, by
+   :func:`check_logits` (``GEN_LOGITS_ATOL``, ``GEN_W8A8_LOGITS_ATOL``).
+   Prints prefill ms, per-token ms eager and graphed, tokens/s and the
+   step's bound (:func:`decode_step_bound`).
+13. actions from logits (:func:`phase_actions`): the flagship VLA's
+   ``compute_logits`` forward (bidirectional, the tied head over the text
+   positions) and ``discrete_actions_from_logits`` at B=1 and 4, and
+   ``predict_action_autoregressive`` (7 tokens, B=1) on a PrismaticVLM over
+   the flagship's towers, projector and LLM; launches counted, each
+   against the plain path.
+14. the token objective and VLM pretraining (:func:`phase_token_train`,
+   :func:`phase_pretrain`): the flagship recipe with ``objective="token"``
+   (labels: the action block's ids) at batch 16, one step kernel vs plain
+   (:func:`kernel_vs_plain_step`, the VLM's gradients from the token
+   loss), then 4 steps through ``make_train_step`` (falling CE, launches
+   as :func:`expected_train_launches` derives them, s/step, peak memory);
+   then B1-bwd at the causal LLM shape of pretraining against its plain
+   version, and ``pretrain`` of the full-width PrismaticVLM in the stages
+   "align" and "last-layer-finetune", 3 steps each on one seeded batch of 8:
+   launches as :func:`expected_pretrain_launches` derives them, only the
+   stage's tensors moved (in "last-layer-finetune" the embedding and layer
+   23), s/step, peak memory.
+15. Phi-2 at full width (:func:`phase_phi`, 2.78 B seeded bf16 parameters):
+   B1 at 32 heads of D=80 causal and B4 at each of Phi's w8a8 shapes
+   against their plain versions, then prompt + 8 uncached greedy tokens at
+   B=1 in bf16 and w8a8 ("auto"), launches per step as
+   :func:`llm_pass_launches` derives them, kernel vs plain teacher-forced.
+
+``--only 12,13,14,15`` runs the build and any of phases 12-15 alone (no
+kernels or ok line).
+
 Phases 9 and 10 took 100 s on an NVIDIA H100 80GB HBM3 at 700 W beside
 110 s for phases 1-8 (their per-phase seconds are printed; phase 9's
 kernel checks at B=8 and 16 about 20 s of it). To hold the whole run near
@@ -129,7 +172,9 @@ Prints the card's name and power limit, one JSON line per kernel shape, a
 flagship path, B1-bwd's on the train path, and ``launches_by_path`` for
 every path), and as its last
 line
-``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, and when
+``{"ok": true, "device": {...}}``. ``launches_by_path`` also covers the
+paths of phases 12-15: "generate", "generate_w8a8", "actions",
+"token_train", "pretrain" and "phi". Exits non-zero without CUDA, and when
 the ``vla_adapter_torch`` package beside this script is missing.
 """
 
@@ -756,6 +801,9 @@ def train_config(seed: int):
         optim=dataclasses.replace(tcfg.optim, max_steps=10))
 
 
+# the extended Qwen tokenizer's length (+256 action tokens): the token
+# objective's bin inverse
+TOKENIZER_LEN = 151921
 HEAD_GRAD_NAMES = ("action_head.blocks.0.q_proj.weight",
                    "action_head.fc_in.weight")
 VLM_GRAD_NAMES = (
@@ -770,7 +818,8 @@ VLM_GRAD_NAMES = (
 
 
 def kernel_vs_plain_step(tcfg, init, batch, dev, head_names=HEAD_GRAD_NAMES,
-                         vlm_names=VLM_GRAD_NAMES) -> dict:
+                         vlm_names=VLM_GRAD_NAMES,
+                         objective: str = "l1") -> dict:
     """The first step's loss and gradients through the kernels, through
     their plain versions, and through the plain versions with the input
     pixels scaled by ``PIXEL_PERTURBATION``, from the same weights
@@ -778,7 +827,9 @@ def kernel_vs_plain_step(tcfg, init, batch, dev, head_names=HEAD_GRAD_NAMES,
     from one seeded upstream gradient at the head's input. Returns the
     losses, and each gradient's max |kernel - plain| over max |plain| and
     cosines kernel/plain and perturbed/plain (1 where both are zero: a
-    lora_a's gradient at the first step, its lora_b being 0)."""
+    lora_a's gradient at the first step, its lora_b being 0). Under the
+    token objective (no head) ``vlm_names`` take their gradients from the
+    token loss itself."""
     import torch
 
     from vla_adapter_torch.models.layers import prepare_ste_
@@ -798,20 +849,31 @@ def kernel_vs_plain_step(tcfg, init, batch, dev, head_names=HEAD_GRAD_NAMES,
         mark_trainable_(m, tcfg.lora.enabled)
         prepare_ste_(m)
         params = dict(m.named_parameters())
-        out = m(**{k: device_batch[k] for k in tstep.MODEL_INPUTS
-                   if k in device_batch}, train=True,
-                generator=tstep.noise_generator(tcfg.seed, 0, 0, dev),
-                return_hidden_states=True)
-        lval = tstep.l1_action_loss(out["actions"],
-                                    device_batch["actions"])[0]
-        hidden = out["hidden_states"]
-        if upstream is None:
-            upstream = torch.randn(hidden.shape, device=dev, generator=(
-                torch.Generator(device=dev).manual_seed(tcfg.seed)))
-        gs = torch.autograd.grad(lval, [params[n] for n in head_names],
-                                 retain_graph=True)
-        gs += torch.autograd.grad((hidden.float() * upstream).sum(),
-                                  [params[n] for n in vlm_names])
+        inputs = {k: device_batch[k] for k in tstep.MODEL_INPUTS
+                  if k in device_batch}
+        gen = tstep.noise_generator(tcfg.seed, 0, 0, dev)
+        if objective == "token":
+            out = m(**inputs, train=True, generator=gen, compute_logits=True,
+                    compute_actions=False)
+            lval = tstep.token_prediction_loss(
+                out["logits"], device_batch["labels"],
+                device_batch["text_valid"], TOKENIZER_LEN,
+                tcfg.model.constants.action_dim)[0]
+            hidden = None
+            gs = torch.autograd.grad(lval, [params[n] for n in vlm_names])
+        else:
+            out = m(**inputs, train=True, generator=gen,
+                    return_hidden_states=True)
+            lval = tstep.l1_action_loss(out["actions"],
+                                        device_batch["actions"])[0]
+            hidden = out["hidden_states"]
+            if upstream is None:
+                upstream = torch.randn(hidden.shape, device=dev, generator=(
+                    torch.Generator(device=dev).manual_seed(tcfg.seed)))
+            gs = torch.autograd.grad(lval, [params[n] for n in head_names],
+                                     retain_graph=True)
+            gs += torch.autograd.grad((hidden.float() * upstream).sum(),
+                                      [params[n] for n in vlm_names])
         loss[path] = lval.item()
         grads[path] = {n: g.float() for n, g in
                        zip(head_names + vlm_names, gs)}
@@ -2796,6 +2858,921 @@ def megalayer_kernel_summary(records, launches):
                "backend's launches"}]
 
 
+# --- phases 12-15: the causal language path --------------------------------
+
+DEVICE = "cuda"       # where phases 14-15 build their models
+GEN_PROMPT = 128      # seeded prompt ids per sequence
+GEN_NEW = 64          # generated tokens per sequence
+GEN_BATCHES = (1, 4)
+DECODE_ROWS = (1, 2, 4)  # B2/B4 checked bit for bit at these decode rows
+# kernel path vs plain path, bf16 logits of the flagship's language model
+# (seeded weights, |logit| < 4 there): the paths differ by B1's bf16
+# rounding in the prefill's attention (a decode step runs no hand-written
+# kernel in bf16), which 24 layers carry into the cache and the logits.
+# The bound is 16 bf16 ulps at 2-4; an H100 read 0.043-0.062 (generation,
+# both actions paths). A token may differ only where the plain path's
+# top-2 margin is within twice it (each logit moves by at most the bound).
+GEN_LOGITS_ATOL = 0.25
+# the same under w8a8 "fused": B2/B4 equal their plain versions bit for
+# bit, but a bf16 ulp of an activation from B1 can flip a per-token int8
+# rounding downstream (as W8A8_ACTIONS_ATOL explains for the actions); an
+# H100 read 0.10-0.15.
+GEN_W8A8_LOGITS_ATOL = 0.5
+PHI_PROMPT, PHI_NEW = 128, 8
+PRETRAIN_BATCH, PRETRAIN_TEXT, PRETRAIN_STEPS = 8, 128, 3
+TOKEN_TRAIN_STEPS = 4
+
+
+def llm_pass_launches(model, attention: bool) -> dict:
+    """Kernel launches of one pass of a decoder (Qwen2Model or PhiModel),
+    derived from the model: B1 once per layer on a full-sequence pass
+    (``attention``; a cached decode step attends in plain PyTorch), B2 once
+    per Qwen2 MLP under the fused backend, B4 once per other Dense that
+    runs w8a8 (both widths at least ``act_int8_min_dim``; Phi's untied
+    lm_head included)."""
+    from vla_adapter_torch.models.layers import Dense
+    from vla_adapter_torch.models.qwen2 import Qwen2MLP
+    from vla_adapter_torch.ops import fused_mlp, w8a8_matmul
+    from vla_adapter_torch.ops.attention_kernel import KERNEL_NAME
+
+    rt = model.rt
+    counts = collections.Counter()
+    fused = set()
+    for mod in model.modules():
+        if isinstance(mod, Qwen2MLP) and rt.fused_mlp(*mod.dims):
+            counts[fused_mlp.GATED_KERNEL_NAME] += 1
+            fused |= {id(mod.gate_proj), id(mod.up_proj), id(mod.down_proj)}
+    for mod in model.modules():
+        if (isinstance(mod, Dense) and id(mod) not in fused
+                and rt.act_int8 and rt.w8a8(mod.in_features, mod.features)):
+            counts[w8a8_matmul.KERNEL_NAME] += 1
+    if attention:
+        counts[KERNEL_NAME] += len(model.layers)
+    return dict(counts)
+
+
+def expected_generate_launches(model, new_tokens: int) -> dict:
+    """One ``greedy_generate_cached`` call: the prefill's pass and
+    ``new_tokens`` decode steps (the JAX package's loop runs every step)."""
+    total = collections.Counter(llm_pass_launches(model, attention=True))
+    for name, n in llm_pass_launches(model, attention=False).items():
+        total[name] += new_tokens * n
+    return dict(total)
+
+
+def expected_pretrain_launches(model, trainable) -> dict:
+    """One pretraining step of a PrismaticVLM (no remat): B1 once per
+    attention layer; B1-bwd's kernels once per attention layer that the
+    gradient passes through, which is every LLM layer when anything from
+    the towers to the embedding or an earlier layer trains (so for every
+    stage), and a tower's layers only when that tower trains."""
+    from vla_adapter_torch.models.qwen2 import Qwen2Attention
+    from vla_adapter_torch.models.vit import ViTAttention
+    from vla_adapter_torch.ops.attention_kernel import (
+        BWD_KERNEL_NAME,
+        BWD_LAUNCHES_PER_CALL,
+        KERNEL_NAME,
+    )
+
+    trainable = set(trainable)
+    attn = bwd = 0
+    for name, mod in model.named_modules():
+        if not isinstance(mod, (Qwen2Attention, ViTAttention)):
+            continue
+        attn += 1
+        stack, kind, layer = name.rsplit(".", 3)[:3]
+        earlier = tuple(f"{stack}.{kind}.{i}." for i in range(int(layer) + 1))
+        if stack == "language_model":  # after the towers and the projector
+            before = ("language_model.embed.", "vision_backbone.",
+                      "projector.")
+            upstream = any(t.startswith(before + earlier) for t in trainable)
+        else:  # a tower: its own embeddings and blocks (pixels train nothing)
+            upstream = any(t.startswith(earlier) or (
+                t.startswith(stack + ".") and f".{kind}." not in t)
+                for t in trainable)
+        bwd += upstream
+    return {KERNEL_NAME: attn, BWD_KERNEL_NAME: BWD_LAUNCHES_PER_CALL * bwd}
+
+
+def decode_step_bound(model, batch: int, total: int):
+    """(bound ms, bound_by) of one cached decode step: the bytes it must
+    move (every weight at its storage width, the tied head reading the
+    whole embedding table, the KV cache at the buffer's length read, the
+    logits written) over the HBM rate, against its operations (2 per weight
+    element and row, int8 ones at the int8 peak, the rest at the bf16 peak,
+    plus 4 H Dh per cached key and row) over the peak."""
+    import torch
+
+    cfg = model.cfg
+    elt = 2  # bf16 cache and logits
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    kv = 2 * cfg.num_layers * batch * total * cfg.num_kv_heads * cfg.head_dim
+    nbytes += kv * elt + batch * cfg.vocab_size * elt
+    int8 = sum(p.numel() for p in model.parameters() if p.dtype == torch.int8)
+    flt = sum(p.numel() for p in model.parameters()) - int8
+    t_ops = (2 * batch * int8 / PEAK_INT8_OPS
+             + (2 * batch * flt + 4 * batch * cfg.num_heads * cfg.head_dim
+                * total * cfg.num_layers) / PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def decode_shapes(cfg, rows=DECODE_ROWS):
+    """The w8a8 kernels of one decode step of the flagship's language model
+    under "fused" at each number of rows (the batch): B4 at q and o, B2
+    at the MLP; k and v (896 -> 128) stay weight-only."""
+    from vla_adapter_torch.ops import fused_mlp, w8a8_matmul
+
+    llm = cfg.llm
+    d, hd = llm.hidden_size, llm.num_heads * llm.head_dim
+    shapes = []
+    for m in rows:
+        shapes.append({"kernel": w8a8_matmul.KERNEL_NAME,
+                       "shape": ["decode_q", "decode_o"], "forward_batch": m,
+                       "m": m, "k": d, "n": hd,
+                       "launches_per_forward": 2 * llm.num_layers})
+        shapes.append({"kernel": fused_mlp.GATED_KERNEL_NAME,
+                       "shape": ["decode_mlp"], "forward_batch": m, "m": m,
+                       "k": d, "f": llm.intermediate_size, "d": d,
+                       "act": "silu", "gated": True,
+                       "launches_per_forward": llm.num_layers,
+                       "dense_matmuls": 3 * llm.num_layers})
+    return shapes
+
+
+def generation_models(predictor):
+    """The flagship's language model over the bf16 Predictor's tensors, its
+    w8a8 "fused" twin quantized on the card, their plain twins over the
+    same tensors, and a "mega" model (which must refuse to decode)."""
+    from vla_adapter_torch.models.qwen2 import Qwen2Model
+    from vla_adapter_torch.models.quantize import quantize_state_dict
+
+    cfg, dev, rt = predictor.cfg, predictor.device, predictor.rt
+    sub = {k[len("language_model."):]: v for k, v in predictor.params.items()
+           if k.startswith("language_model.")}
+
+    def build(rt_, state):
+        m = Qwen2Model(cfg.llm, rt_, device="meta")
+        m.load_state_dict(state, strict=True, assign=True)
+        return m.eval()
+
+    rt8 = dataclasses.replace(rt, weights_int8=True, act_int8=True,
+                              w8a8_impl="fused")
+    q = quantize_state_dict(sub, Qwen2Model(cfg.llm, rt8, device="meta")
+                            .state_dict(), dev)
+    plain = dict(kernels="plain")
+    return {
+        "bf16": (build(rt, sub), build(dataclasses.replace(rt, **plain), sub)),
+        "w8a8": (build(rt8, q), build(dataclasses.replace(rt8, **plain), q)),
+        "mega": build(dataclasses.replace(rt8, w8a8_impl="mega"), q),
+    }
+
+
+def teacher_forced_logits(model, ids, prompt_len: int, steps: int):
+    """The logits the cached loop sees at each of ``steps`` steps when the
+    tokens it is fed are those of ``ids``: the prefill's last position,
+    then one decode step per token. (B, steps, V)."""
+    import torch
+
+    from vla_adapter_torch.models.generate import prefill_state
+
+    with torch.inference_mode():
+        s = prefill_state(model, ids, prompt_len)
+        out = [s["logits"].clone()]
+        for i in range(steps - 1):
+            pos = prompt_len + i
+            logits, _ = model.decode_step(
+                ids[:, pos:pos + 1], (s["k"], s["v"]),
+                torch.full((1,), pos, dtype=torch.long, device=ids.device))
+            out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def check_logits(got, want, tokens, atol: float, what: str) -> dict:
+    """``got`` (the kernel path's logits, whose argmax gave ``tokens``)
+    within ``atol`` of ``want``; the tokens equal ``want``'s argmax wherever
+    its top-2 margin exceeds 2 ``atol``."""
+    import torch
+
+    diff = float((got.float() - want.float()).abs().max())
+    top2 = want.float().topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * atol
+    agree = want.float().argmax(-1) == tokens
+    rec = {"max_abs_diff": diff, "atol": atol,
+           "positions": int(clear.numel()),
+           "positions_clear": int(clear.sum()),
+           "tokens_differ": int((~agree).sum()),
+           "tokens_differ_where_clear": int((clear & ~agree).sum()),
+           "max_abs_logit": float(want.float().abs().max())}
+    if not (torch.isfinite(got.float()).all() and diff <= atol
+            and rec["tokens_differ_where_clear"] == 0):
+        raise AssertionError(f"{what}: {rec}")
+    return rec
+
+
+# device time of a decode step by kernel, in the groups PERF.md reads
+DECODE_PROFILE_GROUPS = (
+    ("B2 (w8a8 MLP)", ("fused_mlp",)),
+    ("B4 (w8a8 matmul)", ("w8a8_",)),
+    ("GEMMs and GEMVs", ("gemm",)), ("GEMMs and GEMVs", ("gemv",)),
+    ("GEMMs and GEMVs", ("nvjet",)), ("GEMMs and GEMVs", ("cutlass",)),
+    ("softmax and reductions", ("softmax",)),
+    ("softmax and reductions", ("reduce",)),
+    ("cache writes and gathers", ("index",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def profile_decode(model, buf, steps: int = 8) -> dict:
+    """``steps`` cached decode steps from one prefill under torch.profiler,
+    eagerly and as graph replays: per step, the host wall ms, the device's
+    busy ms (the sum of its kernels' durations), the kernels launched, the
+    idle share, and the busy ms by kernel group."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vla_adapter_torch.infer.graph import decode_graphs
+    from vla_adapter_torch.models.generate import (
+        decode_key,
+        decode_step_fn,
+        prefill_state,
+    )
+    from vla_adapter_torch.models.qwen2 import Qwen2Decode
+
+    b, total = buf.shape
+    step = decode_step_fn(Qwen2Decode(model), None, 0.0)
+    graphs = decode_graphs(model, buf.device)
+    key = decode_key(model, b, total, None, 0.0)
+    out = {}
+    for mode in ("eager", "graph"):
+        with torch.inference_mode():
+            state = prefill_state(model, buf, GEN_PROMPT)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if mode == "eager":
+                    for _ in range(steps):
+                        step(state)
+                else:
+                    graphs(key, step, state, steps)
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0) / steps
+        by_name = collections.Counter()
+        count = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] += e.time_range.elapsed_us() / 1e3 / steps
+                count += 1
+        groups = collections.Counter()
+        for name, ms in by_name.items():
+            low = name.lower()
+            group = next((g for g, keys in DECODE_PROFILE_GROUPS
+                          if all(k in low for k in keys)), "other")
+            groups[group] += ms
+        busy = sum(by_name.values())
+        out[mode] = {"wall_ms_per_step": wall, "device_busy_ms": busy,
+                     "kernels_per_step": count / steps,
+                     "idle_share": 1 - busy / wall,
+                     "by_group_ms": dict(groups)}
+    return out
+
+
+def phase_generate(predictor, card: str) -> tuple:
+    """Phase 12: generation on the flagship's Qwen2.5-0.5B (module
+    docstring). Returns (record, launches by path, kernel records)."""
+    import torch
+
+    from vla_adapter_torch.infer.graph import decode_graphs
+    from vla_adapter_torch.models.generate import (
+        decode_key,
+        decode_step_fn,
+        greedy_generate_cached,
+        prefill_state,
+    )
+    from vla_adapter_torch.models.qwen2 import Qwen2Decode
+    from vla_adapter_torch.ops import cuda_lib
+
+    cfg, dev = predictor.cfg, predictor.device
+    llm = cfg.llm
+    total = GEN_PROMPT + GEN_NEW
+    rec = {"card": card, "prompt": GEN_PROMPT, "new_tokens": GEN_NEW,
+           "runs": []}
+    # the kernels at this path's new call sites
+    ones = {b: np.ones((b, GEN_PROMPT), np.int32) for b in GEN_BATCHES}
+    kernel_records = {"attention": phase_kernel_vs_plain([
+        ("llm_prefill_causal", b, b, llm.num_heads, llm.num_kv_heads,
+         GEN_PROMPT, llm.head_dim, ones[b], True, llm.num_layers)
+        for b in GEN_BATCHES])}
+    kernel_records["w8a8"] = phase_w8a8_kernels(decode_shapes(cfg))
+    for r in kernel_records["w8a8"]:
+        if not r["bitwise_equal"]:
+            raise AssertionError(f"{r['kernel']} at decode M={r['m']}: not "
+                                 f"bit for bit with its plain version: {r}")
+    models = generation_models(predictor)
+    try:
+        greedy_generate_cached(models["mega"], torch.zeros(
+            (1, 8), dtype=torch.long, device=dev), 4, 2)
+        raise AssertionError("greedy_generate_cached under 'mega' ran")
+    except NotImplementedError as err:
+        rec["mega_refused"] = str(err)
+    rng = np.random.default_rng(12)
+    paths = {"generate": collections.Counter(),
+             "generate_w8a8": collections.Counter()}
+    for backend, path in (("bf16", "generate"), ("w8a8", "generate_w8a8")):
+        model, plain = models[backend]
+        atol = GEN_LOGITS_ATOL if backend == "bf16" else GEN_W8A8_LOGITS_ATOL
+        for b in GEN_BATCHES:
+            buf = np.zeros((b, total), np.int64)
+            buf[:, :GEN_PROMPT] = rng.integers(0, 151643, (b, GEN_PROMPT))
+            buf = torch.from_numpy(buf).to(dev)
+            run = {"backend": backend, "batch": b}
+            greedy_generate_cached(model, buf, GEN_PROMPT, GEN_NEW)  # capture
+            torch.cuda.synchronize()
+            # --- the main path: launches counted around exactly this call ---
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            out = greedy_generate_cached(model, buf, GEN_PROMPT, GEN_NEW)
+            torch.cuda.synchronize()
+            graph_s = time.perf_counter() - t0
+            launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+            want = expected_generate_launches(model, GEN_NEW)
+            if launches != want:
+                raise AssertionError(f"generate {backend} B={b}: launches "
+                                     f"{launches}, derived {want}")
+            paths[path].update(launches)
+            # --- eager, and the graphed step against the eager step ---
+            t0 = time.perf_counter()
+            out_eager = greedy_generate_cached(model, buf, GEN_PROMPT,
+                                               GEN_NEW, cuda_graph=False)
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
+            if not torch.equal(out, out_eager):
+                raise AssertionError(f"generate {backend} B={b}: graphed "
+                                     "and eager tokens differ")
+            # the 64 steps alone from one prefill, timed on the host clock
+            # (each ends in a sync): eager, then as graph replays (3 rounds)
+            step = decode_step_fn(Qwen2Decode(model), None, 0.0)
+            graphs = decode_graphs(model, dev)
+            key = decode_key(model, b, total, None, 0.0)
+            steps_ms = {"eager": [], "graph": []}
+            with torch.inference_mode():
+                state = prefill_state(model, buf, GEN_PROMPT)
+                ends = {}
+                for mode in ("eager", "graph", "graph", "graph"):
+                    s = {k: v.clone() for k, v in state.items()}
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if mode == "eager":
+                        for _ in range(GEN_NEW):
+                            step(s)
+                    else:
+                        graphs(key, step, s, GEN_NEW)
+                    torch.cuda.synchronize()
+                    steps_ms[mode].append(1e3 * (time.perf_counter() - t0))
+                    ends[mode] = s
+            per_step = llm_pass_launches(model, attention=False)
+            if graphs.captures[key].launches != per_step:
+                raise AssertionError(
+                    f"generate {backend} B={b}: a decode step launches "
+                    f"{graphs.captures[key].launches}, derived {per_step}")
+            differ = [k for k in state
+                      if not torch.equal(ends["eager"][k], ends["graph"][k])]
+            if differ:
+                raise AssertionError(f"generate {backend} B={b}: the graphed"
+                                     f" steps differ from eager in {differ}")
+
+            def prefill():
+                with torch.inference_mode():
+                    prefill_state(model, buf, GEN_PROMPT)
+
+            prefill_ms = eager_ms(prefill, reps=5, rounds=3)
+            # --- kernel vs plain, and cached vs uncached, teacher-forced ---
+            tokens = out[:, GEN_PROMPT:]
+            lk = teacher_forced_logits(model, out, GEN_PROMPT, GEN_NEW)
+            if not torch.equal(lk.argmax(-1), tokens):
+                raise AssertionError(f"generate {backend} B={b}: the "
+                                     "teacher-forced logits do not give the "
+                                     "generated tokens")
+            lp = teacher_forced_logits(plain, out, GEN_PROMPT, GEN_NEW)
+            run["kernel_vs_plain"] = check_logits(
+                lk, lp, tokens, atol, f"generate {backend} B={b} kernel vs "
+                "plain")
+            with torch.inference_mode():
+                lu = model(input_ids=out[:, :total - 1],
+                           valid=torch.ones((b, total - 1), dtype=torch.int32,
+                                            device=dev),
+                           causal=True, compute_logits=True)["logits"][
+                               :, GEN_PROMPT - 1:]
+            run["cached_vs_uncached"] = check_logits(
+                lk, lu, tokens, atol, f"generate {backend} B={b} cached vs "
+                "uncached")
+            bound, bound_by = decode_step_bound(model, b, total)
+            run["profile"] = profile_decode(model, buf)
+            run.update(
+                launches=launches, prefill_ms=prefill_ms,
+                graph_call_ms=1e3 * graph_s, eager_call_ms=1e3 * eager_s,
+                steps_ms=steps_ms,
+                token_ms_graphed=min(steps_ms["graph"]) / GEN_NEW,
+                token_ms_eager=steps_ms["eager"][0] / GEN_NEW,
+                tokens_per_s_graphed=b * GEN_NEW / graph_s,
+                tokens_per_s_eager=b * GEN_NEW / eager_s,
+                step_bound_ms=bound, step_bound_by=bound_by,
+                graph=graphs.captures[key].launches)
+            print("generate " + json.dumps(run), flush=True)
+            rec["runs"].append(run)
+            del lk, lp, lu
+    del models
+    torch.cuda.empty_cache()
+    return rec, {k: dict(v) for k, v in paths.items()}, kernel_records
+
+
+def phase_actions(predictor, card: str) -> tuple:
+    """Phase 13: the discrete decode from the flagship VLA's logits (B=1
+    and 4) and the autoregressive action path on a PrismaticVLM over the
+    flagship's towers, projector and LLM (B=1, 7 tokens); each against the
+    plain path. Returns (record, launches)."""
+    import torch
+
+    from vla_adapter_torch.data.action_tokenizer import (
+        ActionTokenizer,
+        qwen_extended_tokenizer_len,
+    )
+    from vla_adapter_torch.models.generate import (
+        discrete_actions_from_logits,
+        predict_action_autoregressive,
+    )
+    from vla_adapter_torch.models.vlm import PrismaticVLM
+    from vla_adapter_torch.ops import cuda_lib
+    from vla_adapter_torch.ops.attention_kernel import KERNEL_NAME
+
+    cfg, dev = predictor.cfg, predictor.device
+    consts = cfg.constants
+    tok_len = qwen_extended_tokenizer_len()
+    per_forward = (cfg.llm.num_layers
+                   + cfg.vision.primary.resolved_feature_layer + 1
+                   + cfg.vision.fused.resolved_feature_layer + 1)
+    plain_pred = predictor.with_runtime(
+        dataclasses.replace(predictor.rt, kernels="plain"), cuda_graph=False)
+    rng = np.random.default_rng(13)
+    size = cfg.vision.primary.image_size
+
+    def inputs(b):
+        rows = [predictor.preprocess(
+            [rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+             for _ in range(cfg.vision.num_images)], INSTRUCTION,
+            rng.normal(size=consts.proprio_dim)) for _ in range(b)]
+        px = torch.from_numpy(np.stack([r["pixels"] for r in rows])).to(dev)
+        px = ((px.float() / 255.0 - predictor._pix_mean)
+              / predictor._pix_std).to(predictor.rt.dtype)
+        return (torch.from_numpy(np.stack([r["ids"] for r in rows])).to(dev),
+                torch.as_tensor([r["plen"] for r in rows], device=dev),
+                torch.from_numpy(np.stack([r["valid"] for r in rows])).to(dev),
+                px, torch.from_numpy(np.stack([r["proprio"] for r in rows]))
+                .to(dev))
+
+    rec = {"card": card, "discrete": [], "autoregressive": None}
+    launches = collections.Counter()
+    n = consts.num_actions_chunk * consts.action_dim
+    for b in GEN_BATCHES:
+        ids, plen, valid, px, proprio = inputs(b)
+        cuda_lib.reset_launches()
+        with torch.inference_mode():
+            logits = predictor.model(ids, plen, valid, px, proprio,
+                                     compute_logits=True,
+                                     compute_actions=False)["logits"]
+            acts = discrete_actions_from_logits(
+                logits, plen, consts.num_actions_chunk, consts.action_dim,
+                tok_len)
+            torch.cuda.synchronize()
+        got = dict(cuda_lib.LAUNCHES)
+        if got.get(KERNEL_NAME, 0) != per_forward or len(got) != 1:
+            raise AssertionError(f"discrete actions B={b}: launches {got}")
+        launches.update(got)
+        with torch.inference_mode():
+            plain_logits = plain_pred.model(
+                ids, plen, valid, px, proprio, compute_logits=True,
+                compute_actions=False)["logits"]
+        idx = (plen.long() - 1)[:, None] + torch.arange(n, device=dev)
+        sel = idx[..., None].expand(-1, -1, logits.shape[-1])
+        lk, lp = torch.gather(logits, 1, sel), torch.gather(plain_logits, 1,
+                                                            sel)
+        check = check_logits(lk, lp, lk.argmax(-1), GEN_LOGITS_ATOL,
+                             f"discrete actions B={b} kernel vs plain")
+        if acts.shape != (b, consts.num_actions_chunk, consts.action_dim) \
+                or not torch.isfinite(acts).all() or acts.abs().max() > 1:
+            raise AssertionError(f"discrete actions B={b}: {acts.shape}")
+        rec["discrete"].append({"batch": b, "launches": got,
+                                "kernel_vs_plain": check})
+    # --- the autoregressive path on the plain VLM of the same weights ---
+    def vlm_of(rt):
+        vlm = PrismaticVLM(cfg, rt, device="meta")
+        keys = vlm.state_dict().keys()
+        vlm.load_state_dict({k: predictor.params[k] for k in keys},
+                            strict=True, assign=True)
+        return vlm.eval()
+
+    vlm, vlm_plain = vlm_of(predictor.rt), vlm_of(plain_pred.rt)
+    ids, plen, valid, px, _ = inputs(1)
+    p = int(plen[0])
+    ids = ids.clone()
+    ids[:, p:] = 0
+    valid = (torch.arange(ids.shape[1], device=dev) < p).to(
+        torch.int32)[None]
+    tokenizer = ActionTokenizer(tok_len)
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    acts, toks = predict_action_autoregressive(
+        vlm, ids, valid, px, plen, tokenizer, consts.action_dim,
+        return_token_ids=True)
+    torch.cuda.synchronize()
+    ar_s = time.perf_counter() - t0
+    got = dict(cuda_lib.LAUNCHES)
+    if got != {KERNEL_NAME: per_forward * consts.action_dim}:
+        raise AssertionError(f"autoregressive actions: launches {got}")
+    launches.update(got)
+    final = ids.clone()
+    final[0, p:p + consts.action_dim] = torch.from_numpy(toks[0]).to(dev)
+    fvalid = (torch.arange(ids.shape[1], device=dev)
+              < p + consts.action_dim).to(torch.int32)[None]
+    at = torch.arange(consts.action_dim, device=dev) + p - 1
+    with torch.inference_mode():
+        lk = vlm(final, fvalid, px)["logits"][:, at]
+        lp = vlm_plain(final, fvalid, px)["logits"][:, at]
+    tokens = torch.from_numpy(toks).to(dev)
+    rec["autoregressive"] = {
+        "tokens": toks.tolist(), "actions": acts.tolist(), "launches": got,
+        "seconds": ar_s,
+        "teacher_forced_vs_steps": check_logits(
+            lk, lk, tokens, GEN_LOGITS_ATOL, "autoregressive: one forward "
+            "over the final tokens against the steps"),
+        "kernel_vs_plain": check_logits(lk, lp, tokens, GEN_LOGITS_ATOL,
+                                        "autoregressive kernel vs plain")}
+    if acts.shape != (1, consts.action_dim) or not np.isfinite(acts).all():
+        raise AssertionError(f"autoregressive actions {acts.shape}")
+    print("actions " + json.dumps(rec), flush=True)
+    del vlm, vlm_plain, plain_pred
+    torch.cuda.empty_cache()
+    return rec, dict(launches)
+
+
+def check_token_kernel_vs_plain(rec) -> None:
+    """The token objective's first step, kernel vs plain: the loss within
+    TRAIN_LOSS_RTOL; each VLM gradient (from the CE itself: there is no
+    head) at a cosine of VLM_GRAD_COSINE with the plain path's, or, where
+    bf16 rounding alone moves it further (the plain path's cosine with
+    itself under a one-ulp pixel perturbation), within
+    HEAD_GRAD_COSINE_MARGIN of that spread."""
+    loss = rec["loss"]
+    if abs(loss["kernel"] - loss["plain"]) > TRAIN_LOSS_RTOL * abs(
+            loss["plain"]):
+        raise AssertionError(f"token objective kernel vs plain loss: {loss}")
+    for n in rec["vlm_grads"]:
+        cos = rec["grad_cosine"][n]
+        floor = min(VLM_GRAD_COSINE, rec["grad_cosine_perturbed"][n]
+                    - HEAD_GRAD_COSINE_MARGIN)
+        if not cos >= floor:
+            raise AssertionError(f"token objective kernel vs plain gradient "
+                                 f"of {n}: cosine {cos} < {floor}")
+
+
+def token_batch(cfg, batch: int, seed: int):
+    """A dummy batch with ``labels``, the action block's ids (the JAX
+    package's tests/test_model_extras.py recipe; data/dummy.py makes no
+    labels in either package)."""
+    from vla_adapter_torch.data.dummy import make_dummy_batch
+
+    out = make_dummy_batch(cfg, batch, np.random.default_rng(seed))
+    labels = np.full_like(out["input_ids"], -100)
+    q = cfg.constants.num_action_query_tokens
+    for i in range(batch):
+        p = out["prompt_len"][i]
+        labels[i, p - 1:p + q] = out["input_ids"][i, p - 1:p + q]
+    out["labels"] = labels
+    return out
+
+
+def phase_token_train(cfg, card: str, seed: int) -> tuple:
+    """Phase 14a: the flagship recipe with ``objective="token"``: one step
+    kernel vs plain, then TOKEN_TRAIN_STEPS steps through
+    ``make_train_step`` with launches counted. Returns (record,
+    launches)."""
+    import torch
+
+    from vla_adapter_torch.models.layers import prepare_ste_
+    from vla_adapter_torch.models.vla import VLAModel
+    from vla_adapter_torch.ops import cuda_lib
+    from vla_adapter_torch.train import step as tstep
+    from vla_adapter_torch.train.loop import build_runtime, initial_state
+    from vla_adapter_torch.train.optim import make_optimizer
+
+    dev = DEVICE
+    tcfg = dataclasses.replace(train_config(seed), objective="token")
+    batch = token_batch(cfg, tcfg.batch_size, seed)
+    rt = build_runtime(tcfg)
+    init = initial_state(tcfg, rt, dev)
+    rec = {"card": card, "batch_size": tcfg.batch_size}
+    rec["kernel_vs_plain"] = kernel_vs_plain_step(
+        tcfg, init, batch, dev, head_names=(), objective="token")
+    print("token_train kernel_vs_plain " + json.dumps(rec["kernel_vs_plain"]),
+          flush=True)
+    check_token_kernel_vs_plain(rec["kernel_vs_plain"])
+    model = VLAModel(cfg, rt, device="meta")
+    model.load_state_dict(init, strict=True, assign=True)
+    per_micro = expected_train_launches(model)
+    tx = make_optimizer(tcfg.optim)
+    state = tstep.init_train_state(model, tx, tcfg.lora.enabled)
+    prepare_ste_(model)
+    step = tstep.make_train_step(model, tx, tcfg)
+    device_batch = tstep.to_device(batch, dev)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    losses, seconds = [], []
+    for i in range(TOKEN_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = step(state, device_batch, i)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    _check_train_launches(launches, per_micro, TOKEN_TRAIN_STEPS,
+                          "token objective")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"token objective losses {losses}")
+    rec.update(losses=losses, seconds=seconds,
+               s_per_step=statistics.median(seconds[1:]),
+               launches=launches, launches_per_step=per_micro,
+               accuracy=float(m["curr_action_accuracy"]),
+               peak_mem_gib=(torch.cuda.max_memory_allocated()
+                             - resident) / 2**30)
+    print("token_train " + json.dumps(rec), flush=True)
+    del model, state, init
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def pretrain_batch(cfg, seed: int):
+    """A seeded chat-style batch for the full-width VLM: texts of half to
+    all of PRETRAIN_TEXT tokens, the loss on every token after the first,
+    normalized pixels."""
+    rng = np.random.default_rng(seed)
+    b, t = PRETRAIN_BATCH, PRETRAIN_TEXT
+    v = cfg.vision
+    ids = rng.integers(0, 151643, (b, t)).astype(np.int32)
+    valid = np.zeros((b, t), np.int32)
+    labels = np.full((b, t), -100, np.int32)
+    for i in range(b):
+        n = int(rng.integers(t // 2, t))
+        valid[i, :n] = 1
+        labels[i, 1:n] = ids[i, 1:n]
+    px = rng.normal(size=(b, v.num_images, v.primary.image_size,
+                          v.primary.image_size, v.channels_per_image))
+    return {"input_ids": ids, "text_valid": valid, "labels": labels,
+            "pixel_values": px.astype(np.float32)}
+
+
+def phase_pretrain(cfg, card: str, seed: int) -> tuple:
+    """Phase 14b: ``pretrain`` of the full-width PrismaticVLM in the stages
+    "align" and "last-layer-finetune" (PRETRAIN_STEPS steps each on one
+    seeded batch): launches against :func:`expected_pretrain_launches`,
+    which tensors moved, s/step, peak memory; B1-bwd at the causal LLM
+    shape against its plain version. Returns (record, launches, B1-bwd
+    records)."""
+    import itertools
+
+    import torch
+
+    from vla_adapter_torch.models.layers import init_random_
+    from vla_adapter_torch.models.vlm import PrismaticVLM
+    from vla_adapter_torch.ops import cuda_lib
+    from vla_adapter_torch.train import pretrain as tpretrain
+    from vla_adapter_torch.train.stages import split_by_stage
+
+    dev = DEVICE
+    batch = pretrain_batch(cfg, seed)
+    llm = cfg.llm
+    mm_valid = np.concatenate([batch["text_valid"][:, :1],
+                               np.ones((PRETRAIN_BATCH, cfg.num_patches),
+                                       np.int32),
+                               batch["text_valid"][:, 1:]], axis=1)
+    bwd_records = phase_attention_bwd([
+        ("pretrain_llm_causal", PRETRAIN_BATCH, llm.num_heads,
+         llm.num_kv_heads, mm_valid.shape[1], llm.head_dim, mm_valid, True,
+         llm.num_layers)], card)
+    rec = {"card": card, "batch": PRETRAIN_BATCH, "steps": PRETRAIN_STEPS,
+           "stages": {}}
+    launches = collections.Counter()
+    pcfg = tpretrain.PretrainConfig(
+        model=dataclasses.replace(cfg, use_proprio=False), seed=seed,
+        optim=tpretrain.OptimizerConfig(learning_rate=1e-3,
+                                        max_steps=PRETRAIN_STEPS,
+                                        num_steps_before_decay=1000))
+    for stage, moving in (("align", ("projector.",)),
+                          ("last-layer-finetune",
+                           (f"language_model.layers.{llm.num_layers - 1}.",
+                            "language_model.embed."))):
+        cfg_s = dataclasses.replace(pcfg, stage=stage)
+        model = init_random_(PrismaticVLM(cfg_s.model, device=dev),
+                             torch.Generator(device=dev).manual_seed(seed))
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        trainable, _ = split_by_stage(init, stage)
+        per_step = expected_pretrain_launches(model, trainable)
+        del model
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params, metrics = tpretrain.pretrain(
+            cfg_s, itertools.repeat(batch), PRETRAIN_STEPS,
+            init_params=init, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        _check_train_launches(got, per_step, PRETRAIN_STEPS,
+                              f"pretrain {stage}")
+        launches.update(got)
+        moved = sorted(k for k in init if not torch.equal(init[k], params[k]))
+        allowed = sorted(k for k in trainable if k.startswith(moving))
+        # every weight matrix of the moving modules must move; a bias or a
+        # norm may get an exactly zero gradient (softmax is blind to a key
+        # bias), so of those only "at most the allowed ones"
+        required = [k for k in allowed if k.endswith(".weight")
+                    and "norm" not in k]
+        if set(moved) - set(allowed) or set(required) - set(moved):
+            raise AssertionError(
+                f"pretrain {stage}: moved outside {moving}: "
+                f"{sorted(set(moved) - set(allowed))[:8]}; did not move: "
+                f"{sorted(set(required) - set(moved))[:8]}")
+        if not np.isfinite(metrics["loss"]):
+            raise AssertionError(f"pretrain {stage}: loss {metrics}")
+        rec["stages"][stage] = {
+            "launches": got, "launches_per_step": per_step,
+            "tensors_moved": len(moved), "tensors_allowed": len(allowed),
+            "trainable_tensors": len(trainable),
+            "last_loss": metrics["loss"], "wall_s": wall,
+            "s_per_step": wall / PRETRAIN_STEPS,
+            "peak_mem_gib": (torch.cuda.max_memory_allocated() - resident)
+            / 2**30}
+        del params, init
+        torch.cuda.empty_cache()
+    print("pretrain " + json.dumps(rec), flush=True)
+    return rec, dict(launches), bwd_records
+
+
+def phi_b4_shapes(phi, rows: int):
+    """B4's calls in one full-sequence pass of Phi-2 under w8a8 at ``rows``
+    tokens (q, k, v, dense at 2560^2, fc1, fc2) and the untied lm_head on
+    the last position's row."""
+    from vla_adapter_torch.ops import w8a8_matmul
+
+    d, f, layers = phi.hidden_size, phi.intermediate_size, phi.num_layers
+    name = w8a8_matmul.KERNEL_NAME
+    return [
+        {"kernel": name, "shape": ["phi_q_k_v_dense"], "forward_batch": 1,
+         "m": rows, "k": d, "n": d, "launches_per_forward": 4 * layers},
+        {"kernel": name, "shape": ["phi_fc1"], "forward_batch": 1,
+         "m": rows, "k": d, "n": f, "launches_per_forward": layers},
+        {"kernel": name, "shape": ["phi_fc2"], "forward_batch": 1,
+         "m": rows, "k": f, "n": d, "launches_per_forward": layers},
+        {"kernel": name, "shape": ["phi_lm_head"], "forward_batch": 1,
+         "m": 1, "k": d, "n": phi.vocab_size, "launches_per_forward": 1},
+    ]
+
+
+def phase_phi(card: str, seed: int) -> tuple:
+    """Phase 15: Phi-2 at full width (module docstring). Returns (record,
+    launches, kernel records)."""
+    import torch
+
+    from vla_adapter_torch.infer.predict import SERVING_RUNTIME
+    from vla_adapter_torch.models.generate import greedy_generate
+    from vla_adapter_torch.models.layers import (
+        init_random_,
+        resolve_w8a8_impl,
+    )
+    from vla_adapter_torch.models.phi import PhiModel
+    from vla_adapter_torch.models.quantize import quantize_state_dict
+    from vla_adapter_torch.models.registry import get_llm_backbone
+    from vla_adapter_torch.ops import cuda_lib
+
+    dev = torch.device(DEVICE)
+    phi = get_llm_backbone("phi-2-3b")
+    total = PHI_PROMPT + PHI_NEW
+    kernel_records = {
+        "attention": phase_kernel_vs_plain([
+            ("phi_causal", 1, 1, phi.num_heads, phi.num_kv_heads, total,
+             phi.head_dim, np.ones((1, total), np.int32), True,
+             phi.num_layers)]),
+        "w8a8": phase_w8a8_kernels(phi_b4_shapes(phi, total))}
+    rt = SERVING_RUNTIME
+    model = init_random_(PhiModel(phi, rt, device=dev),
+                         torch.Generator(device=dev).manual_seed(seed)).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    rt8 = dataclasses.replace(rt, weights_int8=True, act_int8=True,
+                              w8a8_impl=resolve_w8a8_impl("auto", 1))
+
+    def twin(rt_, state):
+        m = PhiModel(phi, rt_, device="meta")
+        m.load_state_dict(state, strict=True, assign=True)
+        return m.eval()
+
+    q = quantize_state_dict(model.state_dict(), PhiModel(
+        phi, rt8, device="meta").state_dict(), dev)
+    plain = dict(kernels="plain")
+    models = {"bf16": (model, twin(dataclasses.replace(rt, **plain),
+                                   model.state_dict())),
+              "w8a8": (twin(rt8, q), twin(dataclasses.replace(rt8, **plain),
+                                          q))}
+    rng = np.random.default_rng(15)
+    buf = np.zeros((1, total), np.int64)
+    buf[0, :PHI_PROMPT] = rng.integers(0, 50256, PHI_PROMPT)
+    buf = torch.from_numpy(buf).to(dev)
+    plen = torch.full((1,), PHI_PROMPT, device=dev)
+    rec = {"card": card, "parameters": n_params, "runs": {}}
+    launches_all = collections.Counter()
+    logits = {}
+    for backend, (m, m_plain) in models.items():
+        atol = GEN_LOGITS_ATOL if backend == "bf16" else GEN_W8A8_LOGITS_ATOL
+        greedy_generate(m, buf, plen, 1)  # first use: builds, plans
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        out = greedy_generate(m, buf, plen, PHI_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        per = llm_pass_launches(m, attention=True)
+        want = {k: PHI_NEW * v for k, v in per.items()}
+        if got != want:
+            raise AssertionError(f"phi {backend}: launches {got}, derived "
+                                 f"{want}")
+        launches_all.update(got)
+        ones = torch.ones((1, total - 1), dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            lk = m(input_ids=out[:, :total - 1], valid=ones, causal=True,
+                   compute_logits=True)["logits"][:, PHI_PROMPT - 1:]
+            lp = m_plain(input_ids=out[:, :total - 1], valid=ones,
+                         causal=True, compute_logits=True)["logits"][
+                             :, PHI_PROMPT - 1:]
+        tokens = out[:, PHI_PROMPT:]
+        logits[backend] = lk
+        rec["runs"][backend] = {
+            "launches": got, "launches_per_step": per, "wall_s": wall,
+            "ms_per_token": 1e3 * wall / PHI_NEW,
+            "tokens": tokens[0].tolist(),
+            "teacher_forced_vs_steps": check_logits(
+                lk, lk, tokens, atol, f"phi {backend}: one forward over the"
+                " final tokens against the steps"),
+            "kernel_vs_plain": check_logits(lk, lp, tokens, atol,
+                                            f"phi {backend} kernel vs plain")}
+    rec["w8a8_vs_bf16_max_abs_logit_diff"] = float(
+        (logits["w8a8"].float() - logits["bf16"].float()).abs().max())
+    rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print("phi " + json.dumps(rec), flush=True)
+    del models, model, q, logits
+    torch.cuda.empty_cache()
+    return rec, dict(launches_all), kernel_records
+
+
+def causal_language_path(predictor, cfg, card: str, seed: int, phases,
+                         lap) -> dict:
+    """Phases 12-15 (those in ``phases``), each lapped: their records, the
+    kernel records at their call sites, and their launches by path."""
+    out = {"launches_by_path": {}, "kernel_records": {}}
+    paths = out["launches_by_path"]
+    if 12 in phases:
+        out["generate"], gen_paths, out["kernel_records"]["generate"] = \
+            phase_generate(predictor, card)
+        paths.update(gen_paths)
+        print(f"kernels launched on the generation paths: {gen_paths}",
+              flush=True)
+        lap("12 generate")
+    if 13 in phases:
+        out["actions"], paths["actions"] = phase_actions(predictor, card)
+        lap("13 actions")
+    if 14 in phases:
+        out["token_train"], paths["token_train"] = phase_token_train(
+            cfg, card, seed)
+        out["pretrain"], paths["pretrain"], \
+            out["kernel_records"]["pretrain_attention_bwd"] = phase_pretrain(
+                cfg, card, seed)
+        print(f"kernels launched on the token-train and pretrain paths: "
+              f"{paths['token_train']}, {paths['pretrain']}", flush=True)
+        lap("14 token_train pretrain")
+    if 15 in phases:
+        out["phi"], paths["phi"], out["kernel_records"]["phi"] = phase_phi(
+            card, seed)
+        print(f"kernels launched on the phi path: {paths['phi']}",
+              flush=True)
+        lap("15 phi")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -2803,7 +3780,14 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also profile one B=1 request per tier, eager "
                              "and replayed (torch.profiler)")
+    parser.add_argument("--only", default="",
+                        help="comma-separated phases among 12-15 to run "
+                             "after the build, skipping phases 2-11; such a "
+                             "partial run prints no kernels or ok line")
     args = parser.parse_args()
+    only = {int(p) for p in args.only.split(",") if p}
+    if only - {12, 13, 14, 15}:
+        parser.error(f"--only takes phases among 12-15, got {args.only}")
 
     sys.path.insert(0, HERE)
     import torch
@@ -2845,6 +3829,17 @@ def main() -> int:
     # 2. attention kernel vs plain at the main path's shapes
     cfg, predictor, n_params, rng = build_flagship(args.seed)
     print(f"flagship: {n_params / 1e9:.3f} B parameters in bf16", flush=True)
+    if only:
+        causal = causal_language_path(predictor, cfg, card, args.seed, only,
+                                      lap)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": card, "phase_s": phase_s, **causal}, f,
+                          indent=1)
+        print(f"card: {card}", flush=True)
+        print(f"partial run (phases {sorted(only)}): no kernels line",
+              flush=True)
+        return 0
     records = phase_kernel_vs_plain(attention_shapes(cfg, predictor.tokenize))
     lap("2 attention")
 
@@ -2900,13 +3895,17 @@ def main() -> int:
     print(f"kernels launched on the train path: {sorted(train_launches)}",
           flush=True)
     lap("11 train")
+
+    # 12-15. the causal language path
+    causal = causal_language_path(predictor, cfg, card, args.seed,
+                                  {12, 13, 14, 15}, lap)
     kernels = (kernel_summary(records, launches)
                + w8a8_kernel_summary(w8a8_records, w8a8_launches)
                + megalayer_kernel_summary(w8a8_records, w8a8_launches)
                + attention_bwd_kernel_summary(bwd_records, train_launches))
     paths = {"flagship_bf16": launches, "flagship_w8a8": w8a8_launches,
              "server": server_launches, "original_film": original_launches,
-             "train": train_launches}
+             "train": train_launches, **causal["launches_by_path"]}
     for entry in kernels:
         entry["launches_by_path"] = {path: counts.get(entry["name"], 0)
                                      for path, counts in paths.items()}
@@ -2918,7 +3917,7 @@ def main() -> int:
                        "graph": graphs, "checkpoint": checkpoint,
                        "server": server, "original_film": original,
                        "train": train, "attention_bwd_shapes": bwd_records,
-                       "kernels": kernels, "phase_s": phase_s}, f,
+                       **causal, "kernels": kernels, "phase_s": phase_s}, f,
                       indent=1)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

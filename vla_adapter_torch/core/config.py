@@ -155,6 +155,33 @@ QWEN25_0_5B = Qwen2Config()
 
 
 @dataclass(frozen=True)
+class PhiConfig:
+    """Phi-2 decoder config (the reference's ``phi-2-3b`` ->
+    microsoft/phi-2): LayerNorm with bias, parallel attention and MLP over
+    one pre-LN, rotary embeddings on the first ``rotary_dim`` dims of each
+    head only, MHA, an untied lm_head with bias."""
+
+    vocab_size: int = 51200
+    hidden_size: int = 2560
+    num_layers: int = 32
+    num_heads: int = 32
+    intermediate_size: int = 10240
+    head_dim: int = 80
+    partial_rotary_factor: float = 0.4
+    rope_theta: float = 1e4
+    layer_norm_eps: float = 1e-5
+    max_position_embeddings: int = 2048
+
+    @property
+    def num_kv_heads(self) -> int:  # MHA
+        return self.num_heads
+
+    @property
+    def rotary_dim(self) -> int:
+        return int(self.head_dim * self.partial_rotary_factor)
+
+
+@dataclass(frozen=True)
 class ActionHeadConfig:
     """Bridge-attention MLPResNet head."""
 
@@ -211,12 +238,10 @@ def vla_config_to_dict(cfg: VLAConfig) -> dict:
 
 
 def vla_config_from_dict(d: dict) -> VLAConfig:
-    """Inverse of :func:`vla_config_to_dict`. A Phi language model (the
-    JAX package's ``PhiConfig``, told apart by ``partial_rotary_factor``)
-    raises: the port has no Phi model yet."""
+    """Inverse of :func:`vla_config_to_dict`. The language model's family
+    is told apart by its signature field: ``partial_rotary_factor`` makes
+    it a :class:`PhiConfig`."""
     d = dict(d)
-    if "partial_rotary_factor" in d["llm"]:
-        raise NotImplementedError("a Phi language model is not ported yet")
     cc = d.get("custom_constants")
     if cc:
         cc = dict(cc)
@@ -227,7 +252,8 @@ def vla_config_from_dict(d: dict) -> VLAConfig:
     if v.get("fused"):
         v["fused"] = ViTConfig(**v["fused"])
     d["vision"] = FusedVisionConfig(**v)
-    d["llm"] = Qwen2Config(**d["llm"])
+    llm_cls = PhiConfig if "partial_rotary_factor" in d["llm"] else Qwen2Config
+    d["llm"] = llm_cls(**d["llm"])
     d["head"] = ActionHeadConfig(**d["head"])
     return VLAConfig(**d)
 
@@ -278,7 +304,8 @@ class TrainConfig:
     lora: LoRAConfig = LoRAConfig()
     optim: OptimizerConfig = OptimizerConfig()
     # "l1": continuous regression through the bridge head (the VLA-Adapter
-    # recipe). The token objective is not ported yet.
+    # recipe); "token": discrete next-token CE on the LLM's logits (the
+    # legacy OpenVLA objective; the batch must carry "labels").
     objective: str = "l1"
     batch_size: int = 16          # global batch
     grad_accumulation_steps: int = 1

@@ -65,7 +65,9 @@
 //   their int32 partials with atomics, and the last CTA of an N tile (an
 //   atomic counter) reads them back, zeroing them, and runs the dequant
 //   epilogue; the last CTA to leave zeroes the maxima and the counters for
-//   the next call. One launch per call, no memset.
+//   the next call. One launch per call, no memset. Where a quantizing
+//   split's CTAs could not all be resident (more than two slices over
+//   very many column tiles), the call takes the wide design instead.
 //
 // Bound on this card: at the serving shapes (M = 1 .. 2560, N, K ~ 1000)
 // x, the weights and the output are ~1-6 MB per call: ~0.3-2 us at
@@ -875,7 +877,7 @@ cudaError_t launch_narrow(Params p, int layers, long long part_cap,
           &per_sm, kernel, 128, 8 * TILES * static_cast<size_t>(64 * STEPS + 16) + (16 * TILES + 1) * 4);
     }
     if (static_cast<long long>(ntiles) * p.splits > static_cast<long long>(per_sm) * sms)
-      return cudaErrorInvalidConfiguration;
+      return cudaErrorCooperativeLaunchTooLarge;  // nothing launched
   }
   kernel<<<dim3(ntiles, p.splits, layers), 128, smem, stream>>>(p);
   return cudaGetLastError();
@@ -884,12 +886,22 @@ cudaError_t launch_narrow(Params p, int layers, long long part_cap,
 template <typename XT, typename OutT>
 cudaError_t launch(const Params& p, int layers, long long part_cap,
                    long long count_cap, cudaStream_t s) {
+  cudaError_t err = cudaErrorCooperativeLaunchTooLarge;
   if (p.m <= 8 && p.k <= 1024)
-    return launch_narrow<XT, OutT, 1, 16>(p, layers, part_cap, count_cap, s);
-  if (p.m <= 8) return launch_narrow<XT, OutT, 1, 8>(p, layers, part_cap, count_cap, s);
-  if (p.m <= 16) return launch_narrow<XT, OutT, 2, 8>(p, layers, part_cap, count_cap, s);
-  if (p.m <= 32) return launch_narrow<XT, OutT, 4, 8>(p, layers, part_cap, count_cap, s);
-  return launch_wide<XT, OutT, kWideCols>(p, layers, s);
+    err = launch_narrow<XT, OutT, 1, 16>(p, layers, part_cap, count_cap, s);
+  else if (p.m <= 8)
+    err = launch_narrow<XT, OutT, 1, 8>(p, layers, part_cap, count_cap, s);
+  else if (p.m <= 16)
+    err = launch_narrow<XT, OutT, 2, 8>(p, layers, part_cap, count_cap, s);
+  else if (p.m <= 32)
+    err = launch_narrow<XT, OutT, 4, 8>(p, layers, part_cap, count_cap, s);
+  // M > 32, or a narrow split whose CTAs cannot all be resident for the
+  // scale exchange (a long K over many column tiles: Phi-2's lm_head,
+  // 2560 -> 51200 at M = 1, is 800 tiles x 5 slices): the wide design,
+  // which exchanges nothing between CTAs along N but the cluster's rows.
+  if (err == cudaErrorCooperativeLaunchTooLarge)
+    return launch_wide<XT, OutT, kWideCols>(p, layers, s);
+  return err;
 }
 
 template <typename XT>

@@ -31,6 +31,14 @@ Launch counts (``ops/cuda_lib.py``): the warm-up and the capture each
 count into their own ``Counter`` (the two must agree), and every replay
 adds the capture's to ``cuda_lib.LAUNCHES``, so a replayed request counts
 what an eager one counts.
+
+:class:`GraphedDecode` does the same for one step of cached generation
+(``models/generate.py:greedy_generate_cached``, the counterpart of the JAX
+package's ``lax.scan`` over ``Qwen2Decode`` under ``jit``): a step reads
+and writes only its state tensors (the token buffer, the KV cache, the
+logits, the done flags, the position and, when sampling, the noise), so
+one graph per key is captured over static copies of them and replayed
+once per token, under the same lock and launch accounting.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
+import weakref
 from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import numpy as np
@@ -137,33 +146,13 @@ class GraphedForward:
                 self.device, dtype)
             pinned[name] = torch.empty(arr.shape, dtype=dtype,
                                        pin_memory=True)
-        with torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            t0 = time.perf_counter()
-            with torch.cuda.stream(side), cuda_lib.recording() as warm:
-                self._run(static)
-            torch.cuda.current_stream().wait_stream(side)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with cuda_lib.recording() as captured, \
-                        torch.cuda.graph(graph, pool=self.pool):
-                    out = self._run(static)
-            except RuntimeError as err:
-                raise RuntimeError(f"CUDA graph capture failed for key "
-                                   f"{key}: {err}") from err
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-        if captured != warm:
-            raise RuntimeError(f"graph {key}: the capture launched "
-                               f"{dict(captured)}, the warm-up {dict(warm)}")
+        graph, out, launches, warmup_s, capture_s = capture_graph(
+            lambda: self._run(static), self.pool, self.device, f"key {key}")
         return Capture(graph=graph, static=static, pinned=pinned, out=out,
                        out_host=torch.empty(out.shape, dtype=out.dtype,
                                             pin_memory=True),
-                       launches=dict(captured), warmup_s=t1 - t0,
-                       capture_s=t2 - t1)
+                       launches=launches, warmup_s=warmup_s,
+                       capture_s=capture_s)
 
     def stats(self) -> Dict[str, object]:
         """Per key: warm-up and capture seconds, kernel launches per replay,
@@ -176,6 +165,37 @@ class GraphedForward:
                 "pool_bytes": pool_bytes(self.pool, self.device)}
 
 
+def capture_graph(run: Callable, pool, device: torch.device, what: str):
+    """``run()`` once eagerly on a side stream (kernel builds, plans,
+    scratches: none may happen during a capture), then captured into a new
+    graph in ``pool``, each counting its launches into its own recording
+    (the two must agree). Returns (graph, the captured call's output, its
+    launches, warm-up s, capture s); a failed capture raises."""
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side), cuda_lib.recording() as warm:
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with cuda_lib.recording() as captured, \
+                    torch.cuda.graph(graph, pool=pool):
+                out = run()
+        except RuntimeError as err:
+            raise RuntimeError(f"CUDA graph capture failed for {what}: "
+                               f"{err}") from err
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    if captured != warm:
+        raise RuntimeError(f"graph {what}: the capture launched "
+                           f"{dict(captured)}, the warm-up {dict(warm)}")
+    return graph, out, dict(captured), t1 - t0, t2 - t1
+
+
 def pool_bytes(pool: Tuple[int, int], device: torch.device) -> int:
     """Bytes of the card's memory that segments of ``pool`` hold (the
     caching allocator's snapshot)."""
@@ -183,3 +203,76 @@ def pool_bytes(pool: Tuple[int, int], device: torch.device) -> int:
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                if seg["device"] == device.index
                and tuple(seg.get("segment_pool_id", ())) == want)
+
+
+@dataclass
+class DecodeCapture:
+    """One key's decode-step graph over its static state."""
+
+    graph: torch.cuda.CUDAGraph
+    static: Dict[str, torch.Tensor]
+    launches: Dict[str, int]
+    warmup_s: float
+    capture_s: float
+    replays: int = 0
+
+
+class GraphedDecode:
+    """``step(state)`` (a function that updates a dict of device tensors in
+    place) captured once per key and replayed ``steps`` times per call.
+
+    Each call copies the caller's state into the key's static tensors,
+    replays (calling ``before_step(static)`` eagerly before each replay:
+    the sampling noise), and copies the static state back, so the caller
+    sees what ``steps`` eager calls of ``step`` leave. The first call of a
+    key runs one step eagerly on a side stream on the static copies (kernel
+    builds, plans, scratches; its writes are overwritten by the call's own
+    copy), then captures. A failed capture raises; nothing falls back."""
+
+    def __init__(self, device: torch.device):
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
+        self.device = (device if device.index is not None else
+                       torch.device("cuda", torch.cuda.current_device()))
+        self.pool = torch.cuda.graph_pool_handle()
+        self.captures: Dict[Hashable, DecodeCapture] = {}
+
+    def __call__(self, key: Hashable, step: Callable, state: Dict[str, torch.Tensor],
+                 steps: int, before_step: Optional[Callable] = None) -> None:
+        with CARD_LOCK:
+            cap = self.captures.get(key)
+            if cap is None:
+                cap = self.captures[key] = self._capture(key, step, state)
+            for name, t in state.items():
+                cap.static[name].copy_(t)
+            for _ in range(steps):
+                if before_step is not None:
+                    before_step(cap.static)
+                cap.graph.replay()
+                cuda_lib.add_launches(cap.launches)
+                cap.replays += 1
+            for name, t in state.items():
+                t.copy_(cap.static[name])
+
+    def _capture(self, key: Hashable, step: Callable,
+                 state: Dict[str, torch.Tensor]) -> DecodeCapture:
+        static = {name: t.clone() for name, t in state.items()}
+        graph, _, launches, warmup_s, capture_s = capture_graph(
+            lambda: step(static), self.pool, self.device,
+            f"decode key {key}")
+        return DecodeCapture(graph=graph, static=static, launches=launches,
+                             warmup_s=warmup_s, capture_s=capture_s)
+
+
+_DECODE_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def decode_graphs(model: torch.nn.Module, device) -> GraphedDecode:
+    """The :class:`GraphedDecode` of ``model`` (one per model, kept as long
+    as the model lives)."""
+    with CARD_LOCK:
+        graphs = _DECODE_GRAPHS.get(model)
+        if graphs is None:
+            graphs = _DECODE_GRAPHS[model] = GraphedDecode(device)
+        return graphs

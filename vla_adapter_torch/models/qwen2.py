@@ -8,14 +8,27 @@ action head indexes). Under the "mega" w8a8 backend each decoder layer runs
 from the attention core on as one kernel (B6), at batch 1 and
 bidirectional only. Under ``rt.remat`` with "llm" among its components
 each layer (policy "nothing") or its attention half ("attn_only")
-recomputes in the backward. Cached decoding is not ported yet.
+recomputes in the backward.
+
+The forward also takes ``input_ids`` and ``positions``, returns the tied
+head's ``logits`` (``final @ embed.weight.T`` in ``rt.dtype``, as Flax's
+``Embed.attend`` computes them) with ``compute_logits``, and each layer's
+roped k and v, ``kv_cache`` (L, B, S, Hkv, Dh) each, with ``return_kv``
+(the prefill of a cached decode; it bypasses "mega", as the JAX package's
+does). :meth:`Qwen2Model.decode_step` is the cached single-token step
+(``Qwen2Attention.decode_step``: grouped fp32 attention against the whole
+cache, in plain PyTorch as in the JAX package, no kernel), and
+:class:`Qwen2Decode` the JAX package's module of that name over the same
+weights. The step writes the cache in place at ``pos``, which may be a
+device tensor, so one captured CUDA graph serves every step.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vla_adapter_torch.core.config import Qwen2Config
@@ -57,13 +70,36 @@ class Qwen2Attention(nn.Module):
         v = self.v_proj(x).view(b, s, cfg.num_kv_heads, cfg.head_dim)
         return apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin), v
 
-    def forward(self, x, cos, sin, valid, causal: bool) -> torch.Tensor:
+    def forward(self, x, cos, sin, valid, causal: bool,
+                return_kv: bool = False):
         cfg = self.cfg
         b, s, _ = x.shape
         q, k, v = self.qkv(x, cos, sin)
         out = dot_product_attention(q, k, v, valid, causal=causal,
                                     impl=self.rt.kernels)
-        return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+        out = self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+        return (out, (k, v)) if return_kv else out
+
+    def decode_step(self, x, k_cache, v_cache, pos, cos, sin):
+        """One token: x (B, 1, D); k_cache, v_cache (B, T, Hkv, Dh), written
+        in place at ``pos`` ((1,) long tensor); cos, sin (1, Dh) at pos in
+        x's dtype. Grouped fp32 attention against the whole cache, keys at
+        positions <= pos, no repeat of k/v."""
+        cfg = self.cfg
+        b = x.shape[0]
+        hkv, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+        q, k, v = self.qkv(x, cos, sin)
+        k_cache.index_copy_(1, pos, k)
+        v_cache.index_copy_(1, pos, v)
+        qg = q.reshape(b, 1, hkv, g, cfg.head_dim).float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.float()) \
+            * cfg.head_dim ** -0.5
+        seen = torch.arange(k_cache.shape[1], device=x.device) <= pos
+        s = torch.where(seen, s, torch.full((), -2.0e9, device=x.device))
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache.float())
+        out = out.to(x.dtype).reshape(b, 1, cfg.num_heads * cfg.head_dim)
+        return self.o_proj(out)
 
 
 class Qwen2MLP(nn.Module):
@@ -98,12 +134,28 @@ class Qwen2DecoderLayer(nn.Module):
                                                 device=device)
         self.mlp = Qwen2MLP(cfg, rt, device)
 
-    def forward(self, x, cos, sin, valid, causal: bool) -> torch.Tensor:
+    def forward(self, x, cos, sin, valid, causal: bool,
+                return_kv: bool = False):
+        if return_kv:
+            h = self.input_layernorm(x)
+            attn, kv = self.self_attn(h, cos, sin, valid, causal,
+                                      return_kv=True)
+            x = x + attn
+            return x + self.mlp(self.post_attention_layernorm(x)), kv
         if self.rt.mega:
             return self._mega(x, cos, sin, valid, causal)
         if self.remat == "nothing" and torch.is_grad_enabled():
             return checkpointed(self._forward, x, cos, sin, valid, causal)
         return self._forward(x, cos, sin, valid, causal)
+
+    def decode_step(self, x, k_cache, v_cache, pos, cos, sin):
+        if self.rt.w8a8_impl == "mega":
+            raise NotImplementedError(
+                "w8a8_impl='mega' serves the batch-1 VLA forward only; use "
+                "'fused' or 'dense' for generation")
+        h = self.input_layernorm(x)
+        x = x + self.self_attn.decode_step(h, k_cache, v_cache, pos, cos, sin)
+        return x + self.mlp(self.post_attention_layernorm(x))
 
     def _attn_delta(self, x, cos, sin, valid, causal: bool):
         return self.self_attn(self.input_layernorm(x), cos, sin, valid, causal)
@@ -142,7 +194,9 @@ class Qwen2DecoderLayer(nn.Module):
 
 
 class Qwen2Model(nn.Module):
-    """Decoder stack with a tied embedding table (``embed``)."""
+    """Decoder stack with a tied embedding table (``embed``), frozen at
+    construction; whoever trains it (a training stage, a full finetune)
+    sets ``requires_grad`` by name."""
 
     def __init__(self, cfg: Qwen2Config, rt: Runtime, device=None):
         super().__init__()
@@ -162,23 +216,84 @@ class Qwen2Model(nn.Module):
         """(B, S) ids -> (B, S, D) in rt.dtype."""
         return self.embed(input_ids).to(self.rt.dtype)
 
+    def lm_head(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The tied head: hidden (..., D) -> logits (..., V) in rt.dtype."""
+        dt = self.rt.dtype
+        return F.linear(hidden.to(dt), self.embed.weight.to(dt))
+
     def forward(
         self,
-        inputs_embeds: torch.Tensor,
+        inputs_embeds: Optional[torch.Tensor] = None,
         valid: Optional[torch.Tensor] = None,
         causal: bool = True,
         output_hidden_states: bool = False,
+        *,
+        input_ids: Optional[torch.Tensor] = None,
+        positions: Optional[torch.Tensor] = None,
+        compute_logits: bool = False,
+        return_kv: bool = False,
     ) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
+        if inputs_embeds is None:
+            inputs_embeds = self.embed_tokens(input_ids)
         x = inputs_embeds.to(self.rt.dtype)
         cos, sin = rope_cos_sin(x.shape[1], cfg.head_dim, cfg.rope_theta,
-                                dtype=self.rt.dtype, device=x.device)
-        layer_inputs = []
+                                dtype=self.rt.dtype, device=x.device,
+                                positions=positions)
+        layer_inputs, ks, vs = [], [], []
         for layer in self.layers:
             layer_inputs.append(x)
-            x = layer(x, cos, sin, valid, causal)
+            if return_kv:
+                x, (k, v) = layer(x, cos, sin, valid, causal, return_kv=True)
+                ks.append(k)
+                vs.append(v)
+            else:
+                x = layer(x, cos, sin, valid, causal)
         final = self.norm(x)
         out = {"last_hidden_state": final}
         if output_hidden_states:
             out["hidden_states"] = torch.stack(layer_inputs + [final], dim=1)
+        if compute_logits:
+            out["logits"] = self.lm_head(final)
+        if return_kv:
+            out["kv_cache"] = (torch.stack(ks), torch.stack(vs))
         return out
+
+    def decode_step(self, input_ids: torch.Tensor,
+                    kv_cache: Tuple[torch.Tensor, torch.Tensor], pos):
+        """One cached step: input_ids (B, 1); kv_cache (k, v), each
+        (L, B, T, Hkv, Dh) with roped k, written in place at ``pos`` (an int
+        or a (1,) long tensor on the device). The mask is position <= pos
+        with no per-sequence validity: every cached slot below pos must be
+        a real token (uniform prompt lengths). Returns (logits (B, V),
+        kv_cache)."""
+        cfg = self.cfg
+        x = self.embed_tokens(input_ids)
+        if not torch.is_tensor(pos):
+            pos = torch.full((1,), pos, dtype=torch.long, device=x.device)
+        cos, sin = rope_cos_sin(1, cfg.head_dim, cfg.rope_theta,
+                                dtype=self.rt.dtype, positions=pos)
+        k_cache, v_cache = kv_cache
+        for i, layer in enumerate(self.layers):
+            x = layer.decode_step(x, k_cache[i], v_cache[i], pos, cos, sin)
+        return self.lm_head(self.norm(x))[:, 0], kv_cache
+
+
+class Qwen2Decode(nn.Module):
+    """The KV-cached single-token decode over ``model``'s weights (the JAX
+    package's twin module, which shares Qwen2Model's param tree):
+    ``forward(input_ids (B, 1), kv_cache, pos) -> (logits (B, V),
+    kv_cache)``. Batched decode needs a uniform prompt length: ragged
+    prompts go through the uncached ``models.generate.greedy_generate``,
+    which masks per sequence."""
+
+    def __init__(self, model: Qwen2Model):
+        super().__init__()
+        if model.rt.w8a8_impl == "mega":
+            raise NotImplementedError(
+                "w8a8_impl='mega' serves the batch-1 VLA forward only; use "
+                "'fused' or 'dense' for generation")
+        self.model = model
+
+    def forward(self, input_ids, kv_cache, pos):
+        return self.model.decode_step(input_ids, kv_cache, pos)

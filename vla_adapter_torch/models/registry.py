@@ -9,19 +9,21 @@ resolves it here. Each entry is a pure config; weights come through
 Qwen2, LLaMA-2, Vicuna and Mistral share the decoder of ``models/qwen2.py``
 (RMSNorm, GQA, RoPE, a SiLU-gated MLP) and differ only in geometry, biases
 and RoPE settings, so all map onto :class:`Qwen2Config`. Phi-2 (parallel
-attention and MLP, partial rotary) is another architecture that the port
-has no model for yet: its id raises.
+attention and MLP, partial rotary) is :class:`PhiConfig`, served by
+``models/phi.py``. ``LLM_PROMPT_FAMILY`` names each LLM's prompt builder
+(``data/prompting.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Union
 
 from vla_adapter_torch.core.config import (
     DINOV2_VIT_L_224,
     SIGLIP_SO400M_224,
     FusedVisionConfig,
+    PhiConfig,
     Qwen2Config,
     ViTConfig,
 )
@@ -119,7 +121,7 @@ _MISTRAL_7B = Qwen2Config(
     vocab_size=32000, hidden_size=4096, num_layers=32, num_heads=32,
     num_kv_heads=8, intermediate_size=14336, head_dim=128, **_LLAMA_STYLE)
 
-LLM_BACKBONES: Dict[str, Qwen2Config] = {
+LLM_BACKBONES: Dict[str, Union[Qwen2Config, PhiConfig]] = {
     "qwen25-0_5b-extra": Qwen2Config(),  # +256 action tokens, vocab padded
     "qwen25-0_5b-pure": Qwen2Config(),
     "qwen25-1_5b-pure": Qwen2Config(
@@ -139,12 +141,25 @@ LLM_BACKBONES: Dict[str, Qwen2Config] = {
     "vicuna-v15-13b": _LLAMA2_13B,
     "mistral-v0.1-7b-pure": _MISTRAL_7B,
     "mistral-v0.1-7b-instruct": _MISTRAL_7B,
+    "phi-2-3b": PhiConfig(),
 }
 
-# ids the JAX package serves with a model the port does not have yet
-NOT_PORTED_LLMS: Dict[str, str] = {
-    "phi-2-3b": "Phi-2 (parallel attention and MLP, partial rotary) has no "
-                "model in the port yet",
+# the prompt-builder family of each LLM id (data/prompting.py)
+LLM_PROMPT_FAMILY: Dict[str, str] = {
+    "qwen25-0_5b-extra": "qwen",
+    "qwen25-0_5b-pure": "qwen",
+    "qwen25-1_5b-pure": "qwen",
+    "qwen25-3b-pure": "qwen",
+    "qwen25-7b-pure": "qwen",
+    "llama2-7b-pure": "pure",
+    "llama2-13b-pure": "pure",
+    "llama2-7b-chat": "llama2-chat",
+    "llama2-13b-chat": "llama2-chat",
+    "vicuna-v15-7b": "vicuna",
+    "vicuna-v15-13b": "vicuna",
+    "mistral-v0.1-7b-pure": "pure",
+    "mistral-v0.1-7b-instruct": "mistral-instruct",
+    "phi-2-3b": "phi",
 }
 
 
@@ -155,9 +170,7 @@ def get_vision_backbone(backbone_id: str) -> FusedVisionConfig:
     return VISION_BACKBONES[backbone_id]
 
 
-def get_llm_backbone(backbone_id: str) -> Qwen2Config:
-    if backbone_id in NOT_PORTED_LLMS:
-        raise NotImplementedError(NOT_PORTED_LLMS[backbone_id])
+def get_llm_backbone(backbone_id: str) -> Union[Qwen2Config, PhiConfig]:
     if backbone_id not in LLM_BACKBONES:
         raise KeyError(f"unknown LLM backbone {backbone_id!r}; "
                        f"known: {sorted(LLM_BACKBONES)}")

@@ -23,6 +23,14 @@ the caller's ``generator`` (outside any recomputed region, so a
 recompute cannot draw it again). Under ``rt.train_base_int8`` the head and
 the proprio projector are built with a float Runtime: they are trained
 whole, with exact gradients.
+
+The language model comes from ``models/llm.py`` (Qwen2 or Phi).
+``compute_logits`` adds the text region's logits in text coordinates (text
+position 0 takes the last patch's, so that the shifted CE predicts the
+first post-image token from an image-aware position); with
+``compute_actions=False`` (the token objective) the hidden-state stack and
+the head are skipped, and a tied LLM computes the logits over the text
+positions only (``lm_head(last_hidden_state[:, num_patches:])``).
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ from vla_adapter_torch.models.projector import (
     Projector,
     ProprioProjector,
 )
-from vla_adapter_torch.models.qwen2 import Qwen2Model
+from vla_adapter_torch.models.llm import llm_model_class
 from vla_adapter_torch.models.vit import VisionTransformer
 
 
@@ -95,8 +103,10 @@ class VLAModel(nn.Module):
       proprio      (B, proprio_dim) float or None
     train: add the head's training noise (:func:`head_noise`, drawn from
     ``generator``).
-    Returns {"actions": (B, chunk, action_dim) normalized} and, with
-    return_hidden_states, the head input (B, L+1, num_patches + Q, D).
+    Returns {"actions": (B, chunk, action_dim) normalized} (unless
+    ``compute_actions=False``) and, with return_hidden_states, the head
+    input (B, L+1, num_patches + Q, D); with ``compute_logits``, "logits"
+    (B, T, V) in text coordinates, in rt.dtype.
     """
 
     def __init__(self, cfg: VLAConfig, rt: Runtime = Runtime(), device=None):
@@ -104,7 +114,7 @@ class VLAModel(nn.Module):
         self.cfg, self.rt = cfg, rt
         consts = cfg.constants
         d = cfg.llm.hidden_size
-        self.language_model = Qwen2Model(cfg.llm, rt, device)
+        self.language_model = llm_model_class(cfg.llm)(cfg.llm, rt, device)
         self.action_queries = new_param(
             (consts.num_action_query_tokens, d), rt, device)
         self.vision_backbone = FusedVisionBackbone(cfg, rt, device)
@@ -135,6 +145,8 @@ class VLAModel(nn.Module):
         return_hidden_states: bool = False,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        compute_logits: bool = False,
+        compute_actions: bool = True,
     ) -> Dict[str, torch.Tensor]:
         cfg, dt = self.cfg, self.rt.dtype
         num_q = cfg.num_action_query_tokens
@@ -170,9 +182,29 @@ class VLAModel(nn.Module):
              torch.ones((b, num_patches), dtype=torch.int32, device=dev),
              text_valid[:, 1:]], dim=1)
 
-        hs = llm(mm_embeds, valid=mm_valid,
-                 causal=not cfg.bidirectional_attention,
-                 output_hidden_states=True)["hidden_states"]
+        tied = getattr(cfg.llm, "tie_word_embeddings", False)
+        fast_logits = compute_logits and not compute_actions and tied
+        llm_out = llm(mm_embeds, valid=mm_valid,
+                      causal=not cfg.bidirectional_attention,
+                      output_hidden_states=compute_actions,
+                      compute_logits=compute_logits and not fast_logits)
+        out = {}
+        if compute_actions:
+            out.update(self._actions(llm_out["hidden_states"], prompt_len,
+                                     proprio, return_hidden_states, train,
+                                     generator))
+        if compute_logits:
+            out["logits"] = (
+                llm.lm_head(llm_out["last_hidden_state"][:, num_patches:])
+                if fast_logits else llm_out["logits"][:, num_patches:])
+        return out
+
+    def _actions(self, hs, prompt_len, proprio, return_hidden_states, train,
+                 generator):
+        """The head over the hidden-state stack hs (B, L+1, S_mm, D)."""
+        cfg = self.cfg
+        num_q, num_patches = cfg.num_action_query_tokens, cfg.num_patches
+        dev = hs.device
 
         # --- extraction (note the deliberate off-by-one) ---
         task_states = hs[:, :, :num_patches]

@@ -11,17 +11,26 @@ Two layouts, never mixed:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
 def rope_cos_sin(seq_len: int, head_dim: int, theta: float,
-                 dtype: torch.dtype = torch.float32, device=None):
-    """(cos, sin) of shape (seq_len, head_dim) for positions 0..seq_len-1;
-    frequencies in fp32, cast at the end."""
+                 dtype: torch.dtype = torch.float32, device=None,
+                 positions: Optional[torch.Tensor] = None):
+    """(cos, sin) of shape (seq_len, head_dim) for positions 0..seq_len-1,
+    or for ``positions`` (S,) where given (a cached decode step's, on the
+    device); frequencies in fp32, cast at the end."""
+    if positions is not None:
+        device = positions.device
     inv_freq = 1.0 / (theta ** (
         torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
         / head_dim))
-    positions = torch.arange(seq_len, dtype=torch.float32, device=device)
+    if positions is None:
+        positions = torch.arange(seq_len, dtype=torch.float32, device=device)
+    else:
+        positions = positions.to(torch.float32)
     freqs = positions[:, None] * inv_freq[None, :]      # (S, head_dim/2)
     emb = torch.cat([freqs, freqs], dim=-1)              # (S, head_dim)
     return emb.cos().to(dtype), emb.sin().to(dtype)

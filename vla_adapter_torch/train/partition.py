@@ -53,13 +53,19 @@ def split_trainable(state: Dict[str, torch.Tensor], lora_enabled: bool):
     return split_tree(state, lambda p: is_trainable_path(p, lora_enabled))
 
 
-def mark_trainable_(model: nn.Module, lora_enabled: bool) -> List[str]:
-    """Set ``requires_grad`` on the model's parameters by the rule and
-    return the trainable names, in the model's order."""
+def mark_by_(model: nn.Module, pred: Callable[[Tuple[str, ...]], bool]
+             ) -> List[str]:
+    """Set ``requires_grad`` on the model's parameters by ``pred`` on each
+    name's path and return the trainable names, in the model's order."""
     names = []
     for name, param in model.named_parameters():
-        train = is_trainable_path(tuple(name.split(".")), lora_enabled)
+        train = pred(tuple(name.split(".")))
         param.requires_grad_(train)
         if train:
             names.append(name)
     return names
+
+
+def mark_trainable_(model: nn.Module, lora_enabled: bool) -> List[str]:
+    """:func:`mark_by_` with the reference recipe's rule."""
+    return mark_by_(model, lambda p: is_trainable_path(p, lora_enabled))

@@ -3,9 +3,10 @@
 One step: the forward (vision, LLM, head), the L1 loss, the gradients of
 the trainable tensors only (``torch.autograd.grad``: the frozen base gets
 none), gradient accumulation over micro-batches in ``accum_dtype``, and
-the optimizer update. The token objective (``token_prediction_loss``)
-needs the LLM's logits, which the port does not compute yet
-(``ROADMAP.md`` A.6).
+the optimizer update. Two objectives: "l1" (the head's actions against
+the batch's ``actions``) and "token" (:func:`token_prediction_loss`, the
+shifted CE of the LLM's text logits against the batch's ``labels``; the
+forward skips the hidden-state stack and the head).
 
 The head's training noise of each micro-batch comes from its own
 ``torch.Generator``, seeded from (seed + 1, step, micro-batch) by
@@ -23,7 +24,10 @@ import numpy as np
 import torch
 
 from vla_adapter_torch.core.config import TrainConfig
+from vla_adapter_torch.core.constants import ACTION_TOKEN_BEGIN_IDX, IGNORE_INDEX
+from vla_adapter_torch.data.action_tokenizer import detokenize_bin_ids
 from vla_adapter_torch.models.vla import VLAModel
+from vla_adapter_torch.models.vlm import shifted_nll
 from vla_adapter_torch.train.optim import AdamW, apply_updates, global_norm
 from vla_adapter_torch.train.partition import mark_trainable_
 
@@ -86,17 +90,70 @@ def l1_action_loss(pred: torch.Tensor, gt: torch.Tensor):
     return loss, metrics
 
 
-def make_loss_fn(model: VLAModel, objective: str = "l1", train: bool = True):
+def token_prediction_loss(logits: torch.Tensor, labels: torch.Tensor,
+                          valid: torch.Tensor, action_tokenizer_len: int,
+                          action_dim: int):
+    """The discrete-token CE objective and its metrics (the reference's
+    non-L1 branch): logits (B, T, V) in text coordinates, cast to fp32;
+    labels (B, T) with IGNORE_INDEX outside the action region; logits at t
+    predict labels at t + 1. Accuracy and the L1 of the detokenized
+    actions over the current action (the first ``action_dim`` supervised
+    action tokens) and the next ones, with per-sample rows."""
+    nll, mask, targets = shifted_nll(logits, labels, valid)
+    loss = (nll * mask).sum() / mask.sum().clamp(min=1)
+
+    # the fp32 cast is exact: the argmax of the logits as they are
+    preds = torch.argmax(logits[:, :-1], dim=-1)
+    csum = torch.cumsum((targets != IGNORE_INDEX).to(torch.int32), dim=1)
+    is_action = targets > ACTION_TOKEN_BEGIN_IDX
+    curr_mask = (csum >= 1) & (csum <= action_dim) & is_action
+    next_mask = (csum > action_dim) & is_action
+    hit = preds == targets
+
+    def acc(m):
+        return (hit & m).sum() / m.sum().clamp(min=1)
+
+    dist = (detokenize_bin_ids(preds, action_tokenizer_len)
+            - detokenize_bin_ids(targets, action_tokenizer_len)).abs()
+
+    def l1(m):
+        return (dist * m).sum() / m.sum().clamp(min=1)
+
+    metrics = {
+        "loss": loss,
+        "curr_action_accuracy": acc(curr_mask),
+        "next_actions_accuracy": acc(next_mask),
+        "curr_action_l1_loss": l1(curr_mask),
+        "next_actions_l1_loss": l1(next_mask),
+        "per_sample": {
+            "loss": (nll * mask).sum(dim=1) / mask.sum(dim=1).clamp(min=1),
+            "curr_action_accuracy": ((hit & curr_mask).sum(dim=1)
+                                     / curr_mask.sum(dim=1).clamp(min=1)),
+        },
+    }
+    return loss, metrics
+
+
+OBJECTIVES = ("l1", "token")
+
+
+def make_loss_fn(model: VLAModel, objective: str = "l1",
+                 action_tokenizer_len: int = 151921, train: bool = True):
     """batch (tensors on the model's device), generator -> (loss,
     metrics). ``train=False`` (validation): no head noise."""
-    if objective != "l1":
-        raise NotImplementedError(
-            f"objective {objective!r}: the token objective needs the LLM's "
-            "logits, not ported yet (ROADMAP.md A.6)")
+    if objective not in OBJECTIVES:
+        raise ValueError(f"objective {objective!r}: expected one of "
+                         f"{OBJECTIVES}")
+    token = objective == "token"
 
     def loss_fn(batch, generator):
         out = model(**{k: batch[k] for k in MODEL_INPUTS if k in batch},
-                    train=train, generator=generator)
+                    train=train, generator=generator, compute_logits=token,
+                    compute_actions=not token)
+        if token:
+            return token_prediction_loss(
+                out["logits"], batch["labels"], batch["text_valid"],
+                action_tokenizer_len, model.cfg.constants.action_dim)
         return l1_action_loss(out["actions"], batch["actions"])
 
     return loss_fn

@@ -2,7 +2,8 @@
 vla_adapter_tpu/weights/convert.py, with no Flax tree in between).
 
 Three source layouts:
-  * HF ``Qwen2ForCausalLM`` state dicts (the language model);
+  * HF ``Qwen2ForCausalLM`` and ``PhiForCausalLM`` state dicts (the
+    language model);
   * timm ViT state dicts (the DINOv2 / SigLIP towers);
   * the reference's exported OpenVLA checkpoint: the HF layout after the
     rename map of the reference's finetune.py (dino_featurizer ->
@@ -25,7 +26,12 @@ from typing import Dict, Mapping, Sequence
 
 import torch
 
-from vla_adapter_torch.core.config import Qwen2Config, ViTConfig, VLAConfig
+from vla_adapter_torch.core.config import (
+    PhiConfig,
+    Qwen2Config,
+    ViTConfig,
+    VLAConfig,
+)
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -55,6 +61,35 @@ def qwen2_state_from_hf(sd: Mapping[str, torch.Tensor], cfg: Qwen2Config,
         for name in names:
             out[f"layers.{i}.{name}"] = sd[f"{prefix}layers.{i}.{name}"]
     return out
+
+
+def phi_state_from_hf(sd: Mapping[str, torch.Tensor], cfg: PhiConfig,
+                      prefix: str = "model.") -> StateDict:
+    """HF PhiForCausalLM -> ``PhiModel`` names: LayerNorms with biases, the
+    attention's q/k/v/dense and the MLP's fc1/fc2 with biases, the untied
+    ``lm_head`` (stored without ``prefix``, as HF does) with its bias."""
+    out = {"embed.weight": sd[prefix + "embed_tokens.weight"]}
+    renames = [("input_layernorm", "input_layernorm"),
+               ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")]
+    renames += [(f"self_attn.{n}", f"self_attn.{n}")
+                for n in ("q_proj", "k_proj", "v_proj", "dense")]
+    for i in range(cfg.num_layers):
+        for src, dst in renames:
+            for kind in ("weight", "bias"):
+                out[f"layers.{i}.{dst}.{kind}"] = \
+                    sd[f"{prefix}layers.{i}.{src}.{kind}"]
+    for kind in ("weight", "bias"):
+        out[f"final_layernorm.{kind}"] = sd[f"{prefix}final_layernorm.{kind}"]
+        out[f"lm_head.{kind}"] = sd[f"lm_head.{kind}"]
+    return out
+
+
+def llm_state_from_hf(sd: Mapping[str, torch.Tensor], cfg,
+                      prefix: str = "model.") -> StateDict:
+    """The converter of the LLM family of ``cfg``."""
+    if isinstance(cfg, PhiConfig):
+        return phi_state_from_hf(sd, cfg, prefix)
+    return qwen2_state_from_hf(sd, cfg, prefix)
 
 
 def vit_state_from_timm(sd: Mapping[str, torch.Tensor], cfg: ViTConfig,
@@ -119,7 +154,7 @@ def vla_state_from_hf(sd: Mapping[str, torch.Tensor],
     names. The action head and the proprio projector come from their own
     files (:func:`action_head_state_from_torch`,
     :func:`mlp_projector_state_from_torch`)."""
-    out = _with_prefix("language_model.", qwen2_state_from_hf(
+    out = _with_prefix("language_model.", llm_state_from_hf(
         sd, cfg.llm, prefix="language_model.model."))
     out["action_queries"] = sd["action_queries.weight"]
     out.update(_with_prefix("vision_backbone.featurizer.", vit_state_from_timm(

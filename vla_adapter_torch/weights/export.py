@@ -21,6 +21,7 @@ from typing import Dict, Mapping, Optional
 import torch
 
 from vla_adapter_torch.core.config import (
+    PhiConfig,
     Qwen2Config,
     ViTConfig,
     VLAConfig,
@@ -165,10 +166,21 @@ def write_config_json(cfg: VLAConfig, out_dir,
     block (the JAX package's key, so that either package reads the
     other's exports)."""
     llm = cfg.llm
-    doc = {
-        "model_type": "openvla",
-        "n_action_bins": cfg.n_action_bins,
-        "text_config": {
+    if isinstance(llm, PhiConfig):
+        text_config = {
+            "model_type": "phi",
+            "vocab_size": llm.vocab_size,
+            "hidden_size": llm.hidden_size,
+            "num_hidden_layers": llm.num_layers,
+            "num_attention_heads": llm.num_heads,
+            "intermediate_size": llm.intermediate_size,
+            "layer_norm_eps": llm.layer_norm_eps,
+            "partial_rotary_factor": llm.partial_rotary_factor,
+            "rope_theta": llm.rope_theta,
+            "tie_word_embeddings": False,
+        }
+    else:
+        text_config = {
             "model_type": "qwen2",
             "vocab_size": llm.vocab_size,
             "hidden_size": llm.hidden_size,
@@ -180,7 +192,11 @@ def write_config_json(cfg: VLAConfig, out_dir,
             "rope_theta": llm.rope_theta,
             "head_dim": llm.head_dim,
             "tie_word_embeddings": llm.tie_word_embeddings,
-        },
+        }
+    doc = {
+        "model_type": "openvla",
+        "n_action_bins": cfg.n_action_bins,
+        "text_config": text_config,
         "vla_adapter_tpu": vla_config_to_dict(cfg),
     }
     if norm_stats is not None:

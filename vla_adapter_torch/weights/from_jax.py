@@ -2,8 +2,11 @@
 
 ``from_jax_params(params, cfg)`` takes the tree as nested dicts of numpy
 arrays (``jax.device_get`` of the Flax params) and returns a state_dict for
-``models.vla.VLAModel``. The port's module names mirror the Flax names, so
-the mapping is by rule:
+the port's module of the same tree: ``models.vla.VLAModel`` or
+``models.vlm.PrismaticVLM`` (``cfg`` a VLAConfig; a Qwen2 or Phi language
+model), or a bare ``Qwen2Model`` / ``PhiModel`` (``cfg`` its LLM config).
+The port's module names mirror the Flax names, so the mapping is by
+rule:
 
 * scanned stacks carry a leading layer axis — ``layers/layer/...`` and
   ``blocks/block/...`` become ``layers.<i>.`` / ``blocks.<i>.``;
@@ -34,7 +37,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from vla_adapter_torch.core.config import VLAConfig
+from vla_adapter_torch.core.config import PhiConfig, Qwen2Config
 
 _SCANNED = {"layers": "layer", "blocks": "block"}
 
@@ -78,17 +81,26 @@ def _scan_axis(path: tuple):
     return None
 
 
-def from_jax_params(params: Mapping[str, Any],
-                    cfg: VLAConfig) -> Dict[str, torch.Tensor]:
-    """Flax VLAModel params -> VLAModel state_dict: fp32 tensors, and int8
-    ``weight_q`` with fp32 ``weight_scale`` from a quantized tree.
-
-    ``cfg`` is checked against the tree's layer counts."""
+def _layer_counts(cfg) -> dict:
+    """Layers of each scanned stack's owner; None: a bare LLM's stack."""
+    if isinstance(cfg, (Qwen2Config, PhiConfig)):
+        return {None: cfg.num_layers}
     counts = {"language_model": cfg.llm.num_layers,
               "featurizer": cfg.vision.primary.resolved_feature_layer + 1,
               "action_head": cfg.head.num_blocks}
     if cfg.vision.fused is not None:
         counts["fused_featurizer"] = cfg.vision.fused.resolved_feature_layer + 1
+    return counts
+
+
+def from_jax_params(params: Mapping[str, Any],
+                    cfg) -> Dict[str, torch.Tensor]:
+    """Flax params -> the port's state_dict: fp32 tensors, and int8
+    ``weight_q`` with fp32 ``weight_scale`` from a quantized tree.
+
+    ``cfg`` (a VLAConfig, or the LLM config of a bare decoder tree) is
+    checked against the tree's layer counts."""
+    counts = _layer_counts(cfg)
     state = {}
 
     def put(key_parts, name, arr):
@@ -101,7 +113,7 @@ def from_jax_params(params: Mapping[str, Any],
         if i is None:
             put(path[:-1], path[-1], arr)
             continue
-        owner = next(p for p in reversed(path[:i]) if p in counts)
+        owner = next((p for p in reversed(path[:i]) if p in counts), None)
         if arr.shape[0] != counts[owner]:
             raise ValueError(f"{'/'.join(path)}: {arr.shape[0]} layers, "
                              f"config says {counts[owner]}")
@@ -124,7 +136,7 @@ def _adam_state(node):
     return None
 
 
-def from_jax_opt_state(opt_state, cfg: VLAConfig,
+def from_jax_opt_state(opt_state, cfg,
                        moments_dtype: Optional[torch.dtype] = None) -> dict:
     """An optax Adam state -> {"count": int64 scalar, "mu": {name: tensor},
     "nu": {...}}, the moments in ``moments_dtype`` (default: float32)."""

@@ -25,6 +25,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from vla_adapter_torch.core.config import (
+    PhiConfig,
     Qwen2Config,
     VLAConfig,
     vla_config_from_dict,
@@ -85,6 +86,22 @@ def load_hf_backbone_state_dict(ckpt_dir) -> StateDict:
     return sd
 
 
+def phi_config_from_text_config(tc: Dict) -> PhiConfig:
+    """A Phi ``text_config`` (HF's names, as ``weights/export.py`` writes
+    them) -> :class:`PhiConfig`."""
+    return PhiConfig(
+        vocab_size=tc["vocab_size"],
+        hidden_size=tc["hidden_size"],
+        num_layers=tc["num_hidden_layers"],
+        num_heads=tc["num_attention_heads"],
+        intermediate_size=tc["intermediate_size"],
+        head_dim=tc["hidden_size"] // tc["num_attention_heads"],
+        partial_rotary_factor=tc["partial_rotary_factor"],
+        rope_theta=tc["rope_theta"],
+        layer_norm_eps=tc["layer_norm_eps"],
+    )
+
+
 def vla_config_from_checkpoint(ckpt_dir) -> VLAConfig:
     """The VLAConfig of a checkpoint: the lossless ``vla_adapter_tpu``
     block of config.json where either package's exporter wrote one, else
@@ -94,7 +111,9 @@ def vla_config_from_checkpoint(ckpt_dir) -> VLAConfig:
         return vla_config_from_dict(doc["vla_adapter_tpu"])
     tc = doc["text_config"]
     if tc.get("model_type") == "phi":
-        raise NotImplementedError("a Phi language model is not ported yet")
+        return VLAConfig(vision=get_vision_backbone(doc["vision_backbone_id"]),
+                         llm=phi_config_from_text_config(tc),
+                         n_action_bins=doc.get("n_action_bins", 256))
     llm = Qwen2Config(
         vocab_size=tc["vocab_size"],
         hidden_size=tc["hidden_size"],
