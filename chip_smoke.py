@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--out FILE] [--profile]
+    python3 chip_smoke.py [--out FILE] [--profile] [--only 12,...,16]
 
 Phases, in order; any failure exits non-zero:
 
@@ -151,8 +151,36 @@ Phases, in order; any failure exits non-zero:
    B=1 in bf16 and w8a8 ("auto"), launches per step as
    :func:`llm_pass_launches` derives them, kernel vs plain teacher-forced.
 
-``--only 12,13,14,15`` runs the build and any of phases 12-15 alone (no
-kernels or ok line).
+16. the model zoo at 7B (:func:`phase_zoo`, after the flagship's models
+   are freed): first B1 at D = 128 (Llama-2 MHA 32/32 and Mistral GQA
+   32/8, causal, B=1 and 4, at each model's multimodal prompt and at the
+   generation's prefill), at the 384-px towers (DINOv2 S = 734, so400m
+   S = 729) and CLIP-L/14 @ 336 (S = 577); B1-bwd at Mistral's
+   pretraining shape (batch 8, causal); B2 at Llama-2 7B, Mistral 7B and
+   Llama-2 13B at a prefill's rows and M = 1, 2, 4 (the "streamed"
+   branch, bit for bit with plain; each plan's branch printed); B3 at
+   CLIP-L's and so400m@384's MLPs and both projectors; B4 at 4096^2 and
+   at the lm_head's widths 4096 -> 32000 (bit for bit). Then
+   ``prism-dinosiglip+7b`` (Llama-2 7B under the fused 384-px towers,
+   resize-naive; 6.61 B LLM parameters, seeded bf16): teacher-forced
+   multimodal logits of images through the entry's ``ImageProcessor`` and
+   prompts of 64-127 ids through its prompt builder, kernel vs plain, and
+   its w8a8 "fused" twin (quantized on the card) against plain and against
+   bf16 (:data:`ZOO_W8A8_VS_BF16_SHARE`); ``greedy_generate_cached`` of 32
+   tokens at B=1 and 4 in bf16 and w8a8 as phase 12 checks it
+   (:func:`generate_run`), ms per token against the step's bound. Then
+   ``mistral-instruct-v0.1+7b`` (CLIP-L @ 336 with letterbox, the gelu-mlp
+   projector, Mistral 7B): letterboxed non-square images through its
+   logits, kernel vs plain; ``pretrain`` in "align" (fp32 weights) at
+   batch 8 for 3 steps under each remat policy over the towers and the LLM
+   and without remat: s/step (``utils.profiling.StepTimer``), peak memory,
+   B1 and B1-bwd launches per step against
+   :func:`expected_remat_pretrain_launches`, and every run's losses and
+   trained projector equal bit for bit. Every figure is printed with the
+   card's name and power limit, and the phase's seconds.
+
+``--only 12,13,14,15,16`` runs the build and any of phases 12-16 alone (no
+kernels or ok line; phase 16 alone builds no flagship).
 
 Phases 9 and 10 took 100 s on an NVIDIA H100 80GB HBM3 at 700 W beside
 110 s for phases 1-8 (their per-phase seconds are printed; phase 9's
@@ -173,8 +201,10 @@ flagship path, B1-bwd's on the train path, and ``launches_by_path`` for
 every path), and as its last
 line
 ``{"ok": true, "device": {...}}``. ``launches_by_path`` also covers the
-paths of phases 12-15: "generate", "generate_w8a8", "actions",
-"token_train", "pretrain" and "phi". Exits non-zero without CUDA, and when
+paths of phases 12-16: "generate", "generate_w8a8", "actions",
+"token_train", "pretrain", "phi", "zoo_logits", "zoo_generate",
+"zoo_generate_w8a8" and "zoo_pretrain"; each entry's ``zoo_7b`` lists its
+phase-16 call sites (per call: ms, plain, bound, library). Exits non-zero without CUDA, and when
 the ``vla_adapter_torch`` package beside this script is missing.
 """
 
@@ -3084,7 +3114,7 @@ DECODE_PROFILE_GROUPS = (
 )
 
 
-def profile_decode(model, buf, steps: int = 8) -> dict:
+def profile_decode(model, buf, prompt: int, steps: int = 8) -> dict:
     """``steps`` cached decode steps from one prefill under torch.profiler,
     eagerly and as graph replays: per step, the host wall ms, the device's
     busy ms (the sum of its kernels' durations), the kernels launched, the
@@ -3108,7 +3138,7 @@ def profile_decode(model, buf, steps: int = 8) -> dict:
     out = {}
     for mode in ("eager", "graph"):
         with torch.inference_mode():
-            state = prefill_state(model, buf, GEN_PROMPT)
+            state = prefill_state(model, buf, prompt)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -3139,9 +3169,19 @@ def profile_decode(model, buf, steps: int = 8) -> dict:
     return out
 
 
-def phase_generate(predictor, card: str) -> tuple:
-    """Phase 12: generation on the flagship's Qwen2.5-0.5B (module
-    docstring). Returns (record, launches by path, kernel records)."""
+def generate_run(model, plain, buf, prompt: int, new: int, atol: float,
+                 what: str) -> tuple:
+    """One batch of the generation path (phase 12, and phase 16 at 7B):
+    ``greedy_generate_cached`` of ``new`` tokens after ``prompt`` ids of
+    ``buf`` through the captured decode step, the main path, its launches
+    read around exactly that call against
+    :func:`expected_generate_launches`; the same call eagerly (the same
+    tokens), and ``new`` graphed steps against as many eager steps from one
+    prefill (every state tensor bit for bit); kernel vs plain and cached vs
+    uncached logits, teacher-forced on the generated tokens, within
+    ``atol`` (:func:`check_logits`); prefill and per-token ms against the
+    step's bound, and a profiled window of steps. Returns (record,
+    launches)."""
     import torch
 
     from vla_adapter_torch.infer.graph import decode_graphs
@@ -3153,6 +3193,105 @@ def phase_generate(predictor, card: str) -> tuple:
     )
     from vla_adapter_torch.models.qwen2 import Qwen2Decode
     from vla_adapter_torch.ops import cuda_lib
+
+    b, total = buf.shape
+    dev = buf.device
+    what = f"{what} B={b}"
+    run = {"batch": b}
+    greedy_generate_cached(model, buf, prompt, new)  # capture
+    torch.cuda.synchronize()
+    # --- the main path: launches counted around exactly this call ---
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    out = greedy_generate_cached(model, buf, prompt, new)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    want = expected_generate_launches(model, new)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, derived {want}")
+    # --- eager, and the graphed step against the eager step ---
+    t0 = time.perf_counter()
+    out_eager = greedy_generate_cached(model, buf, prompt, new,
+                                       cuda_graph=False)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    if not torch.equal(out, out_eager):
+        raise AssertionError(f"{what}: graphed and eager tokens differ")
+    # the steps alone from one prefill, timed on the host clock (each ends
+    # in a sync): eager, then as graph replays (3 rounds)
+    step = decode_step_fn(Qwen2Decode(model), None, 0.0)
+    graphs = decode_graphs(model, dev)
+    key = decode_key(model, b, total, None, 0.0)
+    steps_ms = {"eager": [], "graph": []}
+    with torch.inference_mode():
+        state = prefill_state(model, buf, prompt)
+        ends = {}
+        for mode in ("eager", "graph", "graph", "graph"):
+            s = {k: v.clone() for k, v in state.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "eager":
+                for _ in range(new):
+                    step(s)
+            else:
+                graphs(key, step, s, new)
+            torch.cuda.synchronize()
+            steps_ms[mode].append(1e3 * (time.perf_counter() - t0))
+            ends[mode] = s
+    per_step = llm_pass_launches(model, attention=False)
+    if graphs.captures[key].launches != per_step:
+        raise AssertionError(f"{what}: a decode step launches "
+                             f"{graphs.captures[key].launches}, derived "
+                             f"{per_step}")
+    differ = [k for k in state
+              if not torch.equal(ends["eager"][k], ends["graph"][k])]
+    if differ:
+        raise AssertionError(f"{what}: the graphed steps differ from eager "
+                             f"in {differ}")
+
+    def prefill():
+        with torch.inference_mode():
+            prefill_state(model, buf, prompt)
+
+    prefill_ms = eager_ms(prefill, reps=5, rounds=3)
+    # --- kernel vs plain, and cached vs uncached, teacher-forced ---
+    tokens = out[:, prompt:]
+    lk = teacher_forced_logits(model, out, prompt, new)
+    if not torch.equal(lk.argmax(-1), tokens):
+        raise AssertionError(f"{what}: the teacher-forced logits do not give "
+                             "the generated tokens")
+    lp = teacher_forced_logits(plain, out, prompt, new)
+    run["kernel_vs_plain"] = check_logits(lk, lp, tokens, atol,
+                                          f"{what} kernel vs plain")
+    with torch.inference_mode():
+        lu = model(input_ids=out[:, :total - 1],
+                   valid=torch.ones((b, total - 1), dtype=torch.int32,
+                                    device=dev),
+                   causal=True, compute_logits=True)["logits"][
+                       :, prompt - 1:]
+    run["cached_vs_uncached"] = check_logits(lk, lu, tokens, atol,
+                                             f"{what} cached vs uncached")
+    bound, bound_by = decode_step_bound(model, b, total)
+    run["profile"] = profile_decode(model, buf, prompt)
+    run.update(
+        launches=launches, prefill_ms=prefill_ms,
+        graph_call_ms=1e3 * graph_s, eager_call_ms=1e3 * eager_s,
+        steps_ms=steps_ms, token_ms_graphed=min(steps_ms["graph"]) / new,
+        token_ms_eager=steps_ms["eager"][0] / new,
+        tokens_per_s_graphed=b * new / graph_s,
+        tokens_per_s_eager=b * new / eager_s,
+        step_bound_ms=bound, step_bound_by=bound_by,
+        graph=graphs.captures[key].launches)
+    return run, launches
+
+
+def phase_generate(predictor, card: str) -> tuple:
+    """Phase 12: generation on the flagship's Qwen2.5-0.5B (module
+    docstring). Returns (record, launches by path, kernel records)."""
+    import torch
+
+    from vla_adapter_torch.models.generate import greedy_generate_cached
 
     cfg, dev = predictor.cfg, predictor.device
     llm = cfg.llm
@@ -3187,102 +3326,12 @@ def phase_generate(predictor, card: str) -> tuple:
             buf = np.zeros((b, total), np.int64)
             buf[:, :GEN_PROMPT] = rng.integers(0, 151643, (b, GEN_PROMPT))
             buf = torch.from_numpy(buf).to(dev)
-            run = {"backend": backend, "batch": b}
-            greedy_generate_cached(model, buf, GEN_PROMPT, GEN_NEW)  # capture
-            torch.cuda.synchronize()
-            # --- the main path: launches counted around exactly this call ---
-            cuda_lib.reset_launches()
-            t0 = time.perf_counter()
-            out = greedy_generate_cached(model, buf, GEN_PROMPT, GEN_NEW)
-            torch.cuda.synchronize()
-            graph_s = time.perf_counter() - t0
-            launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
-            want = expected_generate_launches(model, GEN_NEW)
-            if launches != want:
-                raise AssertionError(f"generate {backend} B={b}: launches "
-                                     f"{launches}, derived {want}")
+            run, launches = generate_run(model, plain, buf, GEN_PROMPT,
+                                         GEN_NEW, atol, f"generate {backend}")
+            run = {"backend": backend, **run}
             paths[path].update(launches)
-            # --- eager, and the graphed step against the eager step ---
-            t0 = time.perf_counter()
-            out_eager = greedy_generate_cached(model, buf, GEN_PROMPT,
-                                               GEN_NEW, cuda_graph=False)
-            torch.cuda.synchronize()
-            eager_s = time.perf_counter() - t0
-            if not torch.equal(out, out_eager):
-                raise AssertionError(f"generate {backend} B={b}: graphed "
-                                     "and eager tokens differ")
-            # the 64 steps alone from one prefill, timed on the host clock
-            # (each ends in a sync): eager, then as graph replays (3 rounds)
-            step = decode_step_fn(Qwen2Decode(model), None, 0.0)
-            graphs = decode_graphs(model, dev)
-            key = decode_key(model, b, total, None, 0.0)
-            steps_ms = {"eager": [], "graph": []}
-            with torch.inference_mode():
-                state = prefill_state(model, buf, GEN_PROMPT)
-                ends = {}
-                for mode in ("eager", "graph", "graph", "graph"):
-                    s = {k: v.clone() for k, v in state.items()}
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    if mode == "eager":
-                        for _ in range(GEN_NEW):
-                            step(s)
-                    else:
-                        graphs(key, step, s, GEN_NEW)
-                    torch.cuda.synchronize()
-                    steps_ms[mode].append(1e3 * (time.perf_counter() - t0))
-                    ends[mode] = s
-            per_step = llm_pass_launches(model, attention=False)
-            if graphs.captures[key].launches != per_step:
-                raise AssertionError(
-                    f"generate {backend} B={b}: a decode step launches "
-                    f"{graphs.captures[key].launches}, derived {per_step}")
-            differ = [k for k in state
-                      if not torch.equal(ends["eager"][k], ends["graph"][k])]
-            if differ:
-                raise AssertionError(f"generate {backend} B={b}: the graphed"
-                                     f" steps differ from eager in {differ}")
-
-            def prefill():
-                with torch.inference_mode():
-                    prefill_state(model, buf, GEN_PROMPT)
-
-            prefill_ms = eager_ms(prefill, reps=5, rounds=3)
-            # --- kernel vs plain, and cached vs uncached, teacher-forced ---
-            tokens = out[:, GEN_PROMPT:]
-            lk = teacher_forced_logits(model, out, GEN_PROMPT, GEN_NEW)
-            if not torch.equal(lk.argmax(-1), tokens):
-                raise AssertionError(f"generate {backend} B={b}: the "
-                                     "teacher-forced logits do not give the "
-                                     "generated tokens")
-            lp = teacher_forced_logits(plain, out, GEN_PROMPT, GEN_NEW)
-            run["kernel_vs_plain"] = check_logits(
-                lk, lp, tokens, atol, f"generate {backend} B={b} kernel vs "
-                "plain")
-            with torch.inference_mode():
-                lu = model(input_ids=out[:, :total - 1],
-                           valid=torch.ones((b, total - 1), dtype=torch.int32,
-                                            device=dev),
-                           causal=True, compute_logits=True)["logits"][
-                               :, GEN_PROMPT - 1:]
-            run["cached_vs_uncached"] = check_logits(
-                lk, lu, tokens, atol, f"generate {backend} B={b} cached vs "
-                "uncached")
-            bound, bound_by = decode_step_bound(model, b, total)
-            run["profile"] = profile_decode(model, buf)
-            run.update(
-                launches=launches, prefill_ms=prefill_ms,
-                graph_call_ms=1e3 * graph_s, eager_call_ms=1e3 * eager_s,
-                steps_ms=steps_ms,
-                token_ms_graphed=min(steps_ms["graph"]) / GEN_NEW,
-                token_ms_eager=steps_ms["eager"][0] / GEN_NEW,
-                tokens_per_s_graphed=b * GEN_NEW / graph_s,
-                tokens_per_s_eager=b * GEN_NEW / eager_s,
-                step_bound_ms=bound, step_bound_by=bound_by,
-                graph=graphs.captures[key].launches)
             print("generate " + json.dumps(run), flush=True)
             rec["runs"].append(run)
-            del lk, lp, lu
     del models
     torch.cuda.empty_cache()
     return rec, {k: dict(v) for k, v in paths.items()}, kernel_records
@@ -3739,6 +3788,578 @@ def phase_phi(card: str, seed: int) -> tuple:
     return rec, dict(launches_all), kernel_records
 
 
+# --- phase 16: the model zoo at 7B -------------------------------------------
+
+# Llama-2 7B under the fused DINOv2 + SigLIP towers at 384 px, resize-naive
+ZOO_GENERATE = "prism-dinosiglip+7b"
+# Mistral 7B (GQA 32/8) under CLIP-L/14 at 336 px, letterbox
+ZOO_PRETRAIN = "mistral-instruct-v0.1+7b"
+ZOO_13B = "llama2-13b-pure"   # B2's widest MLP, checked as a kernel only
+ZOO_TEXT = (64, 127)          # text ids per prompt, drawn in this range
+ZOO_GEN_TEXT = 96             # the cached generation's uniform prompt
+ZOO_NEW = 32                  # generated tokens per sequence
+ZOO_BATCHES = (1, 4)
+ZOO_PRETRAIN_BATCH, ZOO_PRETRAIN_STEPS = 8, 3
+# the pretrain runs: each remat policy over the towers and the LLM, then
+# no remat (last: where it does not fit, nothing runs after its failure)
+ZOO_POLICIES = ("nothing", "attn_only", "dots", "dots_no_batch",
+                "mlp_saved", None)
+# a quantized twin's logits against bf16 on the same weights: within a
+# quarter of the largest |logit| (QUANTIZED_VS_BF16_LIMIT's share of the
+# action range, applied to the logit range)
+ZOO_W8A8_VS_BF16_SHARE = 0.25
+ZOO_WORDS = ("the", "robot", "picks", "up", "a", "red", "cup", "from",
+             "table", "and", "places", "it", "in", "blue", "bowl", "near",
+             "window", "what", "is", "on", "left", "of", "image", "describe")
+
+
+def zoo_model(model_id: str):
+    """(entry, VLAConfig) of a zoo model; one image per sample (the
+    entry's image_sequence_len)."""
+    from vla_adapter_torch.models.zoo import build_vlm_config, get_zoo_entry
+
+    entry = get_zoo_entry(model_id)
+    return entry, build_vlm_config(entry, max_text_tokens=ZOO_TEXT[1] + 1)
+
+
+def zoo_prompts(entry, vocab: int, lengths, seed: int):
+    """Prompts of exactly ``lengths`` ids through the entry's prompt
+    builder (a seeded question of as many words as fill the length; the
+    mock tokenizer gives one id per word, ids below ``vocab``): ids (B, T)
+    int64 right-padded with 0 to the longest, and text_valid (B, T)."""
+    from vla_adapter_torch.data.prompting import PROMPT_BUILDERS
+    from vla_adapter_torch.data.tokenization import MockTokenizer
+    from vla_adapter_torch.models.registry import LLM_PROMPT_FAMILY
+
+    builder = PROMPT_BUILDERS[LLM_PROMPT_FAMILY[entry.llm_backbone_id]]
+    tok = MockTokenizer(max_prompt_id=vocab)
+    rng = np.random.default_rng(seed)
+
+    def ids_of(words):
+        b = builder("prismatic")
+        b.add_turn("human", "<image>\n" + " ".join(words))
+        return tok(b.get_prompt()).input_ids
+
+    base = len(ids_of(["x"])) - 1
+    rows = [ids_of(list(rng.choice(ZOO_WORDS, size=n - base)))
+            for n in lengths]
+    if [len(r) for r in rows] != list(lengths):
+        raise AssertionError(f"prompt lengths {[len(r) for r in rows]}, "
+                             f"wanted {list(lengths)}")
+    t = max(lengths)
+    ids = np.zeros((len(rows), t), np.int64)
+    valid = np.zeros((len(rows), t), np.int32)
+    for i, r in enumerate(rows):
+        ids[i, :len(r)] = r
+        valid[i, :len(r)] = 1
+    return ids, valid
+
+
+def zoo_pixels(entry, cfg, batch: int, seed: int):
+    """Seeded uint8 camera frames of other shapes than the towers' (wide,
+    tall, 4:3) through ``ImageProcessor`` with the entry's resize strategy,
+    normalized on the host: (B, 1, S, S, C) float32."""
+    from vla_adapter_torch.data.image_processing import image_processor_for
+
+    proc = dataclasses.replace(image_processor_for(cfg.vision),
+                               resize_strategy=entry.image_resize_strategy)
+    rng = np.random.default_rng(seed)
+    shapes = ((480, 640, 3), (512, 288, 3), (360, 480, 3))
+    return np.stack([proc(rng.integers(0, 256, size=shapes[i % 3],
+                                       dtype=np.uint8))
+                     for i in range(batch)])[:, None]
+
+
+def vlm_pass_launches(vlm) -> dict:
+    """Kernel launches of one multimodal forward of a PrismaticVLM, derived
+    from the model: B1 once per attention layer (towers and LLM); under the
+    fused w8a8 backend B2 once per Qwen2 MLP and B3 once per ViT MLP and
+    projector whose widths clear ``act_int8_min_dim``; B4 once per other
+    Dense that runs w8a8."""
+    from vla_adapter_torch.models.layers import Dense
+    from vla_adapter_torch.models.projector import FusedProjector, Projector
+    from vla_adapter_torch.models.qwen2 import Qwen2Attention, Qwen2MLP
+    from vla_adapter_torch.models.vit import ViTAttention, ViTMLP
+    from vla_adapter_torch.ops import fused_mlp, w8a8_matmul
+    from vla_adapter_torch.ops.attention_kernel import KERNEL_NAME
+
+    rt = vlm.rt
+    counts = collections.Counter()
+    fused = set()
+    for mod in vlm.modules():
+        if isinstance(mod, (Qwen2Attention, ViTAttention)):
+            counts[KERNEL_NAME] += 1
+        dims = (mod.dims if isinstance(mod, (Qwen2MLP, Projector,
+                                             FusedProjector))
+                else (mod.cfg.hidden_size, mod.cfg.mlp_dim)
+                if isinstance(mod, ViTMLP) else None)
+        if dims is None or not rt.fused_mlp(*dims):
+            continue
+        gated = isinstance(mod, Qwen2MLP)
+        counts[fused_mlp.GATED_KERNEL_NAME if gated
+               else fused_mlp.KERNEL_NAME] += 1
+        fused |= {id(m) for m in ((mod.gate_proj, mod.up_proj, mod.down_proj)
+                                  if gated else (mod.fc1, mod.fc2))}
+    for mod in vlm.modules():
+        if (isinstance(mod, Dense) and id(mod) not in fused
+                and getattr(mod, "weight_q", None) is not None
+                and rt.w8a8(mod.in_features, mod.features)):
+            counts[w8a8_matmul.KERNEL_NAME] += 1
+    return dict(counts)
+
+
+def zoo_vlms(cfg, seed: int, dev, w8a8: bool):
+    """A seeded bf16 PrismaticVLM of ``cfg`` on the card, its plain twin
+    over the same tensors, and (``w8a8``) its w8a8 "fused" twin quantized
+    on the card with that twin's plain twin: {"bf16": (kernel, plain),
+    "w8a8": (kernel, plain)}."""
+    import torch
+
+    from vla_adapter_torch.infer.predict import SERVING_RUNTIME
+    from vla_adapter_torch.models.layers import init_random_
+    from vla_adapter_torch.models.quantize import quantize_state_dict
+    from vla_adapter_torch.models.vlm import PrismaticVLM
+
+    rt = SERVING_RUNTIME
+    vlm = init_random_(PrismaticVLM(cfg, rt, device=dev),
+                       torch.Generator(device=dev).manual_seed(seed)).eval()
+
+    def twin(rt_, state):
+        m = PrismaticVLM(cfg, rt_, device="meta")
+        m.load_state_dict(state, strict=True, assign=True)
+        return m.eval()
+
+    plain = dict(kernels="plain")
+    out = {"bf16": (vlm, twin(dataclasses.replace(rt, **plain),
+                              vlm.state_dict()))}
+    if w8a8:
+        rt8 = dataclasses.replace(rt, weights_int8=True, act_int8=True,
+                                  w8a8_impl="fused")
+        q = quantize_state_dict(vlm.state_dict(), PrismaticVLM(
+            cfg, rt8, device="meta").state_dict(), dev)
+        out["w8a8"] = (twin(rt8, q), twin(dataclasses.replace(rt8, **plain),
+                                          q))
+    return out
+
+
+def zoo_logits(models, ids, valid, pixels, what: str) -> tuple:
+    """Each backend's teacher-forced multimodal logits, kernel path against
+    plain path at the text positions (:func:`check_logits`), launches of the
+    kernel path's forward read around exactly it against
+    :func:`vlm_pass_launches`; a w8a8 twin's logits against bf16 within
+    ZOO_W8A8_VS_BF16_SHARE of the largest |logit|. Returns (record,
+    launches)."""
+    import torch
+
+    from vla_adapter_torch.ops import cuda_lib
+
+    dev = pixels.device
+    rows = torch.from_numpy(valid).bool().to(dev)
+    args = (torch.from_numpy(ids).to(dev), torch.from_numpy(valid).to(dev),
+            pixels)
+    rec, launches, logits = {}, collections.Counter(), {}
+    for backend, (model, plain) in models.items():
+        atol = GEN_LOGITS_ATOL if backend == "bf16" else GEN_W8A8_LOGITS_ATOL
+        with torch.inference_mode():
+            model(*args)  # first use: builds, plans
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            lk = model(*args)["logits"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+            lp = plain(*args)["logits"]
+        want = vlm_pass_launches(model)
+        if got != want:
+            raise AssertionError(f"{what} {backend}: launches {got}, "
+                                 f"derived {want}")
+        launches.update(got)
+        logits[backend] = lk[rows].float()
+        rec[backend] = {
+            "launches": got, "forward_ms": 1e3 * wall,
+            "kernel_vs_plain": check_logits(
+                lk[rows], lp[rows], lk[rows].argmax(-1), atol,
+                f"{what} {backend} kernel vs plain")}
+    if "w8a8" in logits:
+        diff = float((logits["w8a8"] - logits["bf16"]).abs().max())
+        limit = ZOO_W8A8_VS_BF16_SHARE * float(logits["bf16"].abs().max())
+        agree = float((logits["w8a8"].argmax(-1)
+                       == logits["bf16"].argmax(-1)).float().mean())
+        rec["w8a8_vs_bf16"] = {"max_abs_diff": diff, "limit": limit,
+                               "top1_agreement": agree}
+        if not diff <= limit:
+            raise AssertionError(f"{what}: w8a8 vs bf16 logits {diff} > "
+                                 f"{limit}")
+    return rec, dict(launches)
+
+
+def zoo_kernel_shapes(gen_cfg, pre_cfg, llm13):
+    """The kernels at this phase's call sites: B1 shapes (the tuples of
+    :func:`phase_kernel_vs_plain`), B1-bwd's (of
+    :func:`phase_attention_bwd`) and the w8a8 ones (dicts of
+    :func:`phase_w8a8_kernels`)."""
+    from vla_adapter_torch.ops import fused_mlp, w8a8_matmul
+
+    attention, w8a8 = [], []
+    llm_rows = {}
+    for tag, cfg in (("llama2_7b", gen_cfg), ("mistral_7b", pre_cfg)):
+        llm = cfg.llm
+        s = cfg.vision.num_patches_per_image + ZOO_TEXT[1] + 1
+        llm_rows[tag] = s
+        for b in ZOO_BATCHES:
+            valid = np.ones((b, s), np.int32)
+            valid[0, s - 20:] = 0  # a shorter prompt's padding
+            attention.append((f"{tag}_causal", b, b, llm.num_heads,
+                              llm.num_kv_heads, s, llm.head_dim, valid,
+                              True, llm.num_layers))
+        for t in (cfg.vision.primary, cfg.vision.fused):
+            if t is None:
+                continue
+            attention += [(t.name, b, b, t.num_heads, t.num_heads,
+                           t.num_patches + t.num_prefix_tokens, t.head_dim,
+                           None, False, t.resolved_feature_layer + 1)
+                          for b in ZOO_BATCHES]
+    llm = gen_cfg.llm
+    attention += [("llama2_7b_prefill_causal", b, b, llm.num_heads,
+                   llm.num_kv_heads, ZOO_GEN_TEXT, llm.head_dim,
+                   np.ones((b, ZOO_GEN_TEXT), np.int32), True,
+                   llm.num_layers) for b in ZOO_BATCHES]
+    pre = pre_cfg.llm
+    s = pre_cfg.vision.num_patches_per_image + ZOO_TEXT[1] + 1
+    bwd_valid = np.ones((ZOO_PRETRAIN_BATCH, s), np.int32)
+    bwd_valid[:, s - 30:] = 0
+    bwd = [("mistral_7b_pretrain_causal", ZOO_PRETRAIN_BATCH, pre.num_heads,
+            pre.num_kv_heads, s, pre.head_dim, bwd_valid, True,
+            pre.num_layers)]
+    for tag, llm_c, rows in (("llama2_7b", gen_cfg.llm, llm_rows["llama2_7b"]),
+                             ("mistral_7b", pre, llm_rows["mistral_7b"]),
+                             ("llama2_13b", llm13, llm_rows["llama2_7b"])):
+        d, f, n = llm_c.hidden_size, llm_c.intermediate_size, llm_c.num_layers
+        for m in (rows, 1, 2, 4) + ((4 * rows,) if tag == "llama2_7b"
+                                    else ()):
+            w8a8.append({"kernel": fused_mlp.GATED_KERNEL_NAME,
+                         "shape": [f"{tag}_mlp"], "forward_batch": 1,
+                         "m": m, "k": d, "f": f, "d": d, "act": "silu",
+                         "gated": True, "launches_per_forward": n})
+    clip = pre_cfg.vision.primary
+    so400m = gen_cfg.vision.fused
+    rows_clip = clip.num_patches + clip.num_prefix_tokens
+    rows_so = so400m.num_patches + so400m.num_prefix_tokens
+    e_gen, e_pre = gen_cfg.vision.embed_dim, pre_cfg.vision.embed_dim
+    w8a8 += [
+        {"kernel": fused_mlp.KERNEL_NAME, "shape": ["clip_l_336_mlp"],
+         "forward_batch": 1, "m": rows_clip, "k": clip.hidden_size,
+         "f": clip.mlp_dim, "d": clip.hidden_size, "act": "quick_gelu",
+         "gated": False, "launches_per_forward": clip.resolved_feature_layer
+         + 1},
+        {"kernel": fused_mlp.KERNEL_NAME, "shape": ["so400m_384_mlp"],
+         "forward_batch": 1, "m": rows_so, "k": so400m.hidden_size,
+         "f": so400m.mlp_dim, "d": so400m.hidden_size, "act": "gelu_tanh",
+         "gated": False, "launches_per_forward":
+             so400m.resolved_feature_layer + 1},
+        {"kernel": fused_mlp.KERNEL_NAME, "shape": ["gelu_mlp_projector"],
+         "forward_batch": 1, "m": clip.num_patches, "k": e_pre,
+         "f": pre.hidden_size, "d": pre.hidden_size, "act": "gelu",
+         "gated": False, "launches_per_forward": 1},
+        {"kernel": fused_mlp.KERNEL_NAME, "shape": ["fused_projector"],
+         "forward_batch": 1, "m": gen_cfg.vision.num_patches_per_image,
+         "k": e_gen, "f": 4 * e_gen, "d": llm.hidden_size, "act": "gelu",
+         "gated": False, "launches_per_forward": 1},
+    ]
+    d = llm.hidden_size
+    for m, tag in ((1, "decode"), (llm_rows["llama2_7b"], "prefill")):
+        w8a8 += [
+            {"kernel": w8a8_matmul.KERNEL_NAME, "shape": [f"q_k_v_o_{tag}"],
+             "forward_batch": 1, "m": m, "k": d, "n": d,
+             "launches_per_forward": 4 * llm.num_layers},
+            {"kernel": w8a8_matmul.KERNEL_NAME,
+             "shape": [f"lm_head_shape_{tag}"], "forward_batch": 1, "m": m,
+             "k": d, "n": llm.vocab_size, "launches_per_forward": 0}]
+    return attention, bwd, w8a8
+
+
+def phase_zoo_kernels(card: str) -> dict:
+    """B1, B1-bwd, B2, B3 and B4 at the 7B zoo models' shapes against their
+    plain versions, each with its plan, time, plain time, library yardstick
+    and bound; B2 and B4 bit for bit."""
+    from vla_adapter_torch.models.registry import get_llm_backbone
+
+    _, gen_cfg = zoo_model(ZOO_GENERATE)
+    _, pre_cfg = zoo_model(ZOO_PRETRAIN)
+    attention, bwd, w8a8 = zoo_kernel_shapes(gen_cfg, pre_cfg,
+                                             get_llm_backbone(ZOO_13B))
+    records = {"attention": phase_kernel_vs_plain(attention),
+               "attention_bwd": phase_attention_bwd(bwd, card),
+               "w8a8": phase_w8a8_kernels(w8a8)}
+    for r in records["w8a8"]:
+        if r["kernel"] != "w8a8_mlp" and not r["bitwise_equal"]:
+            raise AssertionError(f"{r['kernel']} {r['shape']} M={r['m']}: "
+                                 f"not bit for bit with its plain version")
+        if "plan" in r:
+            print(f"zoo {r['kernel']} {r['shape'][0]} M={r['m']}: branch "
+                  f"{r['plan']['branch']}, {r['plan']['smem_bytes']} B of "
+                  f"shared memory, {1e3 * r['ms']:.1f} us (plain "
+                  f"{1e3 * r['plain_ms']:.1f}, bound "
+                  f"{1e3 * r['bound_ms']:.2f}); card {card}", flush=True)
+    return records
+
+
+def phase_zoo_generate(card: str, seed: int) -> tuple:
+    """prism-dinosiglip+7b: teacher-forced multimodal logits (bf16 and its
+    w8a8 "fused" twin, kernel vs plain, w8a8 vs bf16) at B=2, then
+    ``greedy_generate_cached`` of ZOO_NEW tokens at B=1 and 4 in both, as
+    phase 12 checks it. Returns (record, launches by path)."""
+    import torch
+
+    entry, cfg = zoo_model(ZOO_GENERATE)
+    dev = torch.device(DEVICE)
+    models = zoo_vlms(cfg, seed, dev, w8a8=True)
+    n_llm = sum(p.numel() for p in models["bf16"][0].language_model
+                .parameters())
+    rec = {"card": card, "model": entry.model_id,
+           "llm_parameters": n_llm, "vlm_parameters": sum(
+               p.numel() for p in models["bf16"][0].parameters())}
+    rng = np.random.default_rng(seed + 16)
+    lengths = rng.integers(ZOO_TEXT[0], ZOO_TEXT[1] + 1, size=2)
+    ids, valid = zoo_prompts(entry, cfg.llm.vocab_size, lengths, seed)
+    pixels = torch.from_numpy(zoo_pixels(entry, cfg, 2, seed)).to(
+        dev, torch.bfloat16)
+    rec["logits"], logit_launches = zoo_logits(
+        models, ids, valid, pixels, entry.model_id)
+    print(f"zoo logits {entry.model_id}: " + json.dumps(rec["logits"]),
+          flush=True)
+    paths = {"zoo_logits": collections.Counter(logit_launches),
+             "zoo_generate": collections.Counter(),
+             "zoo_generate_w8a8": collections.Counter()}
+    total = ZOO_GEN_TEXT + ZOO_NEW
+    rec["runs"] = []
+    for backend, path in (("bf16", "zoo_generate"),
+                          ("w8a8", "zoo_generate_w8a8")):
+        vlm, plain = models[backend]
+        atol = GEN_LOGITS_ATOL if backend == "bf16" else GEN_W8A8_LOGITS_ATOL
+        for b in ZOO_BATCHES:
+            prompt, _ = zoo_prompts(entry, cfg.llm.vocab_size,
+                                    [ZOO_GEN_TEXT] * b, seed + b)
+            buf = torch.zeros((b, total), dtype=torch.long, device=dev)
+            buf[:, :ZOO_GEN_TEXT] = torch.from_numpy(prompt).to(dev)
+            run, launches = generate_run(
+                vlm.language_model, plain.language_model, buf, ZOO_GEN_TEXT,
+                ZOO_NEW, atol, f"zoo generate {backend}")
+            run = {"backend": backend, **run}
+            paths[path].update(launches)
+            print(f"zoo generate {json.dumps(run)}; card {card}", flush=True)
+            rec["runs"].append(run)
+    del models
+    torch.cuda.empty_cache()
+    return rec, {k: dict(v) for k, v in paths.items()}
+
+
+def zoo_pretrain_batch(entry, cfg, seed: int):
+    """ZOO_PRETRAIN_BATCH prompts of 64-127 ids through the entry's
+    builder, the loss on every id after the first, and letterboxed
+    pixels."""
+    rng = np.random.default_rng(seed + 1)
+    lengths = rng.integers(ZOO_TEXT[0], ZOO_TEXT[1] + 1,
+                           size=ZOO_PRETRAIN_BATCH)
+    ids, valid = zoo_prompts(entry, cfg.llm.vocab_size, lengths, seed + 2)
+    labels = np.where(valid > 0, ids, -100)
+    labels[:, 0] = -100
+    return {"input_ids": ids.astype(np.int32), "text_valid": valid,
+            "labels": labels.astype(np.int32),
+            "pixel_values": zoo_pixels(entry, cfg, ZOO_PRETRAIN_BATCH,
+                                       seed + 3)}
+
+
+def expected_remat_pretrain_launches(model, trainable) -> dict:
+    """One pretraining step under remat of the towers and the LLM: the
+    launches of :func:`expected_pretrain_launches`, and B1 once more for
+    every attention layer the gradient passes through, whose forward
+    every policy recomputes (none keeps B1's output)."""
+    from vla_adapter_torch.ops.attention_kernel import (
+        BWD_KERNEL_NAME,
+        BWD_LAUNCHES_PER_CALL,
+        KERNEL_NAME,
+    )
+
+    out = dict(expected_pretrain_launches(model, trainable))
+    out[KERNEL_NAME] += out[BWD_KERNEL_NAME] // BWD_LAUNCHES_PER_CALL
+    return out
+
+
+def phase_zoo_pretrain(card: str, seed: int) -> tuple:
+    """mistral-instruct-v0.1+7b: letterboxed non-square images through the
+    bf16 VLM's logits, kernel vs plain; then ``pretrain`` in "align" (fp32
+    weights, the projector trained) at batch ZOO_PRETRAIN_BATCH for
+    ZOO_PRETRAIN_STEPS steps without remat (where it fits) and under each
+    remat policy over the towers and the LLM: s/step by ``StepTimer``,
+    peak memory, launches of B1 and B1-bwd per step against the derived
+    counts, and the losses and the trained projector equal across the runs
+    bit for bit. Returns (record, launches by path)."""
+    import itertools
+
+    import torch
+
+    from vla_adapter_torch.core.config import OptimizerConfig
+    from vla_adapter_torch.models.layers import Runtime
+    from vla_adapter_torch.models.vlm import PrismaticVLM
+    from vla_adapter_torch.ops import cuda_lib
+    from vla_adapter_torch.train import pretrain as tpretrain
+    from vla_adapter_torch.train.stages import split_by_stage
+    from vla_adapter_torch.utils.profiling import StepTimer
+
+    entry, cfg = zoo_model(ZOO_PRETRAIN)
+    dev = torch.device(DEVICE)
+    models = zoo_vlms(cfg, seed, dev, w8a8=False)
+    rng = np.random.default_rng(seed + 17)
+    lengths = rng.integers(ZOO_TEXT[0], ZOO_TEXT[1] + 1, size=2)
+    ids, valid = zoo_prompts(entry, cfg.llm.vocab_size, lengths, seed)
+    pixels = torch.from_numpy(zoo_pixels(entry, cfg, 2, seed)).to(
+        dev, torch.bfloat16)
+    rec = {"card": card, "model": entry.model_id}
+    rec["logits"], logit_launches = zoo_logits(models, ids, valid, pixels,
+                                               entry.model_id)
+    print(f"zoo logits {entry.model_id}: " + json.dumps(rec["logits"]),
+          flush=True)
+    del models
+    torch.cuda.empty_cache()
+    batch = zoo_pretrain_batch(entry, cfg, seed)
+    pcfg = tpretrain.PretrainConfig(
+        model=cfg, stage="align", seed=seed, device=DEVICE,
+        optim=OptimizerConfig(learning_rate=1e-3,
+                              max_steps=ZOO_PRETRAIN_STEPS,
+                              num_steps_before_decay=1000))
+    rec["pretrain"] = {"batch": ZOO_PRETRAIN_BATCH,
+                       "steps": ZOO_PRETRAIN_STEPS, "runs": {}}
+    launches, first = collections.Counter(), None
+    for policy in ZOO_POLICIES:
+        name = policy or "no remat"
+        rt = Runtime(dtype=torch.bfloat16, param_dtype=torch.float32,
+                     remat=policy is not None,
+                     remat_policy=policy or "nothing",
+                     remat_components=("vit", "llm"))
+        meta = PrismaticVLM(cfg, rt, device="meta")
+        trainable, _ = split_by_stage(meta.state_dict(), "align")
+        per_step = (expected_remat_pretrain_launches(meta, trainable)
+                    if policy else expected_pretrain_launches(meta,
+                                                              trainable))
+        del meta
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        timer = StepTimer(warmup=1)
+        oom = None
+        try:
+            params, metrics = tpretrain.pretrain(
+                pcfg, itertools.repeat(batch), ZOO_PRETRAIN_STEPS, rt=rt,
+                device=DEVICE, timer=timer)
+        except torch.cuda.OutOfMemoryError as err:
+            if policy is not None:
+                raise
+            oom = str(err).splitlines()[0]
+        if oom is not None:  # the failed run's tensors are released now
+            rec["pretrain"]["runs"][name] = {
+                "fits": False, "error": oom,
+                "peak_mem_gib": (torch.cuda.max_memory_allocated()
+                                 - resident) / 2**30}
+            print(f"zoo pretrain {name}: does not fit ({oom}); card {card}",
+                  flush=True)
+            torch.cuda.empty_cache()
+            continue
+        got = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        _check_train_launches(got, per_step, ZOO_PRETRAIN_STEPS,
+                              f"zoo pretrain {name}")
+        launches.update(got)
+        projector = {k: v for k, v in params.items()
+                     if k.startswith("projector.")}
+        if not all(np.isfinite(metrics["losses"])):
+            raise AssertionError(f"zoo pretrain {name}: {metrics}")
+        if first is None:
+            first = (name, metrics["losses"], projector)
+        else:
+            same_loss = metrics["losses"] == first[1]
+            differ = sorted(k for k, v in projector.items()
+                            if not torch.equal(v, first[2][k]))
+            if not same_loss or differ:
+                raise AssertionError(
+                    f"zoo pretrain {name} against {first[0]}: losses "
+                    f"{metrics['losses']} vs {first[1]}, projector tensors "
+                    f"that differ: {differ}")
+        timing = timer.summary()
+        run = {"fits": True, "losses": metrics["losses"],
+               "s_per_step": timing["median_s"], "timing": timing,
+               "peak_mem_gib": (torch.cuda.max_memory_allocated()
+                                - resident) / 2**30,
+               "launches": got, "launches_per_step": per_step}
+        rec["pretrain"]["runs"][name] = run
+        print(f"zoo pretrain {name}: {timing['median_s']:.3f} s/step, peak "
+              f"{run['peak_mem_gib']:.2f} GiB, per step {per_step}, losses "
+              f"{metrics['losses']}; card {card}", flush=True)
+        del params, projector
+        torch.cuda.empty_cache()
+    rec["pretrain"]["bit_for_bit_with"] = first[0]
+    return rec, {"zoo_logits": logit_launches,
+                 "zoo_pretrain": dict(launches)}
+
+
+def zoo_kernel_summary(records) -> dict:
+    """Each kernel's phase-16 call sites for the kernels line: per call,
+    ms / plain / bound / library and the shape."""
+    from vla_adapter_torch.ops.attention_kernel import (
+        BWD_KERNEL_NAME,
+        KERNEL_NAME,
+    )
+
+    out = collections.defaultdict(list)
+    for r in records["attention"]:
+        out[KERNEL_NAME].append({
+            "shape": f"{r['shape']} B={r['batch']} S={r['seq']} "
+                     f"D={r['head_dim']} {r['heads']}/{r['kv_heads']}",
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["sdpa_ms"], "max_abs_err": r["max_abs_err"]})
+    for r in records["attention_bwd"]:
+        out[BWD_KERNEL_NAME].append({
+            "shape": f"{r['shape']} B={r['batch']} S={r['seq']} "
+                     f"D={r['head_dim']} {r['heads']}/{r['kv_heads']}",
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["sdpa_bwd_ms"], "max_abs_err": r["max_abs_err"]})
+    for r in records["w8a8"]:
+        out[r["kernel"]].append({
+            "shape": f"{r['shape'][0]} M={r['m']} K={r['k']}",
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("int_mm_ms"),
+            "max_abs_err": r["max_abs_err"],
+            "branch": r.get("plan", {}).get("branch")})
+    return dict(out)
+
+
+def phase_zoo(card: str, seed: int) -> tuple:
+    """Phase 16: the model zoo at 7B (module docstring): the kernels at
+    the new shapes, prism-dinosiglip+7b's logits and generation, and
+    mistral-instruct-v0.1+7b's logits and pretraining. Returns (record,
+    launches by path, the kernels' call sites)."""
+    import torch
+
+    t0 = time.perf_counter()
+    print(f"zoo: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in use at "
+          f"the start; card {card}", flush=True)
+    kernel_records = phase_zoo_kernels(card)
+    gen, paths = phase_zoo_generate(card, seed)
+    pre, pre_paths = phase_zoo_pretrain(card, seed)
+    paths["zoo_logits"] = dict(collections.Counter(paths["zoo_logits"])
+                               + collections.Counter(pre_paths["zoo_logits"]))
+    paths["zoo_pretrain"] = pre_paths["zoo_pretrain"]
+    rec = {"card": card, "generate": gen, "pretrain": pre,
+           "seconds": time.perf_counter() - t0}
+    print(f"zoo: {rec['seconds']:.1f} s; card {card}", flush=True)
+    return rec, paths, zoo_kernel_summary(kernel_records)
+
+
 def causal_language_path(predictor, cfg, card: str, seed: int, phases,
                          lap) -> dict:
     """Phases 12-15 (those in ``phases``), each lapped: their records, the
@@ -3773,6 +4394,22 @@ def causal_language_path(predictor, cfg, card: str, seed: int, phases,
     return out
 
 
+def zoo_phase(card: str, seed: int, lap) -> tuple:
+    """Phase 16 after the flagship's models are freed (the caller dropped
+    its last reference): (record, launches by path, the kernels' call
+    sites), lapped."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = phase_zoo(card, seed)
+    print(f"kernels launched on the zoo paths: {out[1]}", flush=True)
+    lap("16 zoo")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -3781,13 +4418,13 @@ def main() -> int:
                         help="also profile one B=1 request per tier, eager "
                              "and replayed (torch.profiler)")
     parser.add_argument("--only", default="",
-                        help="comma-separated phases among 12-15 to run "
+                        help="comma-separated phases among 12-16 to run "
                              "after the build, skipping phases 2-11; such a "
                              "partial run prints no kernels or ok line")
     args = parser.parse_args()
     only = {int(p) for p in args.only.split(",") if p}
-    if only - {12, 13, 14, 15}:
-        parser.error(f"--only takes phases among 12-15, got {args.only}")
+    if only - {12, 13, 14, 15, 16}:
+        parser.error(f"--only takes phases among 12-16, got {args.only}")
 
     sys.path.insert(0, HERE)
     import torch
@@ -3826,12 +4463,17 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     lap("1 build")
 
-    # 2. attention kernel vs plain at the main path's shapes
-    cfg, predictor, n_params, rng = build_flagship(args.seed)
-    print(f"flagship: {n_params / 1e9:.3f} B parameters in bf16", flush=True)
     if only:
-        causal = causal_language_path(predictor, cfg, card, args.seed, only,
-                                      lap)
+        causal = {}
+        if only - {16}:
+            cfg, predictor, n_params, _ = build_flagship(args.seed)
+            causal = causal_language_path(predictor, cfg, card, args.seed,
+                                          only, lap)
+            del predictor
+        if 16 in only:
+            causal["zoo"], _, causal["zoo_kernels"] = zoo_phase(card,
+                                                                args.seed,
+                                                                lap)
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"card": card, "phase_s": phase_s, **causal}, f,
@@ -3840,6 +4482,10 @@ def main() -> int:
         print(f"partial run (phases {sorted(only)}): no kernels line",
               flush=True)
         return 0
+
+    # 2. attention kernel vs plain at the main path's shapes
+    cfg, predictor, n_params, rng = build_flagship(args.seed)
+    print(f"flagship: {n_params / 1e9:.3f} B parameters in bf16", flush=True)
     records = phase_kernel_vs_plain(attention_shapes(cfg, predictor.tokenize))
     lap("2 attention")
 
@@ -3899,16 +4545,22 @@ def main() -> int:
     # 12-15. the causal language path
     causal = causal_language_path(predictor, cfg, card, args.seed,
                                   {12, 13, 14, 15}, lap)
+
+    # 16. the model zoo at 7B, with the flagship's models freed first
+    del predictor
+    zoo, zoo_paths, zoo_kernels = zoo_phase(card, args.seed, lap)
     kernels = (kernel_summary(records, launches)
                + w8a8_kernel_summary(w8a8_records, w8a8_launches)
                + megalayer_kernel_summary(w8a8_records, w8a8_launches)
                + attention_bwd_kernel_summary(bwd_records, train_launches))
     paths = {"flagship_bf16": launches, "flagship_w8a8": w8a8_launches,
              "server": server_launches, "original_film": original_launches,
-             "train": train_launches, **causal["launches_by_path"]}
+             "train": train_launches, **causal["launches_by_path"],
+             **zoo_paths}
     for entry in kernels:
         entry["launches_by_path"] = {path: counts.get(entry["name"], 0)
                                      for path, counts in paths.items()}
+        entry["zoo_7b"] = zoo_kernels.get(entry["name"], [])
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "shapes": records,
@@ -3917,8 +4569,8 @@ def main() -> int:
                        "graph": graphs, "checkpoint": checkpoint,
                        "server": server, "original_film": original,
                        "train": train, "attention_bwd_shapes": bwd_records,
-                       **causal, "kernels": kernels, "phase_s": phase_s}, f,
-                      indent=1)
+                       **causal, "zoo": zoo, "kernels": kernels,
+                       "phase_s": phase_s}, f, indent=1)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,18 +20,36 @@ tokens), at B=1 and B=4:
   the plain version does;
 * shared memory stays within a block's 232,448 bytes, and the grid within
   the SMs.
+
+The same at every gated MLP of ``LLM_BACKBONES`` (K = 896-5120), at a 7B
+zoo model's prefill rows (B=1 and 4) and at a decode step's M = 1-4: the
+7B and 13B widths take the "streamed" branch, whose up items stage each
+K step's 32 rows of xq beside the weight tiles, and each up item's steps
+cover its panel's columns and every byte of K once. The flagship shapes
+keep the plan they had before that branch existed, and the wrapper
+refuses, with a ValueError naming the shape, what its branch cannot fit
+(the plain MLP, kernel B3, has no streamed branch: none of its models
+needs one). The ``cuda``-marked tests hold kernel B2 at K = 4096
+and 5120 against its plain version on the card, bit for bit.
 """
 
 import collections
 
+import numpy as np
 import pytest
+import torch
 
-from vla_adapter_torch.core.config import VLAConfig
+from vla_adapter_torch.core.config import Qwen2Config, VLAConfig
+from vla_adapter_torch.models.registry import LLM_BACKBONES
+from vla_adapter_torch.models.zoo import build_vlm_config, get_zoo_entry
 from vla_adapter_torch.ops.fused_mlp import (
     BLOCK_SMEM,
+    K_STEP,
     SMS,
+    launch_plan,
     mlp_plan,
     mlp_work_items,
+    up_item_steps,
 )
 from vla_adapter_torch.ops.megalayer import (
     MAX_TOKENS,
@@ -74,9 +92,9 @@ def _check_mlp_items(plan, items, m, f, d, first_ticket, ready_at):
     assert plan["panels"] == -(-f // block_f)
     assert plan["last_panel_columns"] == f - (plan["panels"] - 1) * block_f
     ready_at = dict(ready_at)
-    quant_cover = collections.Counter()
-    panel_cover = collections.Counter()
-    column_cover = collections.Counter()
+    quant_cover = np.zeros(m, np.int64)
+    panel_cover = np.zeros((m, plan["panels"]), np.int64)
+    column_cover = np.zeros((m, d), np.int64)
     last_up = {}
     for ticket, item in enumerate(items[first_ticket:], start=first_ticket):
         kind, rt = item[0], item[1]
@@ -84,11 +102,11 @@ def _check_mlp_items(plan, items, m, f, d, first_ticket, ready_at):
         if kind == "quant":
             assert rt not in ready_at
             ready_at[rt] = ticket
-            quant_cover.update(rows)
+            quant_cover[rows.start:rows.stop] += 1
         elif kind == "up":
             assert len(rows) > 0 and ready_at[rt] < ticket
             last_up[rt] = ticket
-            panel_cover.update((r, item[2]) for r in rows)
+            panel_cover[rows.start:rows.stop, item[2]] += 1
         else:
             assert kind == "down"
             _, _, ct, order = item
@@ -101,13 +119,11 @@ def _check_mlp_items(plan, items, m, f, d, first_ticket, ready_at):
             cols = range(ct * plan["col_tile"],
                          min((ct + 1) * plan["col_tile"], d))
             assert len(cols) > 0
-            column_cover.update((r, c) for r in rows for c in cols)
-    if quant_cover:
-        assert set(quant_cover.values()) == {1} and len(quant_cover) == m
-    assert set(panel_cover.values()) == {1}
-    assert len(panel_cover) == m * plan["panels"]
-    assert set(column_cover.values()) == {1}
-    assert len(column_cover) == m * d
+            column_cover[rows.start:rows.stop, cols.start:cols.stop] += 1
+    if quant_cover.any():
+        assert (quant_cover == 1).all()
+    assert (panel_cover == 1).all()
+    assert (column_cover == 1).all()
 
 
 def _check_grid(plan, items):
@@ -193,3 +209,141 @@ def test_plans_take_the_devices_sm_count():
     assert plan["ctas"] == 16 * plan["ctas_per_sm"]
     one_row = mlp_plan(1, 896, 4864, 896, gated=True)
     assert one_row["ctas"] == 1 + one_row["up_items"] + 7
+
+
+# --- every gated MLP of the registry's LLMs ---------------------------------
+
+def _zoo_prefill_rows() -> int:
+    """A 7B zoo model's prefill: one image's patches through the fused
+    384-px towers (the entry's image_sequence_len) and the longest text of
+    a zoo prompt (127 ids)."""
+    entry = get_zoo_entry("prism-dinosiglip+7b")
+    cfg = build_vlm_config(entry)
+    return (cfg.vision.num_patches_per_image * entry.image_sequence_len
+            + 127)
+
+
+_LLM_MLPS = sorted({(c.hidden_size, c.intermediate_size)
+                    for c in LLM_BACKBONES.values()
+                    if isinstance(c, Qwen2Config)})
+_PREFILL = _zoo_prefill_rows()
+LLM_SHAPES = [(k, f, m) for k, f in _LLM_MLPS
+              for m in (1, 2, 3, 4, _PREFILL, 4 * _PREFILL)]
+
+
+@pytest.mark.parametrize("shape", LLM_SHAPES,
+                         ids=lambda s: f"K{s[0]}-F{s[1]}-M{s[2]}")
+def test_every_llm_mlp_fits_a_block(shape):
+    k, f, m = shape
+    plan = launch_plan("w8a8_gated_mlp", m, k, f, k, gated=True)
+    items = mlp_work_items(plan)
+    _check_mlp_items(plan, items, m, f, k, 0, {})
+    _check_grid(plan, items)
+    # the 7B and 13B widths (and Qwen2.5-7B's) stream x; the rest keep it
+    resident = 32 * k + 4 * 2 * 128 * 128 + 4 * (64 * plan["panels"] + 288)
+    assert plan["branch"] == ("streamed" if resident + 16 > BLOCK_SMEM
+                              else "resident")
+    if k >= 4096:
+        assert plan["branch"] == "streamed"
+
+
+# (M, K, F, D, gated) -> (shared memory, CTAs, CTAs per SM) as planned
+# before the streamed branch existed: the flagship MLPs at B=1 and 4.
+FLAGSHIP_PLANS = {
+    (640, 896, 4864, 896, True): (163472, 132, 1),
+    (522, 1024, 4096, 1024, False): (109712, 225, 2),
+    (512, 1152, 4304, 1152, False): (114064, 232, 2),
+    (512, 2176, 8704, 896, False): (148880, 132, 1),
+    (2560, 896, 4864, 896, True): (163472, 132, 1),
+    (2088, 1024, 4096, 1024, False): (109712, 264, 2),
+    (2048, 1152, 4304, 1152, False): (114064, 264, 2),
+    (2048, 2176, 8704, 896, False): (148880, 132, 1),
+    (1, 896, 4864, 896, True): (163472, 18, 1),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(FLAGSHIP_PLANS),
+                         ids=lambda s: "x".join(map(str, s[:4])))
+def test_flagship_shapes_keep_their_plan(shape):
+    m, k, f, d, gated = shape
+    plan = mlp_plan(m, k, f, d, gated=gated)
+    assert plan["branch"] == "resident"
+    assert (plan["smem_bytes"], plan["ctas"], plan["ctas_per_sm"]) \
+        == FLAGSHIP_PLANS[shape]
+
+
+@pytest.mark.parametrize("k, f", [(4096, 11008), (4096, 14336),
+                                  (5120, 13824), (4112, 4304)],
+                         ids=lambda v: str(v))
+def test_streamed_up_items_cover_each_column_and_k_chunk_once(k, f):
+    """Over the up items of one row tile, the ring steps stage each (F
+    column, 16 bytes of K) of W1 once, and in each 128-column chunk the
+    steps' xq windows walk K once, in order (a K not a multiple of 128
+    ends in a zero-padded step)."""
+    plan = mlp_plan(850, k, f, k, gated=True)
+    assert plan["branch"] == "streamed"
+    cover = np.zeros((f, k // 16), dtype=np.int64)
+    for panel in range(plan["panels"]):
+        windows = collections.defaultdict(list)
+        for c0, cols, k0, kbytes in up_item_steps(plan, panel):
+            windows[c0].append(k0)
+            cover[c0:c0 + cols, k0 // 16:min(k0 + kbytes, k) // 16] += 1
+        for starts in windows.values():
+            assert starts == list(range(0, k, K_STEP))
+    assert (cover == 1).all()
+
+
+def test_wrapper_refuses_what_does_not_fit_with_the_shape():
+    with pytest.raises(ValueError, match=r"M=4, K=4096, F=262144, D=4096"):
+        launch_plan("w8a8_gated_mlp", 4, 4096, 1 << 18, 4096, gated=True)
+    # the plain MLP has no streamed branch; the widest registered one fits
+    assert mlp_plan(512, 2560, 10240, 2560, gated=False)["branch"] == \
+        "resident"
+    with pytest.raises(ValueError, match=r"K=6144.*resident branch"):
+        launch_plan("w8a8_mlp", 512, 6144, 4096, 1024, gated=False)
+
+
+# --- on the card ------------------------------------------------------------
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4096, 11008), (4, 4096, 14336),
+                                   (_PREFILL, 4096, 11008),
+                                   (2, 5120, 13824), (_PREFILL, 5120, 13824)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_b2_at_7b_and_13b_widths_equals_plain(device, shape):
+    """Kernel B2 on the streamed branch, bit for bit with its plain version
+    and with itself on a second call."""
+    from vla_adapter_torch.models.quantize import quantize_weight
+    from vla_adapter_torch.ops import cuda_lib
+    from vla_adapter_torch.ops.fused_mlp import (
+        GATED_KERNEL_NAME,
+        fused_mlp_reference,
+        w8a8_gated_mlp,
+    )
+
+    m, k, f = shape
+    gen = torch.Generator(device=device).manual_seed(m + k + f)
+
+    def weight(n, kk):
+        return quantize_weight(torch.randn(n, kk, generator=gen,
+                                           device=device) / kk ** 0.5)
+
+    x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
+    (gq, gs), (uq, us), (dq, ds) = weight(f, k), weight(f, k), weight(k, f)
+    before = cuda_lib.LAUNCHES[GATED_KERNEL_NAME]
+    got = w8a8_gated_mlp(x, gq, gs, uq, us, dq, ds)
+    again = w8a8_gated_mlp(x, gq, gs, uq, us, dq, ds)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[GATED_KERNEL_NAME] == before + 2
+    want = fused_mlp_reference(x, gq, gs, dq, ds, up_q=uq, up_scale=us,
+                               act="silu")
+    assert torch.equal(got, want), float((got.float() - want.float())
+                                         .abs().max())
+    assert torch.equal(again, got)

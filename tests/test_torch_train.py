@@ -637,8 +637,11 @@ def test_entry_points_refuse_without_cuda_or_data(monkeypatch):
                         "--data.mixture", "libero_spatial_no_noops"])
     with pytest.raises(SystemExit):
         tmerge_cli.main([])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        dataclasses.replace(TRT, remat=True, remat_policy="dots")
+    # every JAX remat policy is ported; an unknown one raises
+    for policy in ("dots", "dots_no_batch", "mlp_saved"):
+        dataclasses.replace(TRT, remat=True, remat_policy=policy)
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        dataclasses.replace(TRT, remat=True, remat_policy="dots_saveable")
 
 
 def test_metrics_match_jax(tmp_path):

@@ -28,6 +28,9 @@
 //   down (64-row tile, 128 columns of D)
 //                             waits for the tile's panels and sums them in
 //                             order, then out = acc * s2 (+ b2).
+// Where the up item's 32 rows of xq cannot stay resident beside the ring
+// (K = 4096-5120, the 7B and 13B LLMs) it streams them through the ring
+// (w8a8_mlp.cuh, "streamed"): the same items, products and bits.
 // At B=1: Qwen2 (M = 640) 20 + 200 + 70 items on 132 CTAs, DINOv2 (M =
 // 522) 17 + 136 + 72 on 225, so400m (M = 512) 16 + 144 + 72 on 232, the
 // projector (M = 512) 16 + 272 + 56 on 132, where the first design ran
@@ -97,11 +100,11 @@ __device__ void quant_item(const Params& p, int rt) {
   signal(mlp.ready_x + rt);
 }
 
-template <typename T, int ACT, bool GATED>
+template <typename T, int ACT, bool GATED, bool STREAM>
 __global__ void __launch_bounds__(kThreads, GATED ? 1 : 2) fused_mlp_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Mlp& mlp = p.mlp;
-  const MlpSmem s = carve_mlp(smem, mlp.kpad, mlp.panels, GATED);
+  const MlpSmem s = carve_mlp(smem, mlp.kpad, mlp.panels, GATED, STREAM);
   int* ticket_s = reinterpret_cast<int*>(s.rs + kBM);
   const int quants = p.row_tiles;
   const int ups = quants + p.row_tiles * mlp.panels;
@@ -112,7 +115,7 @@ __global__ void __launch_bounds__(kThreads, GATED ? 1 : 2) fused_mlp_kernel(cons
     if (it < quants) {
       quant_item<T>(p, it);
     } else if (it < ups) {
-      up_item<ACT, GATED>(mlp, s, (it - quants) / mlp.panels, (it - quants) % mlp.panels);
+      up_item<ACT, GATED, STREAM>(mlp, s, (it - quants) / mlp.panels, (it - quants) % mlp.panels);
     } else {
       const int d = it - ups;
       T* out = static_cast<T*>(p.out);
@@ -132,10 +135,10 @@ __global__ void __launch_bounds__(kThreads, GATED ? 1 : 2) fused_mlp_kernel(cons
   leave(p.counters, 2 * p.row_tiles);
 }
 
-template <typename T, int ACT, bool GATED>
+template <typename T, int ACT, bool GATED, bool STREAM>
 cudaError_t launch(const Params& p, int ctas, cudaStream_t stream) {
-  auto kernel = fused_mlp_kernel<T, ACT, GATED>;
-  const size_t smem = mlp_smem_bytes(p.mlp.kpad, p.mlp.panels, GATED) + 16;
+  auto kernel = fused_mlp_kernel<T, ACT, GATED, STREAM>;
+  const size_t smem = mlp_smem_bytes(p.mlp.kpad, p.mlp.panels, GATED, STREAM) + 16;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   // Once per instantiation, at its first (uncaptured) launch, to the most
   // a block may use: every smaller size is then admitted, and later
@@ -147,21 +150,34 @@ cudaError_t launch(const Params& p, int ctas, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, bool GATED>
+template <typename T, bool GATED, bool STREAM>
 cudaError_t dispatch_act(const Params& p, int act, int ctas, cudaStream_t s) {
   switch (act) {
-    case kSilu: return launch<T, kSilu, GATED>(p, ctas, s);
-    case kGelu: return launch<T, kGelu, GATED>(p, ctas, s);
-    case kGeluTanh: return launch<T, kGeluTanh, GATED>(p, ctas, s);
-    case kQuickGelu: return launch<T, kQuickGelu, GATED>(p, ctas, s);
+    case kSilu: return launch<T, kSilu, GATED, STREAM>(p, ctas, s);
+    case kGelu: return launch<T, kGelu, GATED, STREAM>(p, ctas, s);
+    case kGeluTanh: return launch<T, kGeluTanh, GATED, STREAM>(p, ctas, s);
+    case kQuickGelu: return launch<T, kQuickGelu, GATED, STREAM>(p, ctas, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// The resident form wherever it fits (every flagship shape), else, for the
+// gated MLP, the streamed one (ops/fused_mlp.py:mlp_plan's "branch"); no
+// plain MLP of a registered model needs it (the widest, Phi-2's, fits), so
+// it is not built for them and the wrapper refuses such a shape.
+template <typename T, bool GATED>
+cudaError_t dispatch_branch(const Params& p, int act, int ctas, cudaStream_t s) {
+  if constexpr (GATED) {
+    if (mlp_streams_x(p.mlp.kpad, p.mlp.panels, true))
+      return dispatch_act<T, true, true>(p, act, ctas, s);
+  }
+  return dispatch_act<T, GATED, false>(p, act, ctas, s);
+}
+
 template <typename T>
 cudaError_t dispatch(const Params& p, int act, int ctas, cudaStream_t s) {
-  return p.mlp.wu != nullptr ? dispatch_act<T, true>(p, act, ctas, s)
-                             : dispatch_act<T, false>(p, act, ctas, s);
+  return p.mlp.wu != nullptr ? dispatch_branch<T, true>(p, act, ctas, s)
+                             : dispatch_branch<T, false>(p, act, ctas, s);
 }
 
 }  // namespace

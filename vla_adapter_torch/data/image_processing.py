@@ -5,8 +5,10 @@ vla_adapter_tpu/data/image_processing.py).
 lanczos3 resize to the policy size (TF when installed, else PIL), then an
 optional center crop that :func:`center_crop` computes in numpy to
 ``tf.image.crop_and_resize``'s own arithmetic, with or without TF.
-:class:`ImageProcessor` applies each tower's geometry ("resize-naive",
-bicubic) and stacks the towers' channels: uint8 (H, W, 3*T) from
+:class:`ImageProcessor` applies each tower's geometry (its
+``resize_strategy``: "resize-naive", "letterbox" or "resize-crop", with the
+tower's PIL filter, bicubic by default) and stacks the towers' channels:
+uint8 (H, W, 3*T) from
 :meth:`~ImageProcessor.geom_only`, normalized on the device with
 :meth:`~ImageProcessor.norm_constants`, or fp32 normalized on the host by
 calling the processor.
@@ -112,30 +114,65 @@ def prepare_image(image: np.ndarray, size: int = 224,
     return image
 
 
+# PIL's resampling filter ids (PIL.Image.Resampling), kept as ints so that
+# this module imports PIL only when an image needs resampling.
+BICUBIC = 3
+RESIZE_STRATEGIES = ("resize-naive", "letterbox", "resize-crop")
+
+
 @dataclass
 class TowerSpec:
     size: int = 224
     mean: Tuple[float, float, float] = DINO_MEAN
     std: Tuple[float, float, float] = DINO_STD
+    interpolation: int = BICUBIC
 
 
 @dataclass
 class ImageProcessor:
-    """Per-tower "resize-naive" geometry (bicubic), channel-stacked."""
+    """Per-tower geometry, channel-stacked. ``resize_strategy``:
+    "resize-naive" (a square resample to the tower's size), "letterbox"
+    (pad to a square of ``letterbox_fill``, the image centered, then
+    resample) or "resize-crop" (the shorter side resampled to the tower's
+    size, then the center square), each with the tower's PIL filter."""
 
     towers: Sequence[TowerSpec] = field(default_factory=lambda: (
         TowerSpec(mean=DINO_MEAN, std=DINO_STD),
         TowerSpec(mean=SIGLIP_MEAN, std=SIGLIP_STD),
     ))
+    resize_strategy: str = "resize-naive"
+    letterbox_fill: Tuple[int, int, int] = (127, 127, 127)
 
-    @staticmethod
-    def _geom(image: np.ndarray, size: int) -> np.ndarray:
-        if image.shape[:2] == (size, size):
-            return image  # a scale-1 bicubic resample returns its input
+    def _geom(self, image: np.ndarray, spec: TowerSpec) -> np.ndarray:
+        s = spec.size
+        if self.resize_strategy not in RESIZE_STRATEGIES:
+            raise ValueError(f"unknown resize strategy "
+                             f"{self.resize_strategy!r}: expected one of "
+                             f"{RESIZE_STRATEGIES}")
+        if self.resize_strategy == "resize-naive" \
+                and image.shape[:2] == (s, s):
+            return image  # a scale-1 resample returns its input
         from PIL import Image
 
-        return np.asarray(Image.fromarray(image).resize((size, size),
-                                                        Image.BICUBIC))
+        img = Image.fromarray(image)
+        if self.resize_strategy == "resize-naive":
+            img = img.resize((s, s), spec.interpolation)
+        elif self.resize_strategy == "letterbox":
+            w, h = img.size
+            side = max(w, h)
+            canvas = Image.new("RGB", (side, side),
+                               tuple(self.letterbox_fill))
+            canvas.paste(img, ((side - w) // 2, (side - h) // 2))
+            img = canvas.resize((s, s), spec.interpolation)
+        else:  # resize-crop: the shorter side to s, then the center square
+            w, h = img.size
+            scale = s / min(w, h)
+            img = img.resize((round(w * scale), round(h * scale)),
+                             spec.interpolation)
+            w, h = img.size
+            x0, y0 = (w - s) // 2, (h - s) // 2
+            img = img.crop((x0, y0, x0 + s, y0 + s))
+        return np.asarray(img)
 
     @staticmethod
     def _rgb(image: np.ndarray) -> np.ndarray:
@@ -151,7 +188,7 @@ class ImageProcessor:
         image = self._rgb(image)
         chans = []
         for spec in self.towers:
-            arr = np.asarray(self._geom(image, spec.size), _F32) / 255.0
+            arr = np.asarray(self._geom(image, spec), _F32) / 255.0
             chans.append((arr - np.asarray(spec.mean, _F32))
                          / np.asarray(spec.std, _F32))
         return np.concatenate(chans, axis=-1)
@@ -160,8 +197,8 @@ class ImageProcessor:
         """uint8 (H, W, 3) RGB -> uint8 (S, S, 3*T), normalization deferred
         to the device."""
         image = self._rgb(image)
-        return np.concatenate([self._geom(image, s.size)
-                               for s in self.towers], axis=-1)
+        return np.concatenate([self._geom(image, s) for s in self.towers],
+                              axis=-1)
 
     def norm_constants(self) -> Tuple[np.ndarray, np.ndarray]:
         """Channel-stacked (3*T,) fp32 mean and std for geom_only output."""
@@ -173,7 +210,9 @@ class ImageProcessor:
 
 
 def image_processor_for(vision_cfg) -> ImageProcessor:
-    """A processor matching a FusedVisionConfig (tower count and size)."""
+    """A processor matching a FusedVisionConfig (tower count and size),
+    "resize-naive"; a zoo model's caller sets ``resize_strategy`` from its
+    entry's ``image_resize_strategy``."""
     towers = [TowerSpec(size=vision_cfg.primary.image_size,
                         mean=DINO_MEAN, std=DINO_STD)]
     if vision_cfg.fused is not None:

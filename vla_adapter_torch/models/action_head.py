@@ -20,8 +20,9 @@ scales the task-stream logits; then ``ffn(attn_out + x)``.
 In training the zero chunk latents get the caller's noise (the JAX
 package's N(0, train_noise_std) draw, drawn outside the head by
 ``models/vla.py``), and under ``rt.remat`` with "head" among its
-components each block recomputes in the backward (under any policy, as
-in the JAX package).
+components each block recomputes in the backward under the "head"
+policy (``layers.remat``; "attn_only" recomputes the whole block, as in the
+JAX package).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from vla_adapter_torch.models.layers import (
     Dense,
     LayerNorm,
     Runtime,
-    checkpointed,
+    remat,
     new_param,
     normal_init_,
 )
@@ -210,13 +211,13 @@ class L1RegressionActionHead(nn.Module):
         if noise is not None:
             x = x + noise.to(dt)
         x = F.relu(self.fc_in(self.input_norm(x)))
-        remat = (self.rt.remat_policy_of("head") is not None
-                 and torch.is_grad_enabled())
+        policy = (self.rt.remat_policy_of("head")
+                  if torch.is_grad_enabled() else None)
         for i, block in enumerate(self.blocks):
             streams = (k_adapter[:, i], v_adapter[:, i], k_task[:, i],
                        v_task[:, i])
             if not cfg.use_pro_version:  # the self stream: layer i's slice
                 streams += (self.k_proj.layer(x, i), self.v_proj.layer(x, i))
-            x = checkpointed(block, x, *streams) if remat else block(x,
-                                                                     *streams)
+            x = (remat(policy, block, x, *streams) if policy is not None
+                 else block(x, *streams))
         return self.fc_out(self.out_norm(x))

@@ -21,7 +21,10 @@ rt.dtype. Which tensors train is the partition's business
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -41,9 +44,8 @@ from vla_adapter_torch.ops.w8a8_matmul import (
 
 W8A8_IMPLS = ("dense", "fused", "mega")
 REMAT_COMPONENTS = ("vit", "llm", "head")
-REMAT_POLICIES = ("nothing", "attn_only")
-# the JAX package's other policies, which name XLA's saveable values
-REMAT_NOT_PORTED = ("dots", "dots_no_batch", "mlp_saved")
+REMAT_POLICIES = ("nothing", "attn_only", "dots", "dots_no_batch",
+                  "mlp_saved")
 
 
 @dataclass(frozen=True)
@@ -71,8 +73,12 @@ class Runtime:
     "llm", "head") in the backward (``torch.utils.checkpoint``), under
     ``remat_policy`` or a per-component override in
     ``remat_policy_overrides`` (((component, policy), ...)): "nothing"
-    (the whole layer) or "attn_only" (the attention half of a ViT block or
-    decoder layer; the head recomputes its whole block).
+    (the whole layer), "attn_only" (the attention half of a ViT block or
+    decoder layer; the head recomputes its whole block), or one that keeps
+    some of the layer's products (:func:`remat`): "dots" (every product),
+    "dots_no_batch" (the products without batch dims) or "mlp_saved" (the
+    products tagged ``mlp_wide``: Qwen2's gate and up, the ViT's fc1).
+    Phi-2's layers take ``remat_policy`` itself, as the JAX package's do.
     train_base_int8 (with weights_int8, act_int8 and the "dense" backend):
     every w8a8 matmul runs :class:`W8A8STE`, the w8a8 forward with a
     straight-through backward for dx.
@@ -113,12 +119,9 @@ class Runtime:
                                  f"one of {REMAT_COMPONENTS}")
         for policy in ({self.remat_policy}
                        | {p for _, p in self.remat_policy_overrides}):
-            if policy in REMAT_NOT_PORTED:
-                raise NotImplementedError(
-                    f"remat policy {policy!r} is not ported yet "
-                    "(ROADMAP.md A.5); use 'nothing' or 'attn_only'")
             if policy not in REMAT_POLICIES:
-                raise ValueError(f"unknown remat policy {policy!r}")
+                raise ValueError(f"unknown remat policy {policy!r}: "
+                                 f"expected one of {REMAT_POLICIES}")
 
     def remat_policy_of(self, component: str):
         """The policy under which stack ``component`` ("vit", "llm" or
@@ -192,12 +195,99 @@ def int8_params(module: nn.Module, shape, device) -> None:
         requires_grad=False)
 
 
-def checkpointed(fn, *args):
-    """``fn(*args)`` recomputed in the backward (PyTorch's non-reentrant
-    checkpoint: nothing inside is kept but the inputs)."""
-    from torch.utils.checkpoint import checkpoint
+# --- remat: activation checkpointing under the JAX package's policies ------
 
-    return checkpoint(fn, *args, use_reentrant=False)
+_TAG = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Tag the products computed inside the block with ``name`` (the JAX
+    package's ``checkpoint_name`` on their result): "mlp_saved" keeps the
+    products tagged ``mlp_wide``. Per thread; the recompute runs the same
+    code, so it sees the same tags."""
+    outer = getattr(_TAG, "name", None)
+    _TAG.name = name
+    try:
+        yield
+    finally:
+        _TAG.name = outer
+
+
+def _products():
+    """The ops whose outputs the product-keeping policies save (their
+    ``dot_general``s in the JAX package): aten's matrix products, as
+    PyTorch dispatches Linear and matmul, and the w8a8 training product.
+    Attention's kernel (``vla_adapter_torch::attention``) is no product:
+    the JAX package's is a Pallas call, whose output no policy keeps."""
+    aten = torch.ops.aten
+    unbatched = {aten.mm.default, aten.addmm.default,
+                 torch.ops.vla_adapter_torch.w8a8_ste.default}
+    return unbatched | {aten.bmm.default, aten.baddbmm.default}, unbatched
+
+
+def sac_policy(policy: str):
+    """The selective-checkpoint policy function of a product-keeping remat
+    policy: MUST_SAVE the outputs of every product ("dots"), of the
+    products without batch dims ("dots_no_batch": Dense and the w8a8
+    product; not the batched ones, attention's score products on the plain
+    path and the head's BatchedDense) or of the products tagged
+    ``mlp_wide`` ("mlp_saved"); recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    every, unbatched = _products()
+
+    def keep(ctx, op, *args, **kwargs):
+        if policy == "dots":
+            saved = op in every
+        elif policy == "dots_no_batch":
+            saved = op in unbatched
+        else:
+            saved = op in every and getattr(_TAG, "name", None) == "mlp_wide"
+        return (CheckpointPolicy.MUST_SAVE if saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return keep
+
+
+def remat(policy: str, fn, *args):
+    """``fn(*args)`` recomputed in the backward (PyTorch's non-reentrant
+    checkpoint) under a remat policy: "nothing", and "attn_only" where the
+    caller checkpoints a whole layer (Phi-2, the head: the JAX package's
+    fallback), keep only the inputs; "dots", "dots_no_batch" and
+    "mlp_saved" also keep the products :func:`sac_policy` names (selective
+    activation checkpointing), so the backward recomputes the rest."""
+    from torch.utils.checkpoint import (
+        checkpoint,
+        create_selective_checkpoint_contexts,
+    )
+
+    if policy in ("nothing", "attn_only"):
+        return checkpoint(fn, *args, use_reentrant=False)
+    context = functools.partial(create_selective_checkpoint_contexts,
+                                sac_policy(policy))
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context)
+
+
+# The w8a8 training product's forward as a dispatcher op, so that a remat
+# policy sees it as one op and can keep its output (the policy sees only
+# dispatched ops); its gradient is W8A8STE's. A Function around a plain
+# op, not a custom op with torch.library.register_autograd, whose wrapper
+# adds host time to every call (a finetune step makes ~1,240; PERF.md,
+# PR 11).
+_OPS = torch.library.Library("vla_adapter_torch", "FRAGMENT")
+_OPS.define("w8a8_ste(Tensor x, Tensor weight_q, Tensor weight_scale, "
+            "str kernels) -> Tensor")
+
+
+def _w8a8_ste(x, weight_q, weight_scale, kernels: str) -> torch.Tensor:
+    lead, k = x.shape[:-1], x.shape[-1]
+    linear = w8a8_linear_reference if kernels == "plain" else w8a8_linear
+    y = linear(x.reshape(-1, k), weight_q, weight_scale, out_dtype=x.dtype)
+    return y.reshape(*lead, weight_q.shape[0])
+
+
+_OPS.impl("w8a8_ste", _w8a8_ste, "CompositeExplicitAutograd")
 
 
 class W8A8STE(torch.autograd.Function):
@@ -208,24 +298,22 @@ class W8A8STE(torch.autograd.Function):
     Forward: :func:`w8a8_product`'s math, ``quantize_rows(x)``, the int8
     product and the rank-1 dequant (kernel B4 with the quantization inside
     on the card, the plain version on the CPU or under kernels="plain"),
-    in x's dtype. Backward: the activation quantization is the identity;
-    ``dys = dy.f32 * weight_scale``, ``(dq, d_scale) = quantize_rows(dys)``,
-    ``dx = (dq @ weight_q) * d_scale`` in dy's dtype, the int8 product
-    again on B4 (quantization inside) against ``weight_qt``, the
-    ``(in, out)`` int8 copy of the weight that B4 reads as its (N, K)
-    operand (:func:`prepare_ste_`), with unit column scales: x 1.0 is
-    exact, so the result is the JAX function's bit for bit. The weight and
-    its scale get no gradient."""
+    in x's dtype, through the op ``vla_adapter_torch::w8a8_ste``. Backward:
+    the activation quantization is the identity; ``dys = dy.f32 *
+    weight_scale``, ``(dq, d_scale) = quantize_rows(dys)``, ``dx = (dq @
+    weight_q) * d_scale`` in dy's dtype, the int8 product again on B4
+    (quantization inside) against ``weight_qt``, the ``(in, out)`` int8
+    copy of the weight that B4 reads as its (N, K) operand
+    (:func:`prepare_ste_`), with unit column scales: x 1.0 is exact, so the
+    result is the JAX function's bit for bit. The weight and its scale get
+    no gradient."""
 
     @staticmethod
     def forward(ctx, x, weight_q, weight_scale, weight_qt, kernels):
         ctx.save_for_backward(weight_q, weight_scale, weight_qt)
         ctx.kernels = kernels
-        lead, k = x.shape[:-1], x.shape[-1]
-        linear = w8a8_linear_reference if kernels == "plain" else w8a8_linear
-        y = linear(x.reshape(-1, k), weight_q, weight_scale,
-                   out_dtype=x.dtype)
-        return y.reshape(*lead, weight_q.shape[0])
+        return torch.ops.vla_adapter_torch.w8a8_ste(x, weight_q, weight_scale,
+                                                    kernels)
 
     @staticmethod
     def backward(ctx, dy):

@@ -28,7 +28,7 @@ from vla_adapter_torch.models.layers import (
     Dense,
     LayerNorm,
     Runtime,
-    checkpointed,
+    remat,
     gelu,
     normal_init_,
 )
@@ -66,7 +66,10 @@ class PhiDecoderLayer(nn.Module):
 
     def __init__(self, cfg: PhiConfig, rt: Runtime, device=None):
         super().__init__()
-        self.remat = rt.remat_policy_of("llm")
+        # the JAX package's Phi layers take rt.remat_policy itself, not the
+        # "llm" override ("attn_only": the whole layer, no attention half)
+        self.remat = (rt.remat_policy if rt.remat_policy_of("llm") is not None
+                      else None)
         self.input_layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                          rt=rt, device=device)
         self.self_attn = PhiAttention(cfg, rt, device)
@@ -77,7 +80,8 @@ class PhiDecoderLayer(nn.Module):
 
     def forward(self, x, cos, sin, valid, causal: bool) -> torch.Tensor:
         if self.remat is not None and torch.is_grad_enabled():
-            return checkpointed(self._forward, x, cos, sin, valid, causal)
+            return remat(self.remat, self._forward, x, cos, sin, valid,
+                         causal)
         return self._forward(x, cos, sin, valid, causal)
 
     def _forward(self, x, cos, sin, valid, causal: bool) -> torch.Tensor:

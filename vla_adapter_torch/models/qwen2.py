@@ -7,8 +7,10 @@ the output of layer i, index L the final-norm output (the HF convention the
 action head indexes). Under the "mega" w8a8 backend each decoder layer runs
 from the attention core on as one kernel (B6), at batch 1 and
 bidirectional only. Under ``rt.remat`` with "llm" among its components
-each layer (policy "nothing") or its attention half ("attn_only")
-recomputes in the backward.
+each layer recomputes in the backward (``layers.remat``: policy "nothing",
+or keeping the products "dots", "dots_no_batch" or "mlp_saved" name, the
+MLP's gate and up tagged ``mlp_wide``), or its attention half alone
+("attn_only").
 
 The forward also takes ``input_ids`` and ``positions``, returns the tied
 head's ``logits`` (``final @ embed.weight.T`` in ``rt.dtype``, as Flax's
@@ -36,9 +38,10 @@ from vla_adapter_torch.models.layers import (
     Dense,
     RMSNorm,
     Runtime,
-    checkpointed,
+    checkpoint_name,
     fused_mlp,
     normal_init_,
+    remat,
 )
 from vla_adapter_torch.ops.attention import dot_product_attention
 from vla_adapter_torch.ops.megalayer import (
@@ -118,8 +121,9 @@ class Qwen2MLP(nn.Module):
         if self.rt.fused_mlp(*self.dims):
             return fused_mlp(x, self.gate_proj, self.down_proj, "silu",
                              self.rt, up=self.up_proj)
-        gate = torch.nn.functional.silu(self.gate_proj(x))
-        return self.down_proj(gate * self.up_proj(x))
+        with checkpoint_name("mlp_wide"):
+            gate, up = self.gate_proj(x), self.up_proj(x)
+        return self.down_proj(torch.nn.functional.silu(gate) * up)
 
 
 class Qwen2DecoderLayer(nn.Module):
@@ -144,8 +148,9 @@ class Qwen2DecoderLayer(nn.Module):
             return x + self.mlp(self.post_attention_layernorm(x)), kv
         if self.rt.mega:
             return self._mega(x, cos, sin, valid, causal)
-        if self.remat == "nothing" and torch.is_grad_enabled():
-            return checkpointed(self._forward, x, cos, sin, valid, causal)
+        if self.remat not in (None, "attn_only") and torch.is_grad_enabled():
+            return remat(self.remat, self._forward, x, cos, sin, valid,
+                         causal)
         return self._forward(x, cos, sin, valid, causal)
 
     def decode_step(self, x, k_cache, v_cache, pos, cos, sin):
@@ -162,7 +167,8 @@ class Qwen2DecoderLayer(nn.Module):
 
     def _forward(self, x, cos, sin, valid, causal: bool) -> torch.Tensor:
         if self.remat == "attn_only" and torch.is_grad_enabled():
-            x = x + checkpointed(self._attn_delta, x, cos, sin, valid, causal)
+            x = x + remat("attn_only", self._attn_delta, x, cos, sin, valid,
+                          causal)
         else:
             x = x + self._attn_delta(x, cos, sin, valid, causal)
         return x + self.mlp(self.post_attention_layernorm(x))

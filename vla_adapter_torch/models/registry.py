@@ -107,6 +107,13 @@ VISION_BACKBONES: Dict[str, FusedVisionConfig] = {
     "in1k-vit-l-224px": _single(IN1K_VIT_L_224),
 }
 
+
+def with_num_images(cfg: FusedVisionConfig, n: int) -> FusedVisionConfig:
+    """The reference's ``set_num_images_in_input(n)`` (a zoo entry's
+    ``image_sequence_len``): the same towers, n frames per sample."""
+    return dataclasses.replace(cfg, num_images=n)
+
+
 # --- LLM backbones ----------------------------------------------------------
 
 _LLAMA_STYLE = dict(rope_theta=1e4, attention_bias=False,

@@ -9,8 +9,10 @@ the raw output of block ``feature_layer``, no final norm, prefix tokens
 stripped. Only ``feature_layer + 1`` blocks are built: later blocks never
 reach the output. Input is NHWC. With ``film_llm_dim`` set, every block
 modulates its tokens between the sublayers by the language vector (FiLM).
-Under ``rt.remat`` with "vit" among its components each block (policy
-"nothing") or its attention half ("attn_only") recomputes in the backward.
+Under ``rt.remat`` with "vit" among its components each block recomputes
+in the backward (``layers.remat``: "nothing", "dots", "dots_no_batch" or
+"mlp_saved", fc1 tagged ``mlp_wide``), or its attention half alone
+("attn_only").
 """
 
 from __future__ import annotations
@@ -29,8 +31,9 @@ from vla_adapter_torch.models.layers import (
     normal_init_,
     new_param,
     activation,
-    checkpointed,
+    checkpoint_name,
     fused_mlp,
+    remat,
 )
 from vla_adapter_torch.ops.attention import dot_product_attention
 
@@ -97,7 +100,9 @@ class ViTMLP(nn.Module):
         if self.rt.fused_mlp(cfg.hidden_size, cfg.mlp_dim):
             return fused_mlp(x, self.fc1, self.fc2, cfg.mlp_activation,
                              self.rt)
-        return self.fc2(self.act(self.fc1(x)))
+        with checkpoint_name("mlp_wide"):
+            h = self.fc1(x)
+        return self.fc2(self.act(h))
 
 
 class LayerScale(nn.Module):
@@ -142,8 +147,8 @@ class ViTBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 lang: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.remat == "nothing" and torch.is_grad_enabled():
-            return checkpointed(self._forward, x, lang)
+        if self.remat not in (None, "attn_only") and torch.is_grad_enabled():
+            return remat(self.remat, self._forward, x, lang)
         return self._forward(x, lang)
 
     def _attn_delta(self, x: torch.Tensor) -> torch.Tensor:
@@ -153,7 +158,7 @@ class ViTBlock(nn.Module):
     def _forward(self, x: torch.Tensor,
                  lang: Optional[torch.Tensor]) -> torch.Tensor:
         if self.remat == "attn_only" and torch.is_grad_enabled():
-            x = x + checkpointed(self._attn_delta, x)
+            x = x + remat("attn_only", self._attn_delta, x)
         else:
             x = x + self._attn_delta(x)
         if self.film_scale is not None:

@@ -13,7 +13,9 @@ through :class:`TrainableAttention`, the counterpart of the JAX package's
 the same forward, and a backward through kernel B1-bwd (``impl="kernel"``
 on the card: from the saved ``(q, k, v, valid)`` and the forward's row
 log-sum-exp) or its plain version (on the CPU, or ``impl="plain"``:
-autograd through the recomputed forward).
+autograd through the recomputed forward). The kernel path's forward is the
+op ``vla_adapter_torch::attention``, which a remat policy sees and never
+keeps; the plain path's products it sees one by one.
 """
 
 from __future__ import annotations
@@ -55,14 +57,35 @@ def _forward(q, k, v, valid, causal: bool, sm_scale: float,
     return out.transpose(1, 2)
 
 
+# B1 with its row lse as a dispatcher op, so that a remat policy sees the
+# kernel path's attention as one op (never kept: the JAX package's is a
+# Pallas call, no product); its gradient is TrainableAttention's. A
+# Function around a plain op, as models/layers.py:W8A8STE's.
+_OPS = torch.library.Library("vla_adapter_torch", "FRAGMENT")
+_OPS.define("attention(Tensor q, Tensor k, Tensor v, Tensor? valid, "
+            "bool causal, float sm_scale) -> (Tensor, Tensor)")
+
+
+def _attention_lse(q, k, v, valid, causal: bool, sm_scale: float):
+    """B1 in (B, S, H, D) layout with each row's lse (B, H, S)."""
+    out, lse = fused_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), valid, causal=causal,
+                               sm_scale=sm_scale, return_lse=True)
+    return out.transpose(1, 2), lse
+
+
+_OPS.impl("attention", _attention_lse, "CompositeExplicitAutograd")
+
+
 class TrainableAttention(torch.autograd.Function):
     """Attention in (B, S, H, D) layout: the forward of
     :func:`dot_product_attention`, saving ``(q, k, v, valid)`` as the JAX
-    residuals and, on the kernel path, each row's lse (the same launch;
-    under remat it comes from the recomputing forward); the backward,
-    B1-bwd (``impl="kernel"``: the kernel on a CUDA tensor, its plain
-    version on a CPU one) or its plain version (``impl="plain"``), returns
-    dq (B, S, H, D) and dk, dv (B, S, Hkv, D), each contiguous."""
+    residuals and, on the kernel path (the op ``vla_adapter_torch::attention``),
+    each row's lse (the same launch; under remat it comes from the
+    recomputing forward); the backward, B1-bwd (``impl="kernel"``: the
+    kernel on a CUDA tensor, its plain version on a CPU one) or its plain
+    version (``impl="plain"``: autograd through the recomputed forward),
+    returns dq (B, S, H, D) and dk, dv (B, S, Hkv, D), each contiguous."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid, causal, sm_scale, impl):
@@ -70,10 +93,8 @@ class TrainableAttention(torch.autograd.Function):
         if impl != "kernel":
             ctx.save_for_backward(q, k, v, valid)
             return _forward(q, k, v, valid, causal, sm_scale, impl)
-        out, lse = fused_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                   v.transpose(1, 2), valid, causal=causal,
-                                   sm_scale=sm_scale, return_lse=True)
-        out = out.transpose(1, 2)
+        out, lse = torch.ops.vla_adapter_torch.attention(
+            q, k, v, valid, causal, float(sm_scale))
         ctx.save_for_backward(q, k, v, valid, lse)
         return out
 

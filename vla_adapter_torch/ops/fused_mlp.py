@@ -23,9 +23,15 @@ module, so the functions here take one layer's weights.
 The kernel splits the walk into work items, taken by a persistent grid
 from an atomic ticket: quantization items (32-row tile) write xq and the
 row scales to a scratch, up items (32-row tile, panel) hq and hs, down
-items (64-row tile, 128 output columns) sum the panels in order. :func:`mlp_plan` gives the split and the grid for a shape
-and :func:`mlp_work_items` the items in ticket order, as the kernel takes
-them.
+items (64-row tile, 128 output columns) sum the panels in order.
+:func:`mlp_plan` gives the split and the grid for a shape,
+:func:`mlp_work_items` the items in ticket order, as the kernel takes
+them, and :func:`up_item_steps` the ring steps of one up item. An up item
+keeps its 32 rows of xq resident in shared memory for the whole K where
+that fits beside the ring (the plan's "resident" branch: every flagship
+shape), else, in the gated MLP, streams them through the ring beside the
+weight tiles ("streamed": K = 4096-5120, every 7B and 13B LLM), with the
+same products, order and bits.
 
 :func:`fused_mlp_reference` repeats the arithmetic in plain PyTorch. The
 wrappers take it only for a CPU tensor; a CUDA tensor always goes to the
@@ -79,15 +85,18 @@ def ring_depth(gated: bool) -> int:
     return 4 if gated else 3
 
 
-def mlp_smem_bytes(kpad: int, panels: int, gated: bool) -> int:
+def mlp_smem_bytes(kpad: int, panels: int, gated: bool,
+                   streamed: bool = False) -> int:
     """Shared memory of an MLP stage (csrc/w8a8_mlp.cuh:mlp_smem_bytes):
-    the resident 32 rows of xq, the ring (a slot holds an up step, 128
-    rows of W1 and of Wu, or a down step, 64 rows of hq and 128 of W2), the
+    the resident 32 rows of xq (none when ``streamed``), the ring (a slot
+    holds an up step, 128 rows of W1 and of Wu, and when ``streamed`` the
+    step's 32 rows of xq, or a down step, 64 rows of hq and 128 of W2), the
     down item's panel scales, the cross-warp absmax and the row scales."""
-    slot = max((2 if gated else 1) * COL_TILE * K_STEP,
-               (DOWN_ROW_TILE + COL_TILE) * K_STEP)
-    return ROW_TILE * kpad + ring_depth(gated) * slot + 4 * (
-        DOWN_ROW_TILE * panels + WARPS * ROW_TILE + ROW_TILE)
+    up = (2 if gated else 1) * COL_TILE * K_STEP + (
+        ROW_TILE * K_STEP if streamed else 0)
+    slot = max(up, (DOWN_ROW_TILE + COL_TILE) * K_STEP)
+    return (0 if streamed else ROW_TILE * kpad) + ring_depth(gated) * slot \
+        + 4 * (DOWN_ROW_TILE * panels + WARPS * ROW_TILE + ROW_TILE)
 
 
 def ctas_per_sm(smem: int, gated: bool) -> int:
@@ -114,18 +123,25 @@ def mlp_plan(m: int, k: int, f: int, d: int, *, gated: bool,
     per shape: do not modify the result): the row tiles (32 rows for the
     quantization of x and the up items, 64 for the down items), the panel
     split (panels, the last one's real columns), the column tile of the
-    down items, the items of each kind, the persistent grid (CTAs, CTAs
-    per SM, items per CTA as "waves") and shared memory per CTA."""
+    down items, the items of each kind, the branch ("resident" where 32
+    rows of xq fit beside the ring in a block's shared memory, else, for
+    the gated MLP, "streamed"), the persistent grid (CTAs, CTAs per SM,
+    items per CTA as "waves") and shared memory per CTA (above
+    ``BLOCK_SMEM`` the wrapper refuses the shape)."""
     plan = _mlp_split(m, f, d, block_f)
-    smem = mlp_smem_bytes(_round_up(k, K_STEP), plan["panels"], gated) + 16
+    kpad = _round_up(k, K_STEP)
+    streamed = gated and (mlp_smem_bytes(kpad, plan["panels"], gated) + 16
+                          > BLOCK_SMEM)
+    smem = mlp_smem_bytes(kpad, plan["panels"], gated, streamed) + 16
     counts = {"quant_items": plan["row_tiles"],
               "up_items": plan["row_tiles"] * plan["panels"],
               "down_items": plan["down_row_tiles"] * plan["col_tiles"]}
     items = sum(counts.values())
     per_sm = ctas_per_sm(smem, gated)
     ctas = min(items, sms * per_sm)
-    return {**plan, **counts, "ctas": ctas, "ctas_per_sm": per_sm,
-            "waves": items / ctas, "smem_bytes": smem}
+    return {**plan, **counts, "k_steps": kpad // K_STEP,
+            "branch": "streamed" if streamed else "resident", "ctas": ctas,
+            "ctas_per_sm": per_sm, "waves": items / ctas, "smem_bytes": smem}
 
 
 def mlp_work_items(plan: dict) -> list:
@@ -140,6 +156,21 @@ def mlp_work_items(plan: dict) -> list:
     order = tuple(range(plan["panels"]))
     return items + [("down", t // plan["col_tiles"], t % plan["col_tiles"],
                      order) for t in range(plan["down_items"])]
+
+
+def up_item_steps(plan: dict, panel: int) -> list:
+    """The ring steps of an up item of ``panel``, in order, as
+    ``csrc/w8a8_mlp.cuh:up_item`` stages them: (first column of F, columns,
+    first byte of K, bytes) of each step's W1 (and Wu) tile and, on the
+    "streamed" branch, of its 32 rows of xq the same K window; the chunks
+    of 128 columns of the panel in order, each over every 128-byte step of
+    K. Columns past F and bytes past K are zeros in the tile."""
+    f0 = panel * plan["panel_width"]
+    width = (plan["last_panel_columns"] if panel == plan["panels"] - 1
+             else plan["panel_width"])
+    return [(f0 + c, min(COL_TILE, width - c), ks * K_STEP, K_STEP)
+            for c in range(0, width, COL_TILE)
+            for ks in range(plan["k_steps"])]
 
 
 def _sigmoid(x):
@@ -242,6 +273,20 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def launch_plan(name: str, m: int, k: int, f: int, d: int, *, gated: bool,
+                block_f: int = BLOCK_F, sms: int = SMS) -> dict:
+    """:func:`mlp_plan`, or a ValueError naming the shape where its branch
+    needs more shared memory than a block has (a gated F past ~160,000, a
+    plain MLP's K past ~4,900)."""
+    plan = mlp_plan(m, k, f, d, gated=gated, block_f=block_f, sms=sms)
+    if plan["smem_bytes"] > BLOCK_SMEM:
+        raise ValueError(
+            f"{name}: M={m}, K={k}, F={f}, D={d} needs {plan['smem_bytes']} "
+            f"bytes of shared memory per block on the {plan['branch']} "
+            f"branch; a block has {BLOCK_SMEM}")
+    return plan
+
+
 def _launch(name, x, w1, s1, up_q, up_scale, b1, w2, s2, b2, act, out_dtype,
             block_f) -> torch.Tensor:
     if x.device.type != "cuda":
@@ -275,8 +320,8 @@ def _launch(name, x, w1, s1, up_q, up_scale, b1, w2, s2, b2, act, out_dtype,
     up_q = None if up_q is None else up_q.contiguous()
     s1, s2, up_scale, b1, b2 = (None if v is None else v.float().contiguous()
                                 for v in vecs)
-    plan = mlp_plan(m, k, f, d, gated=up_q is not None, block_f=block_f,
-                    sms=cuda_lib.sm_count(x.device))
+    plan = launch_plan(name, m, k, f, d, gated=up_q is not None,
+                       block_f=block_f, sms=cuda_lib.sm_count(x.device))
     panels = plan["panels"]
     count = counters(x.device, 2 + 2 * plan["row_tiles"])
     out = torch.empty((m, d), dtype=out_dtype, device=x.device)

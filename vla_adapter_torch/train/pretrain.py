@@ -12,6 +12,7 @@ embedding and the last decoder layer (``train/stages.py``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
@@ -32,6 +33,7 @@ from vla_adapter_torch.train.partition import mark_by_
 from vla_adapter_torch.train.stages import stage_predicate, stage_update_mask
 from vla_adapter_torch.train.step import to_device
 from vla_adapter_torch.utils.overwatch import initialize_overwatch
+from vla_adapter_torch.utils.profiling import StepTimer
 
 log = initialize_overwatch(__name__)
 
@@ -103,11 +105,14 @@ def pretrain(
     rt: Optional[Runtime] = None,
     init_params: Optional[Mapping[str, torch.Tensor]] = None,
     device: Optional[str] = None,
-) -> Tuple[Dict[str, torch.Tensor], Dict[str, float]]:
+    timer: Optional[StepTimer] = None,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     """``max_steps`` steps of ``cfg.stage`` on ``device`` (default
     ``cfg.device``, the card) from a seeded init (``cfg.seed``) with
-    ``init_params`` grafted over it. Returns the final state dict and the
-    last step's metrics."""
+    ``init_params`` grafted over it, each step timed by ``timer`` when
+    given (a step ends when its loss reaches the host). Returns the final
+    state dict and the last step's metrics ("loss"), with every step's
+    loss under "losses"."""
     dev = resolve_device(device or cfg.device)
     rt = rt or Runtime(dtype=torch.bfloat16, param_dtype=torch.float32)
     model = PrismaticVLM(cfg.model, rt, device=dev)
@@ -125,9 +130,14 @@ def pretrain(
     opt_state = tx.init(trainable)
     step = make_pretrain_step(model, tx, trainable)
     metrics: Dict[str, Any] = {}
+    losses = []
     for _ in range(max_steps):
-        opt_state, metrics = step(opt_state, to_device(next(data_iter), dev))
-    return model.state_dict(), {k: float(v) for k, v in metrics.items()}
+        batch = to_device(next(data_iter), dev)
+        with timer if timer is not None else contextlib.nullcontext():
+            opt_state, metrics = step(opt_state, batch)
+            losses.append(float(metrics["loss"]))
+    return model.state_dict(), {**{k: float(v) for k, v in metrics.items()},
+                                "losses": losses}
 
 
 def main(argv=None) -> None:

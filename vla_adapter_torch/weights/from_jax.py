@@ -4,7 +4,9 @@
 arrays (``jax.device_get`` of the Flax params) and returns a state_dict for
 the port's module of the same tree: ``models.vla.VLAModel`` or
 ``models.vlm.PrismaticVLM`` (``cfg`` a VLAConfig; a Qwen2 or Phi language
-model), or a bare ``Qwen2Model`` / ``PhiModel`` (``cfg`` its LLM config).
+model, the Llama-2 and Mistral zoo backbones among the Qwen2 family: no
+attention bias, GQA, the tied head both packages build), or a bare
+``Qwen2Model`` / ``PhiModel`` (``cfg`` its LLM config).
 The port's module names mirror the Flax names, so the mapping is by
 rule:
 
