@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--out FILE] [--profile] [--only 12,...,16]
+    python3 chip_smoke.py [--out FILE] [--profile] [--only 12,...,17]
 
 Phases, in order; any failure exits non-zero:
 
@@ -178,9 +178,35 @@ Phases, in order; any failure exits non-zero:
    :func:`expected_remat_pretrain_launches`, and every run's losses and
    trained projector equal bit for bit. Every figure is printed with the
    card's name and power limit, and the phase's seconds.
+17. finetuning on demonstrations (:func:`phase_finetune_rlds`): seeded
+   synthetic trajectories in LIBERO's no-noops RLDS schema (JPEG frames of
+   256 px from PIL, state 8, actions 7 with the gripper in [-1, 1]; 20 of
+   100-300 steps for each of ``libero_spatial_no_noops`` and
+   ``libero_object_no_noops``) through the port's numpy pipeline
+   (``libero_dataset_transform``, restructure, statistics held equal to a
+   direct numpy ``compute_statistics``, normalization, chunking, decode,
+   lanczos3 to 224, augmentation) as ``RLDSDataset`` for the recipe
+   "vla-adapter+libero-spatial" (its augmentation on, its shuffle buffer
+   capped at 10,000, mock tokenizer ids), fed by ``data_loader`` with 4
+   spawn workers that see no CUDA device; every batch has the dummy
+   batch's keys, shapes and dtypes and actions in [-1, 1]. The pipeline's
+   host frames/s in this process and with the workers; then
+   ``train.loop.finetune`` trains the full-width flagship 10 steps at
+   batch 16 on it as phase 11 sets it up, B1, B1-bwd and B4 launched per
+   step as :func:`expected_train_launches` says; s/step and samples/s
+   beside phase 11's dummy-data figure, the seconds the loop waits in
+   ``next()`` per step (``utils.profiling.StepTimer``), peak memory, the
+   per-dataset loss in the metrics; :func:`kernel_vs_plain_step` on an
+   RLDS batch within phase 11's bound; the checkpoint's
+   ``dataset_statistics.json`` equal to the pipeline's, and ``load_vla``
+   (float weights of the same seed, exported with those statistics)
+   unnormalizing a chunk with them; an interleaved pass over both
+   datasets (host only) drawing each within a binomial bound of its
+   weight over 2,000 frames.
 
-``--only 12,13,14,15,16`` runs the build and any of phases 12-16 alone (no
-kernels or ok line; phase 16 alone builds no flagship).
+``--only 12,13,14,15,16,17`` runs the build and any of phases 12-17 alone
+(no kernels or ok line; phases 16 and 17 alone build no flagship; phase 17
+alone has no phase-11 figure beside its s/step).
 
 Phases 9 and 10 took 100 s on an NVIDIA H100 80GB HBM3 at 700 W beside
 110 s for phases 1-8 (their per-phase seconds are printed; phase 9's
@@ -201,9 +227,9 @@ flagship path, B1-bwd's on the train path, and ``launches_by_path`` for
 every path), and as its last
 line
 ``{"ok": true, "device": {...}}``. ``launches_by_path`` also covers the
-paths of phases 12-16: "generate", "generate_w8a8", "actions",
+paths of phases 12-17: "generate", "generate_w8a8", "actions",
 "token_train", "pretrain", "phi", "zoo_logits", "zoo_generate",
-"zoo_generate_w8a8" and "zoo_pretrain"; each entry's ``zoo_7b`` lists its
+"zoo_generate_w8a8", "zoo_pretrain" and "finetune_rlds"; each entry's ``zoo_7b`` lists its
 phase-16 call sites (per call: ms, plain, bound, library). Exits non-zero without CUDA, and when
 the ``vla_adapter_torch`` package beside this script is missing.
 """
@@ -4360,6 +4386,376 @@ def phase_zoo(card: str, seed: int) -> tuple:
     return rec, paths, zoo_kernel_summary(kernel_records)
 
 
+# --- phase 17: finetuning on demonstrations -----------------------------------
+
+LIBERO_INSTRUCTIONS = (
+    "pick up the black bowl between the plate and the ramekin and place it "
+    "on the plate",
+    "pick up the black bowl next to the ramekin and place it on the plate",
+    "pick up the alphabet soup and place it in the basket",
+    "pick up the tomato sauce and place it in the basket",
+)
+
+
+def synthetic_libero_trajectories(seed: int, num_trajs: int,
+                                  lengths=(100, 300), image_size: int = 256,
+                                  pool: int = 48) -> list:
+    """Raw trajectories in LIBERO's no-noops RLDS schema, seeded:
+    ``observation/image`` and ``observation/wrist_image`` as JPEG bytes
+    (PIL) of smooth uint8 frames (each camera's steps cycle through a pool
+    of ``pool`` encoded frames), ``observation/state`` (8, float32),
+    ``action`` (7, float32; the gripper uniform in [-1, 1]) and the
+    instruction as bytes."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+
+    def frame():
+        low = rng.integers(0, 256, size=(6, 6, 3), dtype=np.uint8)
+        img = Image.fromarray(low).resize((image_size, image_size),
+                                          Image.BILINEAR)
+        buf = io.BytesIO()
+        img.save(buf, format="JPEG", quality=90)
+        return buf.getvalue()
+
+    frames = {cam: [frame() for _ in range(pool)]
+              for cam in ("image", "wrist_image")}
+    trajs = []
+    for _ in range(num_trajs):
+        n = int(rng.integers(lengths[0], lengths[1] + 1))
+        idx = (int(rng.integers(pool)) + np.arange(n)) % pool
+        instruction = LIBERO_INSTRUCTIONS[int(rng.integers(
+            len(LIBERO_INSTRUCTIONS)))].encode()
+        trajs.append({
+            "observation": {
+                cam: np.array([frames[cam][i] for i in idx], dtype=object)
+                for cam in frames} | {
+                "state": rng.normal(size=(n, 8)).astype(np.float32)},
+            "action": np.concatenate(
+                [rng.normal(0, 0.3, size=(n, 6)),
+                 rng.uniform(-1, 1, size=(n, 1))], axis=1).astype(np.float32),
+            "language_instruction": np.array([instruction] * n, dtype=object),
+        })
+    return trajs
+
+
+# the interleaved pass of phase 17: draws over both datasets, host only
+MIXTURE_FRAMES = 2000
+LOADER_WORKERS = 4
+# batches drawn from the loader before the workers' rate is timed (their
+# first wave and the prefetched queue), then the batches timed
+LOADER_DRAIN, LOADER_TIMED = 8, 12
+
+
+def libero_kwargs(name: str, trajs: list, **over) -> dict:
+    """The OXE factory's kwargs of a LIBERO dataset with ``trajs`` as its
+    in-memory source (no TFDS reader, no statistics cache)."""
+    from vla_adapter_torch.data.rlds.oxe.materialize import (
+        make_oxe_dataset_kwargs,
+    )
+
+    kw = make_oxe_dataset_kwargs(name, "in-memory",
+                                 load_camera_views=("primary", "wrist"))
+    kw.update(data_dir=None, traj_source=trajs, **over)
+    return kw
+
+
+def direct_libero_statistics(trajs: list) -> dict:
+    """The statistics of LIBERO trajectories computed directly in numpy:
+    the gripper clipped and flipped as ``libero_dataset_transform`` does,
+    the proprio the state's EEF (6) and gripper (2) dimensions."""
+    from vla_adapter_torch.data.normalization import compute_statistics
+
+    acts = np.concatenate([np.concatenate(
+        [t["action"][:, :6], 1.0 - np.clip(t["action"][:, -1:], 0, 1)], 1)
+        for t in trajs])
+    state = np.concatenate([t["observation"]["state"] for t in trajs])
+    return {"action": compute_statistics(acts),
+            "proprio": compute_statistics(np.concatenate(
+                [state[:, :6], state[:, -2:]], 1)),
+            "num_transitions": len(acts), "num_trajectories": len(trajs)}
+
+
+def check_rlds_batch(batch, reference, where: str) -> None:
+    """Every key, shape and dtype of the dummy batch, normalized actions
+    in [-1, 1], and a dataset name per row."""
+    for key, want in reference.items():
+        got = batch.get(key)
+        if got is None or got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(
+                f"{where}: {key} is {getattr(got, 'shape', None)} "
+                f"{getattr(got, 'dtype', None)}, the dummy batch's "
+                f"{want.shape} {want.dtype}")
+    if not (np.isfinite(batch["pixel_values"]).all()
+            and np.abs(batch["actions"]).max() <= 1.0):
+        raise AssertionError(f"{where}: pixels not finite or actions "
+                             f"outside [-1, 1]")
+    if len(batch["dataset_name"]) != len(batch["actions"]):
+        raise AssertionError(f"{where}: no dataset name per row")
+
+
+class TimedBatches:
+    """The loader's batches, each checked, with the host's wait in
+    ``next()`` timed by ``StepTimer`` (the first, before the model is
+    built, not kept)."""
+
+    def __init__(self, it, reference):
+        from vla_adapter_torch.utils.profiling import StepTimer
+
+        self.it, self.reference = it, reference
+        self.timer, self.count = StepTimer(warmup=1), 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        with self.timer:
+            batch = next(self.it)
+        check_rlds_batch(batch, self.reference, f"batch {self.count}")
+        self.count += 1
+        return batch
+
+
+def rlds_mixture_shares(sources: dict, cfg, seed: int) -> dict:
+    """Dataset shares over MIXTURE_FRAMES frames of the training mixture of
+    ``sources`` (equal weights; host only, the cameras left out: the draw
+    does not look at them), each within four binomial sigmas."""
+    from vla_adapter_torch.data.rlds.dataset import make_interleaved_dataset
+    from vla_adapter_torch.data.rlds_dataset import vla_traj_transform_kwargs
+
+    kwargs = [libero_kwargs(n, t, image_obs_keys={})
+              for n, t in sources.items()]
+    frames, _ = make_interleaved_dataset(
+        kwargs, [1.0] * len(kwargs), train=True, shuffle_buffer_size=1000,
+        traj_transform_kwargs=vla_traj_transform_kwargs(cfg),
+        frame_transform_kwargs=dict(resize_size={}), seed=seed)
+    names = [bytes(f["dataset_name"]).decode()
+             for _, f in zip(range(MIXTURE_FRAMES), frames)]
+    p = 1.0 / len(sources)
+    bound = 4 * np.sqrt(p * (1 - p) / len(names))
+    shares = {n: names.count(n) / len(names) for n in sources}
+    if len(names) != MIXTURE_FRAMES or any(abs(v - p) > bound
+                                           for v in shares.values()):
+        raise AssertionError(f"mixture shares {shares} over {len(names)} "
+                             f"frames, expected {p} within {bound}")
+    return {"frames": len(names), "shares": shares, "bound": bound}
+
+
+def phase_finetune_rlds(card: str, seed: int,
+                        dummy_s_per_step=None) -> tuple:
+    """Phase 17 (module docstring): the flagship recipe trained on
+    synthetic LIBERO demonstrations through the port's RLDS pipeline.
+    Returns (record, launches of the training run)."""
+    import dataclasses as dc
+    import gc
+    import multiprocessing
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from vla_adapter_torch.core.constants import NormalizationType
+    from vla_adapter_torch.data.action_tokenizer import ActionTokenizer
+    from vla_adapter_torch.data.dummy import make_dummy_batch
+    from vla_adapter_torch.data.image_processing import image_processor_for
+    from vla_adapter_torch.data.normalization import unnormalize
+    from vla_adapter_torch.data.rlds_dataset import RLDSDataset, data_loader
+    from vla_adapter_torch.data.tokenization import MockTokenizer, TextToIds
+    from vla_adapter_torch.data.transform import VLABatchTransform
+    from vla_adapter_torch.models.lora import merge_lora
+    from vla_adapter_torch.models.vla import VLAModel
+    from vla_adapter_torch.train.checkpoints import find_resume_checkpoint
+    from vla_adapter_torch.train.finetune import config_from_experiment
+    from vla_adapter_torch.train.loop import (
+        build_runtime,
+        data_seed,
+        initial_state,
+    )
+    from vla_adapter_torch.weights.export import export_checkpoint_dir
+    from vla_adapter_torch.weights.load import load_norm_stats, load_vla
+
+    t_start = time.perf_counter()
+    dev = "cuda"
+    rec = {"card": card, "seconds": {}}
+    t_last = [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        rec["seconds"][name], t_last[0] = now - t_last[0], now
+
+    # 1. the data and the recipe's pipeline
+    cli = config_from_experiment("vla-adapter+libero-spatial")
+    tcfg = dc.replace(train_config(seed), save_freq=1000)
+    cfg = tcfg.model
+    sources = {"libero_spatial_no_noops": synthetic_libero_trajectories(
+                   seed, 20),
+               "libero_object_no_noops": synthetic_libero_trajectories(
+                   seed + 1, 20)}
+    name = cli.data.mixture
+    tok = MockTokenizer()
+    transform = VLABatchTransform(
+        cfg, TextToIds(tok), ActionTokenizer(len(tok)),
+        image_processor=image_processor_for(cfg.vision),
+        seed=data_seed(seed))
+    ds = RLDSDataset(cfg, transform, [libero_kwargs(name, sources[name])],
+                     batch_size=tcfg.batch_size, train=True,
+                     image_aug=cli.data.image_aug,
+                     shuffle_buffer_size=cli.data.shuffle_buffer_size,
+                     seed=data_seed(seed))
+    stats = ds.dataset_statistics[name]
+    direct = direct_libero_statistics(sources[name])
+    if {k: v for k, v in stats["action"].items() if k != "mask"} != \
+            direct["action"] or any(stats[k] != direct[k] for k in (
+                "proprio", "num_transitions", "num_trajectories")):
+        raise AssertionError("pipeline statistics differ from numpy's")
+    rec["data"] = {
+        "datasets": {n: {"trajectories": len(t),
+                         "steps": int(sum(len(x["action"]) for x in t))}
+                     for n, t in sources.items()},
+        "image_aug": cli.data.image_aug,
+        "shuffle_buffer": ds.shuffle_buffer_size,
+        "statistics_equal_numpy": True}
+    reference = make_dummy_batch(cfg, tcfg.batch_size,
+                                 np.random.default_rng(seed))
+    lap("1 data")
+
+    # 2. the pipeline's host rate alone, in this process
+    it0 = iter(ds)
+    rlds_batch = next(it0)
+    check_rlds_batch(rlds_batch, reference, "in-process batch")
+    t0 = time.perf_counter()
+    for _ in range(2):
+        check_rlds_batch(next(it0), reference, "in-process batch")
+    rate0 = 2 * tcfg.batch_size / (time.perf_counter() - t0)
+    del it0
+    lap("2 pipeline in process")
+
+    # 3. kernel against plain, one step on an RLDS batch
+    rt = build_runtime(tcfg)
+    init = initial_state(tcfg, rt, dev)
+    step3 = kernel_vs_plain_step(tcfg, init, rlds_batch, dev)
+    print("rlds_kernel_vs_plain " + json.dumps(dict(step3, card=card)),
+          flush=True)
+    check_kernel_vs_plain(step3)
+    rec["kernel_vs_plain"] = step3
+    del init
+    torch.cuda.empty_cache()
+    lap("3 kernel_vs_plain")
+
+    # 4. the pipeline's rate with the workers, alone
+    t_loader = time.perf_counter()
+    loader = data_loader(ds, LOADER_WORKERS)
+    next(loader)
+    startup = time.perf_counter() - t_loader
+    for _ in range(LOADER_DRAIN):
+        next(loader)
+    t0 = time.perf_counter()
+    for _ in range(LOADER_TIMED):
+        check_rlds_batch(next(loader), reference, "loader batch")
+    rate_n = LOADER_TIMED * tcfg.batch_size / (time.perf_counter() - t0)
+    rec["pipeline"] = {"frames_per_s_in_process": rate0,
+                       "frames_per_s_workers": rate_n,
+                       "workers": LOADER_WORKERS,
+                       "first_batch_s": startup, "spawn": True}
+    print("rlds_pipeline " + json.dumps(dict(rec["pipeline"], card=card)),
+          flush=True)
+    lap("4 pipeline workers")
+
+    root = Path(tempfile.mkdtemp(prefix="vla_rlds_"))
+    try:
+        # 5. the flagship recipe trained on it: the main path
+        model = VLAModel(cfg, rt, device="meta")
+        per_micro = expected_train_launches(model)
+        del model
+        timed = TimedBatches(loader, reference)
+        state, launches, wall, memory = _train_run(
+            tcfg, None, 10, root, data_iter=timed, rt=rt,
+            dataset_statistics=ds.dataset_statistics)
+        losses = [h["loss"] for h in state.history]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"RLDS finetune losses {losses}")
+        _check_train_launches(launches, per_micro, 10, "RLDS finetune")
+        step_s = statistics.median(h["step_time"] for h in state.history[2:])
+        wait = timed.timer.summary()
+        run_dir = root / tcfg.run_id
+        lines = [json.loads(x) for x in
+                 (run_dir / "metrics.jsonl").read_text().splitlines()]
+        per_dataset = sorted({k for line in lines for k in line
+                              if k.startswith(name + "/")})
+        if f"{name}/loss" not in per_dataset:
+            raise AssertionError(f"no per-dataset loss in {lines[:1]}")
+        main = {"losses": losses, "median_s_per_step_3_10": step_s,
+                "samples_per_s": tcfg.batch_size / step_s,
+                "dummy_data_s_per_step_phase_11": dummy_s_per_step,
+                "data_wait_s_per_step": wait.get("mean_s"),
+                "data_wait": wait, "data_waits_s": timed.timer.times(),
+                "batches_checked": timed.count,
+                "wall_s": wall, **memory, "launches": launches,
+                "launches_per_step_derived": per_micro,
+                "per_dataset_metrics": per_dataset}
+        print("rlds_finetune " + json.dumps(dict(main, card=card)),
+              flush=True)
+        rec["main"] = main
+        timed.it = None
+        del state, loader
+        gc.collect()
+        torch.cuda.empty_cache()
+        leftover = multiprocessing.active_children()
+        if leftover:
+            raise AssertionError(f"loader workers still running: {leftover}")
+        lap("5 finetune")
+
+        # 6. the checkpoint's statistics, served: load_vla unnormalizes
+        ckpt = find_resume_checkpoint(run_dir)
+        saved = load_norm_stats(ckpt)
+        if saved != json.loads(json.dumps(ds.dataset_statistics)):
+            raise AssertionError("checkpoint statistics differ from the "
+                                 "pipeline's")
+        fcfg = dc.replace(tcfg, base_int8=False)
+        weights = merge_lora(initial_state(fcfg, build_runtime(fcfg), dev),
+                             fcfg.lora.scale)
+        export_checkpoint_dir(weights, cfg, root / "export",
+                              norm_stats=saved)
+        del weights
+        served = load_vla(root / "export", tokenize=TextToIds(tok),
+                          center_crop=False, device=dev, cuda_graph=False)
+        (images, proprio), = _requests(cfg, np.random.default_rng(seed), 1)
+        chunk = served.predict_action(images, INSTRUCTION, proprio=proprio)
+        norm = served.normalized_actions(
+            [served.preprocess(images, INSTRUCTION, proprio)])[0]
+        want = unnormalize(norm, saved[name]["action"],
+                           NormalizationType.BOUNDS_Q99)
+        diff = float(np.abs(chunk - want).max())
+        if not (served.norm_stats == saved and diff <= 1e-6
+                and np.isfinite(chunk).all()
+                and not np.allclose(chunk[:, :6], norm[:, :6])):
+            raise AssertionError(f"load_vla's chunk {diff} from the "
+                                 "checkpoint statistics' unnormalization")
+        rec["serve"] = {"statistics_equal": True,
+                        "unnormalize_max_abs_diff": diff}
+        del served
+        torch.cuda.empty_cache()
+        lap("6 checkpoint_serve")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # 7. the interleaved mixture, host only
+    rec["mixture"] = rlds_mixture_shares(sources, cfg, seed)
+    lap("7 mixture")
+    rec["seconds"]["phase"] = time.perf_counter() - t_start
+    print("rlds_phase " + json.dumps(
+        {"card": card, "pipeline": rec["pipeline"],
+         "s_per_step": step_s, "dummy_data_s_per_step": dummy_s_per_step,
+         "data_wait_s_per_step": main["data_wait_s_per_step"],
+         "peak_memory_bytes": memory["max_memory_allocated_bytes"],
+         "mixture": rec["mixture"]["shares"], "seconds": rec["seconds"]}),
+        flush=True)
+    return rec, launches
+
+
 def causal_language_path(predictor, cfg, card: str, seed: int, phases,
                          lap) -> dict:
     """Phases 12-15 (those in ``phases``), each lapped: their records, the
@@ -4410,6 +4806,22 @@ def zoo_phase(card: str, seed: int, lap) -> tuple:
     return out
 
 
+def rlds_phase(card: str, seed: int, lap, dummy_s_per_step=None) -> tuple:
+    """Phase 17 after the earlier phases' models are freed, lapped:
+    (record, launches of its training run)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = phase_finetune_rlds(card, seed, dummy_s_per_step)
+    print(f"kernels launched on the RLDS finetune path: {sorted(out[1])}",
+          flush=True)
+    lap("17 finetune_rlds")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -4418,13 +4830,13 @@ def main() -> int:
                         help="also profile one B=1 request per tier, eager "
                              "and replayed (torch.profiler)")
     parser.add_argument("--only", default="",
-                        help="comma-separated phases among 12-16 to run "
+                        help="comma-separated phases among 12-17 to run "
                              "after the build, skipping phases 2-11; such a "
                              "partial run prints no kernels or ok line")
     args = parser.parse_args()
     only = {int(p) for p in args.only.split(",") if p}
-    if only - {12, 13, 14, 15, 16}:
-        parser.error(f"--only takes phases among 12-16, got {args.only}")
+    if only - {12, 13, 14, 15, 16, 17}:
+        parser.error(f"--only takes phases among 12-17, got {args.only}")
 
     sys.path.insert(0, HERE)
     import torch
@@ -4465,7 +4877,7 @@ def main() -> int:
 
     if only:
         causal = {}
-        if only - {16}:
+        if only & {12, 13, 14, 15}:
             cfg, predictor, n_params, _ = build_flagship(args.seed)
             causal = causal_language_path(predictor, cfg, card, args.seed,
                                           only, lap)
@@ -4474,6 +4886,8 @@ def main() -> int:
             causal["zoo"], _, causal["zoo_kernels"] = zoo_phase(card,
                                                                 args.seed,
                                                                 lap)
+        if 17 in only:
+            causal["finetune_rlds"], _ = rlds_phase(card, args.seed, lap)
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"card": card, "phase_s": phase_s, **causal}, f,
@@ -4549,6 +4963,11 @@ def main() -> int:
     # 16. the model zoo at 7B, with the flagship's models freed first
     del predictor
     zoo, zoo_paths, zoo_kernels = zoo_phase(card, args.seed, lap)
+
+    # 17. finetuning on demonstrations through the RLDS pipeline
+    rlds, rlds_launches = rlds_phase(
+        card, args.seed, lap,
+        dummy_s_per_step=train["main"]["median_s_per_step_3_10"])
     kernels = (kernel_summary(records, launches)
                + w8a8_kernel_summary(w8a8_records, w8a8_launches)
                + megalayer_kernel_summary(w8a8_records, w8a8_launches)
@@ -4556,7 +4975,7 @@ def main() -> int:
     paths = {"flagship_bf16": launches, "flagship_w8a8": w8a8_launches,
              "server": server_launches, "original_film": original_launches,
              "train": train_launches, **causal["launches_by_path"],
-             **zoo_paths}
+             **zoo_paths, "finetune_rlds": rlds_launches}
     for entry in kernels:
         entry["launches_by_path"] = {path: counts.get(entry["name"], 0)
                                      for path, counts in paths.items()}
@@ -4569,7 +4988,8 @@ def main() -> int:
                        "graph": graphs, "checkpoint": checkpoint,
                        "server": server, "original_film": original,
                        "train": train, "attention_bwd_shapes": bwd_records,
-                       **causal, "zoo": zoo, "kernels": kernels,
+                       **causal, "zoo": zoo, "finetune_rlds": rlds,
+                       "kernels": kernels,
                        "phase_s": phase_s}, f, indent=1)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,6 +20,7 @@ steps.
 import dataclasses
 import itertools
 import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -625,16 +626,45 @@ def test_experiment_recipes_match_jax(vla_id):
     assert tc.LoRAConfig().scale == jc.LoRAConfig().scale == 2.0
 
 
-def test_entry_points_refuse_without_cuda_or_data(monkeypatch):
+@pytest.mark.parametrize("vla_id", sorted(jexp.VLA_EXPERIMENTS))
+def test_config_from_experiment_seeds_data(vla_id):
+    """A recipe seeds the data mixture, augmentation and shuffle buffer as
+    the JAX CLI's does; explicit flags still win."""
+    from vla_adapter_tpu.train import finetune as jfinetune
+
+    got = tfinetune.config_from_experiment(vla_id).data
+    want = jfinetune.config_from_experiment(vla_id).data
+    for field in ("mixture", "image_aug", "shuffle_buffer_size", "root_dir",
+                  "use_dummy", "tokenizer_dir"):
+        assert getattr(got, field) == getattr(want, field), field
+    base = tfinetune.config_from_experiment(vla_id)
+    cfg = tfinetune.parse_config(
+        tfinetune.FinetuneCLIConfig,
+        ["--data.image_aug", "false", "--data.shuffle_buffer_size", "7",
+         "--data.mixture", "bridge"], base=base)
+    assert (cfg.data.image_aug, cfg.data.shuffle_buffer_size,
+            cfg.data.mixture) == (False, 7, "bridge")
+    assert cfg.train == base.train
+
+
+def test_entry_points_refuse_without_cuda_or_data(monkeypatch, tmp_path):
+    import vla_adapter_torch.data.tokenization as ttok
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(NotImplementedError, match="use_dummy"):
-        tfinetune.main(["--device", "cpu"])
+    monkeypatch.setattr(ttok, "load_qwen_tokenizer",
+                        lambda _dir: MockTokenizer(length=512))
+    # RLDS data without tensorflow_datasets: the reader's ImportError, never
+    # a quiet fall-back to dummy batches
+    monkeypatch.setitem(sys.modules, "tensorflow_datasets", None)
+    with pytest.raises(ImportError, match="tensorflow_datasets"):
+        tfinetune.main(["--device", "cpu", "--data.num_workers", "0",
+                        "--data.root_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tfinetune.main(["--data.use_dummy", "true"])
-    # the RLDS pipeline's flags come with it: none is parsed and ignored
-    with pytest.raises(KeyError, match="mixture"):
+    # the RLDS pipeline's flags are parsed; an unknown one raises
+    with pytest.raises(KeyError, match="traj_source"):
         tfinetune.main(["--data.use_dummy", "true", "--device", "cpu",
-                        "--data.mixture", "libero_spatial_no_noops"])
+                        "--data.traj_source", "x"])
     with pytest.raises(SystemExit):
         tmerge_cli.main([])
     # every JAX remat policy is ported; an unknown one raises

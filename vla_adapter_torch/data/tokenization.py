@@ -37,10 +37,15 @@ def load_qwen_tokenizer(config_dir: str,
 class MockTokenizer:
     """Deterministic stand-in for runs without tokenizer assets: words map
     to pseudo-ids by hashing. ``max_prompt_id`` bounds the ids so small test
-    vocabularies hold them."""
+    vocabularies hold them; ``len()`` is the extended Qwen2.5 tokenizer's
+    (the action tokenizer's offset)."""
 
-    def __init__(self, max_prompt_id: int = 400):
+    def __init__(self, length: int = 151921, max_prompt_id: int = 400):
+        self._len = length
         self._max_prompt_id = max_prompt_id
+
+    def __len__(self) -> int:
+        return self._len
 
     def __call__(self, text: str, add_special_tokens: bool = True):
         ids = []
@@ -51,3 +56,14 @@ class MockTokenizer:
 
     def encode(self, text: str, add_special_tokens: bool = True):
         return self(text).input_ids
+
+
+class TextToIds:
+    """``text -> ids`` of a tokenizer (special tokens added), as an object
+    that pickles into ``DataLoader`` workers where a lambda would not."""
+
+    def __init__(self, tokenizer):
+        self.tokenizer = tokenizer
+
+    def __call__(self, text: str):
+        return list(self.tokenizer(text, add_special_tokens=True).input_ids)

@@ -2,14 +2,18 @@
 reference's vla-scripts/finetune.py entry point).
 
     python -m vla_adapter_torch.train.finetune \\
-        --experiment vla-adapter+libero-spatial --data.use_dummy true \\
+        --experiment vla-adapter+libero-spatial --data.root_dir /data/rlds \\
         --train.batch_size 16 --train.optim.max_steps 10
 
-trains a named recipe (``core/experiments.py``; explicit ``--train.*``
-flags override it) on the card, or on the CPU with ``--device cpu``, and
-writes its checkpoint under ``<train.run_root_dir>/<run id>``. Only the
-``--data.use_dummy true`` batches are ported: the RLDS pipeline needs
-TFDS datasets and TensorFlow (``ROADMAP.md`` A.5).
+trains a named recipe (``core/experiments.py``; it seeds ``--train.*``
+and the data mixture, augmentation and shuffle buffer, and explicit flags
+override it) on the card, or on the CPU with ``--device cpu``, and writes
+its checkpoint, ``dataset_statistics.json`` included, under
+``<train.run_root_dir>/<run id>``. The batches come from the RLDS
+pipeline (``data/rlds_dataset.py``) over the TFDS datasets under
+``--data.root_dir``, built in ``--data.num_workers`` spawn processes; only
+its reader needs ``tensorflow_datasets``. ``--data.use_dummy true`` trains
+on random batches instead.
 """
 
 from __future__ import annotations
@@ -26,9 +30,15 @@ log = initialize_overwatch(__name__)
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    # The RLDS pipeline's fields (mixture, root_dir, image_aug, ...) come
-    # with that pipeline (ROADMAP.md A.5).
+    mixture: str = "libero_spatial_no_noops"
+    root_dir: str = "datasets/rlds"
     use_dummy: bool = False
+    image_aug: bool = True
+    shuffle_buffer_size: int = 100_000
+    tokenizer_dir: Optional[str] = None  # dir with vocab.json/merges.txt
+    # DataLoader worker processes building the batches (0: in the
+    # training process)
+    num_workers: int = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +59,46 @@ def config_from_experiment(vla_id: str) -> FinetuneCLIConfig:
     exp = get_experiment(vla_id)
     return FinetuneCLIConfig(
         train=exp.to_train_config(),
+        data=DataConfig(mixture=exp.data_mix, image_aug=exp.image_aug,
+                        shuffle_buffer_size=exp.shuffle_buffer_size),
         experiment=vla_id,
     )
+
+
+def build_data_iter(cfg: FinetuneCLIConfig):
+    """RLDS mixture -> (batch iterator, statistics for the checkpoint),
+    the JAX package's build_data_iter on one process: the whole batch,
+    split into micro-batches under accumulation."""
+    from vla_adapter_torch.data.action_tokenizer import ActionTokenizer
+    from vla_adapter_torch.data.image_processing import image_processor_for
+    from vla_adapter_torch.data.rlds.oxe.materialize import (
+        get_oxe_dataset_kwargs_and_weights,
+    )
+    from vla_adapter_torch.data.rlds_dataset import RLDSDataset, data_loader
+    from vla_adapter_torch.data.tokenization import (
+        TextToIds,
+        load_qwen_tokenizer,
+    )
+    from vla_adapter_torch.data.transform import VLABatchTransform
+    from vla_adapter_torch.train.loop import data_seed
+
+    model_cfg = cfg.train.model
+    seed = data_seed(cfg.train.seed)
+    tok = load_qwen_tokenizer(cfg.data.tokenizer_dir)
+    transform = VLABatchTransform(
+        model_cfg, tokenize=TextToIds(tok),
+        action_tokenizer=ActionTokenizer(len(tok)),
+        image_processor=image_processor_for(model_cfg.vision), seed=seed)
+    kwargs_list, weights = get_oxe_dataset_kwargs_and_weights(
+        cfg.data.root_dir, cfg.data.mixture,
+        load_camera_views=("primary", "wrist"))
+    accum = cfg.train.grad_accumulation_steps
+    ds = RLDSDataset(model_cfg, transform, kwargs_list, weights,
+                     batch_size=cfg.train.batch_size, train=True,
+                     image_aug=cfg.data.image_aug,
+                     shuffle_buffer_size=cfg.data.shuffle_buffer_size,
+                     accum_steps=accum if accum > 1 else None, seed=seed)
+    return data_loader(ds, cfg.data.num_workers), ds.dataset_statistics
 
 
 def main(argv=None):
@@ -68,12 +116,11 @@ def main(argv=None):
             log.warning("experiment %s was tuned for %d devices; training "
                         "on one (the batch size is the caller's)",
                         cfg.experiment, expected)
-    if not cfg.data.use_dummy:
-        raise NotImplementedError(
-            "RLDS data is not ported yet (ROADMAP.md A.5: it needs TFDS "
-            "datasets and TensorFlow); pass --data.use_dummy true")
     log.info("run id: %s", get_run_id(cfg.train))
-    state = finetune(cfg.train, resume=cfg.resume, device=cfg.device)
+    data_iter, stats = (None, None) if cfg.data.use_dummy \
+        else build_data_iter(cfg)
+    state = finetune(cfg.train, data_iter=data_iter, dataset_statistics=stats,
+                     resume=cfg.resume, device=cfg.device)
     log.info("step %d: loss %.4f", state.step,
              state.history[-1]["loss"] if state.history else float("nan"))
     return state

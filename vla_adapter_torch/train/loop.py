@@ -60,6 +60,12 @@ def get_run_id(cfg: TrainConfig) -> str:
             f"+{'pro' if cfg.model.head.use_pro_version else 'orig'}")
 
 
+def data_seed(seed: int) -> int:
+    """The data's seed: ``seed`` folded with process 0 through a
+    SeedSequence, the JAX package's per-process seed on one process."""
+    return int(np.random.SeedSequence([seed, 0]).generate_state(1)[0])
+
+
 def build_runtime(cfg: TrainConfig, kernels: str = "kernel") -> Runtime:
     return Runtime(
         dtype=torch.bfloat16,
@@ -134,8 +140,8 @@ def finetune(
     max_steps = max_steps if max_steps is not None else cfg.optim.max_steps
     accum = cfg.grad_accumulation_steps
     if data_iter is None:
-        seed = int(np.random.SeedSequence([cfg.seed, 0]).generate_state(1)[0])
-        data_iter = iter(DummyDataset(cfg.model, cfg.batch_size, seed=seed,
+        data_iter = iter(DummyDataset(cfg.model, cfg.batch_size,
+                                      seed=data_seed(cfg.seed),
                                       accum_steps=accum if accum > 1
                                       else None))
     first = next(data_iter)

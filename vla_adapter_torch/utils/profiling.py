@@ -69,6 +69,10 @@ class StepTimer:
         if self._count > self.warmup:
             self._times.append(dt)
 
+    def times(self) -> List[float]:
+        """The kept times, in seconds, in order."""
+        return list(self._times)
+
     def summary(self) -> Dict[str, float]:
         if not self._times:
             return {}
