@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--out FILE] [--profile] [--only 12,...,17]
+    python3 chip_smoke.py [--out FILE] [--profile] [--only 12,...,18]
 
 Phases, in order; any failure exits non-zero:
 
@@ -105,8 +105,8 @@ Phases, in order; any failure exits non-zero:
    derives them, s/step, samples/s and peak memory; one step through the
    kernels against the plain versions (:func:`kernel_vs_plain_step`);
    accumulation over 2 micro-batches with a bf16 carry and bf16 moments;
-   a resume from the step-5 checkpoint whose losses equal the unbroken
-   run's bit for bit; and a float-base run merged
+   a resume from the main run's step-6 checkpoint whose losses equal the
+   unbroken run's bit for bit; and a float-base run merged
    (``weights.merge.merge_checkpoint``), exported, loaded with
    ``load_vla`` and served under a CUDA graph within phase 5's bound of
    the trained LoRA model.
@@ -116,11 +116,11 @@ Phases, in order; any failure exits non-zero:
    quantized on the card): first B1 at the causal prefill (B=1, 4; S=128)
    and B2/B4 at a decode step's rows (M=1, 2, 4; bit for bit with their
    plain versions); "mega" must refuse to decode. Then, for bf16 and w8a8
-   at B=1 and 4, ``greedy_generate_cached`` of 64 tokens after prompts of
+   at B=1 and 4, ``greedy_generate_cached`` of 32 tokens after prompts of
    128 seeded ids, the main path, through the captured decode step, with
    the launches of exactly that call against
    :func:`expected_generate_launches`; the same call eagerly (the same
-   tokens) and 64 graphed steps against 64 eager steps from one prefill,
+   tokens) and 32 graphed steps against 32 eager steps from one prefill,
    every state tensor bit for bit; the kernel path against the plain path
    and the cached loop against the full recompute (``greedy_generate``'s
    logits), each teacher-forced on the generated tokens, by
@@ -204,8 +204,34 @@ Phases, in order; any failure exits non-zero:
    datasets (host only) drawing each within a binomial bound of its
    weight over 2,000 frames.
 
-``--only 12,13,14,15,16,17`` runs the build and any of phases 12-17 alone
-(no kernels or ok line; phases 16 and 17 alone build no flagship; phase 17
+18. closed-loop evaluation and training under a process group
+   (:func:`eval_and_group_phase`): the flagship exported with seeded
+   statistics for "libero_spatial_no_noops" and "calvin_abc_rlds" and
+   loaded with ``load_vla`` in bf16 and w8a8 "auto"; for each tier
+   ``eval_libero`` over an in-process stand-in for ``libero`` (one suite
+   of 2 tasks, 2 trials each, 256-px agent-view and wrist frames, success
+   at policy step 20) and CALVIN's ``evaluate_policy`` with
+   ``CalvinPolicy`` over 3 five-subtask chains (200-px static and 84-px
+   gripper frames, a scripted oracle, subtasks cut to 4 ensembling
+   cycles), launches counted around each run against the B=1 counts of
+   phases 5 and 6 per query; every executed action equals the
+   controller's schedule (open loop over 8, or hi3) applied to chunks the
+   same predictor returns when called directly, bit for bit; queries/s,
+   query ms p50/p99, the host ms per env step of ``prepare_observation``
+   (two JPEG round trips and resizes) and the episode's seconds. Then
+   ``eval_calvin`` under a one-rank NCCL group with the depth gather on
+   the card (the group destroyed after), ``parity_check`` record then
+   check from the exported directory (PASS at 0.0) and ``verify_smoke``
+   in its own process (its latency line). Last, in a child process
+   (:func:`group_train_child`), the flagship recipe at batch 16 for 4
+   steps without a group and on a one-rank NCCL "data" mesh, and under
+   FSDP2 on a one-rank "fsdp" mesh for a step, a checkpoint written
+   under the group, and the rest resumed from it: losses and trained
+   tensors bit for bit, B1, B1-bwd and B4 launched per step as derived,
+   s/step and peak memory. Phase 18 prints its seconds.
+
+``--only 12,...,18`` runs the build and any of phases 12-18 alone (no
+kernels or ok line; phases 16 and 17 alone build no flagship; phase 17
 alone has no phase-11 figure beside its s/step).
 
 Phases 9 and 10 took 100 s on an NVIDIA H100 80GB HBM3 at 700 W beside
@@ -219,7 +245,8 @@ With ``--profile`` phase 7 also profiles one B=1 request per tier, eager
 and replayed, and checks that the eager w8a8 tiers launch at least 3,000
 fewer kernels per request than before the quantization moved inside B4
 (``KERNELS_PER_REQUEST_BEFORE``); phase 11 profiles the third step of its
-main finetune run (device ms by kernel group, :class:`ProfiledStep`).
+main finetune run (device ms by kernel group, :class:`ProfiledStep`), and
+phase 18 step 2 of its runs without a group, on "data" and under FSDP2.
 
 Prints the card's name and power limit, one JSON line per kernel shape, a
 ``{"kernels": [...]}`` line (each kernel's ``launches`` on the bf16 or w8a8
@@ -227,9 +254,10 @@ flagship path, B1-bwd's on the train path, and ``launches_by_path`` for
 every path), and as its last
 line
 ``{"ok": true, "device": {...}}``. ``launches_by_path`` also covers the
-paths of phases 12-17: "generate", "generate_w8a8", "actions",
+paths of phases 12-18: "generate", "generate_w8a8", "actions",
 "token_train", "pretrain", "phi", "zoo_logits", "zoo_generate",
-"zoo_generate_w8a8", "zoo_pretrain" and "finetune_rlds"; each entry's ``zoo_7b`` lists its
+"zoo_generate_w8a8", "zoo_pretrain", "finetune_rlds", "eval_libero",
+"eval_calvin", "finetune_ddp" and "finetune_fsdp"; each entry's ``zoo_7b`` lists its
 phase-16 call sites (per call: ms, plain, bound, library). Exits non-zero without CUDA, and when
 the ``vla_adapter_torch`` package beside this script is missing.
 """
@@ -245,6 +273,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -983,6 +1012,7 @@ TRAIN_PROFILE_GROUPS = (
     ("GEMMs (LoRA, head, float products)", ("nvjet",)),
     ("GEMMs (LoRA, head, float products)", ("cutlass",)),
     ("optimizer", ("multi_tensor",)),
+    ("collectives (NCCL)", ("nccl",)),
     ("elementwise and reductions", ("elementwise",)),
     ("elementwise and reductions", ("reduce",)),
 )
@@ -1119,8 +1149,10 @@ def phase_train(cfg, card: str, seed: int, profile: bool = False):
         init = initial_state(tcfg, rt, dev)
         trainable_names = set(mark_trainable_(model, tcfg.lora.enabled))
         profiled = ProfiledStep(batch, 2) if profile else None
+        # every checkpoint kept: step 6's is resumed from in part 6
+        kept = dataclasses.replace(tcfg, save_latest_checkpoint_only=False)
         state, launches, wall, memory = _train_run(
-            tcfg, batch, 10, root / "main", data_iter=profiled, rt=rt)
+            kept, batch, 10, root / "main", data_iter=profiled, rt=rt)
         if profiled is not None:
             if profiled.summary is None:
                 raise AssertionError("the profiled finetune step never ran")
@@ -1154,7 +1186,6 @@ def phase_train(cfg, card: str, seed: int, profile: bool = False):
         rec["main"] = main
         main_losses = losses
         del state, final
-        shutil.rmtree(root / "main")
         torch.cuda.empty_cache()
 
         lap("3 finetune")
@@ -1192,25 +1223,25 @@ def phase_train(cfg, card: str, seed: int, profile: bool = False):
 
         lap("5 accumulation")
 
-        # 6. resume: 5 steps, then on to 10 from the step-5 checkpoint
-        _train_run(tcfg, batch, 5, root / "resume")
-        ckpt = find_resume_checkpoint(root / "resume" / tcfg.run_id)
+        # 6. resume: on to 10 from the main run's step-6 checkpoint
+        run_dir = root / "main" / tcfg.run_id
+        shutil.rmtree(run_dir / "step-000010")
+        ckpt = find_resume_checkpoint(run_dir)
         meta = json.loads((ckpt / "meta.json").read_text())
-        state = _train_run(tcfg, batch, 10, root / "resume",
-                           resume=True)[0]
+        state = _train_run(kept, batch, 10, root / "main", resume=True)[0]
         steps = [h["step"] for h in state.history]
         rlosses = [h["loss"] for h in state.history]
-        if meta != {"step": 5} or steps != list(range(5, 10)):
+        if meta != {"step": 6} or steps != list(range(6, 10)):
             raise AssertionError(f"resume: checkpoint {meta}, steps {steps}")
-        if rlosses != main_losses[5:]:
+        if rlosses != main_losses[6:]:
             raise AssertionError(f"resumed losses {rlosses} != the unbroken "
-                                 f"run's {main_losses[5:]}")
+                                 f"run's {main_losses[6:]}")
         rec["resume"] = {"checkpoint_meta": meta, "losses": rlosses,
                          "bitwise_equal_to_unbroken": True}
         print("train_resume " + json.dumps(dict(rec["resume"], card=card)),
               flush=True)
         del state
-        shutil.rmtree(root / "resume")
+        shutil.rmtree(root / "main")
         torch.cuda.empty_cache()
 
         lap("6 resume")
@@ -2918,7 +2949,7 @@ def megalayer_kernel_summary(records, launches):
 
 DEVICE = "cuda"       # where phases 14-15 build their models
 GEN_PROMPT = 128      # seeded prompt ids per sequence
-GEN_NEW = 64          # generated tokens per sequence
+GEN_NEW = 32          # generated tokens per sequence
 GEN_BATCHES = (1, 4)
 DECODE_ROWS = (1, 2, 4)  # B2/B4 checked bit for bit at these decode rows
 # kernel path vs plain path, bf16 logits of the flagship's language model
@@ -4569,11 +4600,8 @@ def phase_finetune_rlds(card: str, seed: int,
     from vla_adapter_torch.models.vla import VLAModel
     from vla_adapter_torch.train.checkpoints import find_resume_checkpoint
     from vla_adapter_torch.train.finetune import config_from_experiment
-    from vla_adapter_torch.train.loop import (
-        build_runtime,
-        data_seed,
-        initial_state,
-    )
+    from vla_adapter_torch.parallel.sharding import per_process_seed
+    from vla_adapter_torch.train.loop import build_runtime, initial_state
     from vla_adapter_torch.weights.export import export_checkpoint_dir
     from vla_adapter_torch.weights.load import load_norm_stats, load_vla
 
@@ -4599,12 +4627,12 @@ def phase_finetune_rlds(card: str, seed: int,
     transform = VLABatchTransform(
         cfg, TextToIds(tok), ActionTokenizer(len(tok)),
         image_processor=image_processor_for(cfg.vision),
-        seed=data_seed(seed))
+        seed=per_process_seed(seed))
     ds = RLDSDataset(cfg, transform, [libero_kwargs(name, sources[name])],
                      batch_size=tcfg.batch_size, train=True,
                      image_aug=cli.data.image_aug,
                      shuffle_buffer_size=cli.data.shuffle_buffer_size,
-                     seed=data_seed(seed))
+                     seed=per_process_seed(seed))
     stats = ds.dataset_statistics[name]
     direct = direct_libero_statistics(sources[name])
     if {k: v for k, v in stats["action"].items() if k != "mask"} != \
@@ -4756,6 +4784,658 @@ def phase_finetune_rlds(card: str, seed: int,
     return rec, launches
 
 
+# --- phase 18: closed-loop evaluation, and training under a process group -----
+
+# the stand-in LIBERO suite: 2 tasks, 2 trials each, every episode a success
+# at this policy step (below TASK_MAX_STEPS["libero_spatial"] = 220)
+EVAL_LIBERO_TASKS = 2
+EVAL_LIBERO_TRIALS = 2
+EVAL_LIBERO_SUCCESS_STEP = 20
+# CALVIN: 3 chains of 5 subtasks; chain c passes its first depth(c)
+# subtasks, each at this env step, and fails the next after ep_len cycles
+EVAL_CALVIN_DEPTHS = (2, 1, 0)
+EVAL_CALVIN_EP_LEN = 4
+EVAL_CALVIN_SUCCESS_STEP = 12
+EVAL_UNNORM = {"libero": "libero_spatial_no_noops",
+               "calvin": "calvin_abc_rlds"}
+
+
+def _camera_frame(size: int, seed: int) -> np.ndarray:
+    """A seeded camera-like frame: smooth gradients with mild noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    phase = rng.uniform(0, 6, size=3)
+    img = np.stack([128 + 90 * np.sin(5 * yy + 3 * xx + p) for p in phase], -1)
+    return (img + rng.normal(0, 6, img.shape)).clip(0, 255).astype(np.uint8)
+
+
+class _ScriptedLiberoEnv:
+    """OffScreenRenderEnv's surface for ``eval_libero``: seeded 256-px
+    agent-view and wrist frames, eef pose and gripper qpos; success at
+    policy step ``EVAL_LIBERO_SUCCESS_STEP``. Records each action."""
+
+    episodes = []  # each episode's actions
+
+    def __init__(self, bddl_file_name, camera_heights, camera_widths):
+        self.size = camera_heights
+        self.task = int(os.path.basename(bddl_file_name)[-1])
+        self.init = 0
+
+    def seed(self, s):
+        pass
+
+    def reset(self):
+        self.t = 0
+        self.actions = []
+        _ScriptedLiberoEnv.episodes.append(self.actions)
+
+    def set_init_state(self, state):
+        self.init = int(np.asarray(state).reshape(-1)[0])
+        return self._obs()
+
+    def _obs(self):
+        seed = 10_000 * self.task + 100 * self.init + self.t
+        return {"agentview_image": _camera_frame(self.size, seed),
+                "robot0_eye_in_hand_image": _camera_frame(self.size,
+                                                          seed + 50_000),
+                "robot0_eef_pos": np.array([0.1, -0.2, 1.0 + 0.01 * self.t]),
+                "robot0_eef_quat": np.array([0.99, 0.05, 0.1, 0.02]),
+                "robot0_gripper_qpos": np.array([0.039, -0.039])}
+
+    def step(self, action):
+        self.t += 1
+        self.actions.append(np.asarray(action, np.float64))
+        from vla_adapter_torch.eval.libero import NUM_STEPS_WAIT
+
+        return self._obs(), 0.0, \
+            self.t == NUM_STEPS_WAIT + EVAL_LIBERO_SUCCESS_STEP, {}
+
+    def close(self):
+        pass
+
+
+def _libero_modules():
+    """An in-process stand-in for the ``libero`` package: one suite
+    ("libero_spatial") of EVAL_LIBERO_TASKS tasks over
+    :class:`_ScriptedLiberoEnv`."""
+    import types
+
+    class Suite:
+        n_tasks = EVAL_LIBERO_TASKS
+
+        def get_task(self, i):
+            return types.SimpleNamespace(
+                language=f"pick up the black bowl number {i} and place it "
+                         f"on the plate", problem_folder="spatial",
+                bddl_file=f"task{i}", name=f"TASK_{i}")
+
+        def get_task_init_states(self, i):
+            return [np.array([k]) for k in range(EVAL_LIBERO_TRIALS)]
+
+    pkg = types.ModuleType("libero.libero")
+    bench = types.ModuleType("libero.libero.benchmark")
+    envs = types.ModuleType("libero.libero.envs")
+    bench.get_benchmark_dict = lambda: {"libero_spatial": Suite}
+    envs.OffScreenRenderEnv = _ScriptedLiberoEnv
+    pkg.benchmark, pkg.envs = bench, envs
+    pkg.get_libero_path = lambda kind: kind
+    root = types.ModuleType("libero")
+    root.libero = pkg
+    return {"libero": root, "libero.libero": pkg,
+            "libero.libero.benchmark": bench, "libero.libero.envs": envs}
+
+
+class _ScriptedCalvinEnv:
+    """CALVIN's env surface: seeded 200-px static and 84-px gripper
+    frames, robot_obs of 15; the chain's index rides in robot_obs[0] of
+    its initial state. Records each action."""
+
+    def reset(self, robot_obs=None, scene_obs=None):
+        self.chain, self.t, self.actions = int(robot_obs[0]), 0, []
+
+    def get_obs(self):
+        seed = 1000 * self.chain + self.t
+        return {"rgb_obs": {"rgb_static": _camera_frame(200, seed),
+                            "rgb_gripper": _camera_frame(84, seed + 7)},
+                "robot_obs": np.linspace(-0.5, 0.5, 15) + 0.01 * self.t}
+
+    def get_info(self):
+        return {"t": self.t}
+
+    def step(self, action):
+        self.t += 1
+        self.actions.append(np.asarray(action, np.float64))
+        return self.get_obs(), 0.0, False, {"t": self.t}
+
+
+class _ScriptedOracle:
+    """Subtask k of chain c succeeds EVAL_CALVIN_SUCCESS_STEP steps into
+    its rollout iff k < EVAL_CALVIN_DEPTHS[c]."""
+
+    def __init__(self, env):
+        self.env = env
+
+    def get_task_info_for_set(self, start_info, info, subtasks):
+        (sub,) = subtasks
+        k = int(sub.rsplit("_", 1)[1])
+        steps = info["t"] - start_info["t"]
+        ok = (k < EVAL_CALVIN_DEPTHS[self.env.chain]
+              and steps == EVAL_CALVIN_SUCCESS_STEP)
+        return set(subtasks) if ok else set()
+
+
+def _calvin_assets(n_chains: int):
+    env = _ScriptedCalvinEnv()
+    chains = [({"robot_obs": np.full(15, float(c)), "scene_obs": np.zeros(24)},
+               [f"task_{k}" for k in range(5)]) for c in range(n_chains)]
+    annotations = {f"task_{k}": [f"do the calvin task {k} now"]
+                   for k in range(5)}
+    return env, _ScriptedOracle(env), annotations, chains
+
+
+class _QueryLog:
+    """A policy's calls: the inputs, the outputs and each call's seconds
+    (the card synchronized before the clock stops)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.seconds = fn, [], []
+
+    def __call__(self, *args):
+        import torch
+
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        self.calls.append((args, np.array(out)))
+        return out
+
+
+def expected_forward_launches(shapes, impl: Optional[str], cfg) -> dict:
+    """Kernel launches of one B=1 forward: B1 on every attention layer, and
+    under w8a8 (``impl``) the w8a8 kernels as :func:`expected_w8a8_launches`
+    derives them (phases 5 and 6)."""
+    from vla_adapter_torch.ops import attention_kernel
+
+    want = collections.Counter()
+    n_attn = (cfg.llm.num_layers + cfg.vision.primary.resolved_feature_layer
+              + 1 + cfg.vision.fused.resolved_feature_layer + 1)
+    if impl is not None:
+        want.update(expected_w8a8_launches(shapes, impl))
+        if impl == "mega":
+            n_attn -= cfg.llm.num_layers
+    want[attention_kernel.KERNEL_NAME] += n_attn
+    return dict(want)
+
+
+def _check_query_launches(launches, per_query, queries, what):
+    want = {k: v * queries for k, v in per_query.items() if v}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want} "
+                             f"({queries} queries)")
+
+
+def eval_libero_run(pred, tier: str, per_query: dict, card: str) -> tuple:
+    """``eval_libero`` over the stand-in suite with ``pred``: launches
+    counted around exactly this call; executed actions against
+    ``process_action`` of chunks the same predictor returns directly
+    for the prepared observations. Returns (record, launches)."""
+    import vla_adapter_torch.eval.libero as libero
+    from vla_adapter_torch.eval.robot_utils import process_action
+    from vla_adapter_torch.ops import cuda_lib
+
+    def policy(obs, task):
+        return pred.predict_action([obs["full_image"], obs["wrist_image"]],
+                                   task, proprio=obs["state"],
+                                   unnorm_key=EVAL_UNNORM["libero"])
+
+    log = _QueryLog(policy)
+    host_s = []
+    prepare = libero.prepare_observation
+
+    def timed_prepare(obs, size):
+        t0 = time.perf_counter()
+        out = prepare(obs, size)
+        host_s.append(time.perf_counter() - t0)
+        return out
+
+    saved = {k: sys.modules.get(k) for k in _libero_modules()}
+    sys.modules.update(_libero_modules())
+    libero.prepare_observation = timed_prepare
+    _ScriptedLiberoEnv.episodes = []
+    try:
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        result = libero.eval_libero(log, libero.LiberoEvalConfig(
+            num_trials_per_task=EVAL_LIBERO_TRIALS))
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    finally:
+        libero.prepare_observation = prepare
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    episodes = _ScriptedLiberoEnv.episodes
+    n_eps = EVAL_LIBERO_TASKS * EVAL_LIBERO_TRIALS
+    if (result["episodes"], result["successes"]) != (n_eps, n_eps) or \
+            len(episodes) != n_eps:
+        raise AssertionError(f"eval_libero ({tier}): {result}")
+    per_episode = -(-EVAL_LIBERO_SUCCESS_STEP // 8)  # ceil(steps / 8)
+    if len(log.calls) != per_episode * n_eps:
+        raise AssertionError(f"eval_libero ({tier}): {len(log.calls)} "
+                             f"queries, expected {per_episode} x {n_eps}")
+    _check_query_launches(launches, per_query, len(log.calls),
+                          f"eval_libero ({tier})")
+    # outside the counted run: the same predictor called directly
+    from vla_adapter_torch.eval.libero import NUM_STEPS_WAIT
+
+    q = 0
+    for actions in episodes:
+        policy_actions = actions[NUM_STEPS_WAIT:]
+        if len(policy_actions) != EVAL_LIBERO_SUCCESS_STEP:
+            raise AssertionError(f"an episode ran {len(policy_actions)} "
+                                 "policy steps")
+        for step, action in enumerate(policy_actions):
+            (obs, task), chunk = log.calls[q + step // 8]
+            if step % 8 == 0:
+                direct = policy(obs, task)
+                if not np.array_equal(direct, chunk):
+                    raise AssertionError(f"eval_libero ({tier}): a chunk "
+                                         "differs from the direct call by "
+                                         f"{np.abs(direct - chunk).max()}")
+            if not np.array_equal(action, process_action(chunk[step % 8])):
+                raise AssertionError(f"eval_libero ({tier}): executed "
+                                     f"action {step} is not the chunk's")
+        q += per_episode
+    ms = np.asarray(log.seconds) * 1e3
+    rec = {"tier": tier, "card": card, "episodes": n_eps,
+           "policy_steps_per_episode": EVAL_LIBERO_SUCCESS_STEP,
+           "queries": len(log.calls), "queries_per_s": len(ms) / wall,
+           "query_ms_p50": float(np.percentile(ms, 50)),
+           "query_ms_p99": float(np.percentile(ms, 99)),
+           "prepare_observation_host_ms_per_step": 1e3 * float(np.mean(host_s)),
+           "episode_s": wall / n_eps, "wall_s": wall,
+           "launches": launches, "actions_equal_direct_chunks": True}
+    print("eval_libero " + json.dumps(rec), flush=True)
+    return rec, launches
+
+
+def calvin_run(pred, tier: str, per_query: dict, card: str,
+               n_chains: int = len(EVAL_CALVIN_DEPTHS),
+               gather: bool = False) -> tuple:
+    """``evaluate_policy`` with ``CalvinPolicy`` over the scripted chains
+    (``gather``: ``eval_calvin`` instead, under the caller's process
+    group): launches counted around exactly this call; per subtask three
+    queries per ten steps, and every executed action the hi3 schedule
+    applied to chunks the same policy returns directly for the recorded
+    observations. Returns (record, launches)."""
+    from vla_adapter_torch.eval import calvin
+    from vla_adapter_torch.eval.openloop import _HI3_SCHEDULE, HI3_CYCLE_LEN
+    from vla_adapter_torch.eval.robot_utils import process_action
+    from vla_adapter_torch.ops import cuda_lib
+
+    env, oracle, annotations, chains = _calvin_assets(n_chains)
+    cfg = calvin.CalvinEvalConfig(ep_len=EVAL_CALVIN_EP_LEN,
+                                  unnorm_key=EVAL_UNNORM["calvin"])
+    direct = calvin.CalvinPolicy(pred, cfg)
+    log = _QueryLog(direct)
+    rollouts = []  # (env steps, queries before) per subtask rollout
+    step_env = env.step
+
+    def counting_step(action):
+        out = step_env(action)
+        rollouts[-1][0].append(np.asarray(action, np.float64))
+        return out
+
+    env.step = counting_step
+    policy_cls = calvin.CalvinPolicy
+    rollout = calvin.rollout_subtask
+
+    def tracked_rollout(*args, **kw):
+        rollouts.append(([], len(log.calls)))
+        return rollout(*args, **kw)
+
+    calvin.CalvinPolicy = lambda p, c: log
+    calvin.rollout_subtask = tracked_rollout
+    try:
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        if gather:
+            result = calvin.eval_calvin(pred, (env, oracle, annotations,
+                                               chains), cfg)
+            depths = None
+        else:
+            depths = calvin.evaluate_policy(log, env, oracle, annotations,
+                                            chains, cfg)
+            result = {"avg_seq_len": calvin.avg_seq_len(depths),
+                      "num_chains": len(depths)}
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    finally:
+        calvin.CalvinPolicy = policy_cls
+        calvin.rollout_subtask = rollout
+    want_depths = list(EVAL_CALVIN_DEPTHS[:n_chains])
+    if depths is not None and depths != want_depths:
+        raise AssertionError(f"CALVIN ({tier}): depths {depths}, expected "
+                             f"{want_depths}")
+    if result["num_chains"] != n_chains or result["avg_seq_len"] != \
+            float(np.mean(want_depths)):
+        raise AssertionError(f"CALVIN ({tier}): {result}")
+    _check_query_launches(launches, per_query, len(log.calls),
+                          f"CALVIN ({tier})")
+    for i, (actions, q0) in enumerate(rollouts):
+        n = len(actions)
+        full, rem = divmod(n, HI3_CYCLE_LEN)
+        queries = 3 * full + min(rem, 3)
+        q1 = rollouts[i + 1][1] if i + 1 < len(rollouts) else len(log.calls)
+        if q1 - q0 != queries:
+            raise AssertionError(f"CALVIN ({tier}): {q1 - q0} queries in "
+                                 f"{n} steps, expected {queries}")
+        buffers, q = {}, q0
+        for t, action in enumerate(actions):
+            slot, combo = _HI3_SCHEDULE[t % HI3_CYCLE_LEN]
+            if slot is not None:
+                (obs, instruction), chunk = log.calls[q]
+                again = direct(obs, instruction)
+                if not np.array_equal(again, chunk):
+                    raise AssertionError(f"CALVIN ({tier}): a chunk differs "
+                                         "from the direct call")
+                buffers[slot], q = again, q + 1
+            want = process_action(np.mean([buffers[b][c] for b, c in combo],
+                                          axis=0))
+            if not np.array_equal(action, want):
+                raise AssertionError(f"CALVIN ({tier}): executed action {t} "
+                                     "is not the hi3 schedule's")
+    ms = np.asarray(log.seconds) * 1e3
+    steps = sum(len(a) for a, _ in rollouts)
+    rec = {"tier": tier, "card": card, "gather": gather,
+           "chains": n_chains, "result": result, "env_steps": steps,
+           "queries": len(log.calls), "queries_per_s": len(ms) / wall,
+           "query_ms_p50": float(np.percentile(ms, 50)),
+           "query_ms_p99": float(np.percentile(ms, 99)),
+           "wall_s": wall, "launches": launches,
+           "actions_equal_hi3_of_direct_chunks": True}
+    print("eval_calvin " + json.dumps(rec), flush=True)
+    return rec, launches
+
+
+def eval_tools_run(ckpt, card: str) -> dict:
+    """parity_check record then check from the exported directory (it
+    must PASS at 0.0), and verify_smoke in its own process."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from vla_adapter_torch.eval import parity_check
+
+    tmp = tempfile.mkdtemp(prefix="vla_parity_")
+    try:
+        obs = os.path.join(tmp, "obs.npz")
+        np.savez(obs, full_image=_camera_frame(256, 1),
+                 wrist_image=_camera_frame(256, 2),
+                 state=np.random.default_rng(3).normal(size=8))
+        golden = os.path.join(tmp, "golden.json")
+        common = ["--ckpt_dir", str(ckpt), "--obs", obs, "--instruction",
+                  INSTRUCTION, "--unnorm_key", EVAL_UNNORM["libero"],
+                  "--mock_tokenizer", "true"]
+        parity_check.main(["--mode", "record", "--out", golden, *common])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            parity_check.main(["--mode", "check", "--golden", golden,
+                               "--atol", "0", *common])
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        if line != {"parity": "PASS", "max_abs_diff": 0.0, "atol": 0.0}:
+            raise AssertionError(f"parity_check: {line}")
+        proc = subprocess.run(
+            [sys.executable, "-m", "vla_adapter_torch.eval.verify_smoke",
+             "--ckpt_dir", str(ckpt), "--mock_tokenizer", "true", "--iters",
+             "5", "--unnorm_key", EVAL_UNNORM["libero"]], cwd=HERE,
+            capture_output=True, text=True, timeout=300)
+        latency = [ln for ln in proc.stderr.splitlines() if "latency" in ln]
+        if proc.returncode != 0 or not latency:
+            raise AssertionError(f"verify_smoke: rc {proc.returncode}\n"
+                                 f"{proc.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"card": card, "parity_check": line,
+           "verify_smoke": latency[-1].split(":: ")[-1]}
+    print("eval_tools " + json.dumps(rec), flush=True)
+    return rec
+
+
+def phase_eval(predictor, shapes, card: str, seed: int) -> tuple:
+    """Phase 18 (a): the flagship exported with seeded statistics for
+    LIBERO and CALVIN, loaded with ``load_vla`` in bf16 and w8a8 "auto",
+    driven through ``eval_libero`` and CALVIN's ``evaluate_policy``, then
+    ``eval_calvin`` under a one-rank NCCL group (the depth gather runs,
+    and the group is destroyed after), then the parity and smoke tools.
+    Returns (record, launches by path)."""
+    import shutil
+    import tempfile
+    import torch
+
+    from vla_adapter_torch.data.normalization import dataset_statistics
+    from vla_adapter_torch.models.layers import resolve_w8a8_impl
+    from vla_adapter_torch.parallel.sharding import initialize_distributed
+    from vla_adapter_torch.weights.export import export_checkpoint_dir
+    from vla_adapter_torch.weights.load import load_vla
+
+    cfg = predictor.cfg
+    rng = np.random.default_rng(seed + 18)
+    stats = {key: dataset_statistics(
+        rng.uniform(-1, 1, size=(1000, 7)), proprio=rng.normal(size=(1000, 8)),
+        action_mask=[True] * 6 + [False]) for key in EVAL_UNNORM.values()}
+    tmp = tempfile.mkdtemp(prefix="vla_eval_")
+    rec = {"card": card}
+    paths = {"eval_libero": collections.Counter(),
+             "eval_calvin": collections.Counter()}
+    try:
+        export_checkpoint_dir(predictor.params, cfg, tmp, norm_stats=stats)
+        tiers = {"bf16": (load_vla(tmp, tokenize=predictor.tokenize), None),
+                 "w8a8 auto": (load_vla(tmp, tokenize=predictor.tokenize,
+                                        act_int8=True, w8a8_impl="auto"),
+                               resolve_w8a8_impl("auto", 1))}
+        for tier, (pred, impl) in tiers.items():
+            # the first request captures the B=1 graph: outside the runs
+            t0 = time.perf_counter()
+            pred.predict_action(
+                [_camera_frame(224, 0)] * cfg.vision.num_images, INSTRUCTION,
+                proprio=np.zeros(cfg.constants.proprio_dim),
+                unnorm_key=EVAL_UNNORM["libero"])
+            rec[f"first_query_ms {tier}"] = 1e3 * (time.perf_counter() - t0)
+            per_query = expected_forward_launches(shapes, impl, cfg)
+            rec[f"libero {tier}"], counts = eval_libero_run(
+                pred, tier, per_query, card)
+            paths["eval_libero"].update(counts)
+            rec[f"calvin {tier}"], counts = calvin_run(pred, tier, per_query,
+                                                       card)
+            paths["eval_calvin"].update(counts)
+        import torch.distributed as dist
+
+        initialize_distributed(f"tcp://localhost:{_free_port()}", 1, 0,
+                               device="cuda")
+        try:
+            from vla_adapter_torch.eval.calvin import gather_depths
+
+            pred = tiers["bf16"][0]
+            rec["eval_calvin_group"], counts = calvin_run(
+                pred, "bf16", expected_forward_launches(shapes, None, cfg),
+                card, n_chains=2, gather=True)
+            paths["eval_calvin"].update(counts)
+            # one rank gathers nothing in eval_calvin: the gather itself,
+            # an all_gather of a card tensor over NCCL
+            depths = list(EVAL_CALVIN_DEPTHS)
+            if gather_depths(depths, len(depths)) != depths:
+                raise AssertionError("gather_depths on one rank")
+            rec["eval_calvin_group"]["gather_depths_nccl"] = depths
+        finally:
+            dist.destroy_process_group()
+        del tiers, pred
+        torch.cuda.empty_cache()
+        rec["tools"] = eval_tools_run(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec, {k: dict(v) for k, v in paths.items()}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+# steps of each run of phase 18's training under a process group: a step's
+# seconds are read one step late, so steps 2-3 are the timed ones (of the
+# FSDP2 run, resumed at step 1, step 2)
+GROUP_TRAIN_STEPS = 4
+
+
+def group_train_child(out_path: str, seed: int, profile: bool = False
+                      ) -> None:
+    """Phase 18 (b), in its own process: the flagship recipe at batch 16
+    for GROUP_TRAIN_STEPS steps (i) without a process group and (ii)
+    under a one-rank NCCL group on "data"; (iii) under FSDP2 on a
+    one-rank "fsdp" mesh the first step, a checkpoint written under the
+    group, then the rest resumed from it. (ii) and (iii) must equal (i)
+    bit for bit in losses and trained tensors, and launch B1, B1-bwd and
+    B4 per step as :func:`expected_train_launches` derives them. With
+    ``profile``, step 2 of each (i), (ii) and (iii) runs under
+    :class:`ProfiledStep`. Writes the record as JSON to ``out_path``."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from vla_adapter_torch.data.dummy import make_dummy_batch
+    from vla_adapter_torch.models.vla import VLAModel
+    from vla_adapter_torch.ops import cuda_lib
+    from vla_adapter_torch.parallel import sharding
+    from vla_adapter_torch.parallel.sharding import initialize_distributed
+    from vla_adapter_torch.train.loop import build_runtime
+
+    cuda_lib.load_libraries(SOURCES)
+    card = card_line()
+    tcfg = dataclasses.replace(train_config(seed), save_freq=1000)
+    batch = make_dummy_batch(tcfg.model, tcfg.batch_size,
+                             np.random.default_rng(seed))
+    per_micro = expected_train_launches(
+        VLAModel(tcfg.model, build_runtime(tcfg), device="meta"))
+    root = Path(tempfile.mkdtemp(prefix="vla_group_"))
+    runs, rec = {}, {"card": card, "steps": GROUP_TRAIN_STEPS}
+
+    def one(name, steps=GROUP_TRAIN_STEPS, profiled_fetch=None, **kw):
+        # step 2 is the window's: the fetch of its batch, counted from the
+        # run's first (a resumed run starts at step 1)
+        prof = (ProfiledStep(batch, profiled_fetch)
+                if profile and profiled_fetch is not None else None)
+        state, launches, wall, memory = _train_run(tcfg, batch, steps,
+                                                   root / name,
+                                                   data_iter=prof, **kw)
+        full = {n: (state.sharding.full(p) if state.sharding else p
+                    ).detach().clone()
+                for n, p in state.trainable.items()}
+        dtensors = sum(type(p).__name__ == "DTensor"
+                       for p in state.model.parameters())
+        losses = [h["loss"] for h in state.history]
+        # read one step late: the first interval holds the set-up, the
+        # last only the final read
+        step_s = [h["step_time"] for h in state.history]
+        del state
+        torch.cuda.empty_cache()
+        runs[name] = (losses, full)
+        rec[name] = {"losses": losses, "step_s": step_s,
+                     "s_per_step": (statistics.median(step_s[1:-1])
+                                    if len(step_s) > 2 else None),
+                     "wall_s": wall,
+                     "peak_gib": memory["max_memory_allocated_bytes"] / 2**30,
+                     "dtensor_params": dtensors, "launches": launches}
+        _check_train_launches(launches, per_micro, len(losses), name)
+        if prof is not None:
+            rec[name]["profile"] = prof.summary
+        print(f"group_train {name} " + json.dumps(dict(rec[name],
+                                                       card=card)),
+              flush=True)
+
+    try:
+        one("alone", profiled_fetch=2)
+        initialize_distributed(f"tcp://localhost:{_free_port()}", 1, 0,
+                               device="cuda")
+        one("data", profiled_fetch=2)
+        # FSDP2 on the one-rank "fsdp" mesh: a step and a checkpoint under
+        # the group, then resumed
+        sharding.MIN_FSDP_RANKS = 1
+        one("fsdp", steps=1)
+        first = runs.pop("fsdp")[0]
+        rec["fsdp_first_step"] = rec.pop("fsdp")
+        one("fsdp", resume=True, profiled_fetch=1)
+        runs["fsdp"] = (first + runs["fsdp"][0], runs["fsdp"][1])
+        if rec["data"]["dtensor_params"] or not rec["fsdp"]["dtensor_params"]:
+            raise AssertionError("FSDP2 placed no parameter, or 'data' did")
+        for name in ("data", "fsdp"):
+            losses, full = runs[name]
+            if losses != runs["alone"][0]:
+                raise AssertionError(f"{name}: losses {losses} != "
+                                     f"{runs['alone'][0]}")
+            differ = [n for n, v in full.items()
+                      if not torch.equal(v, runs["alone"][1][n])]
+            if differ:
+                raise AssertionError(f"{name}: trained tensors differ: "
+                                     f"{differ[:5]}")
+        rec["bitwise_equal"] = ["data", "fsdp (resumed at step 1)"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+
+
+def phase_group_train(card: str, seed: int, profile: bool = False
+                      ) -> tuple:
+    """Runs :func:`group_train_child` in a child process (no process
+    group outlives it) and returns (record, launches of the "data"
+    run)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="vla_group_rec_")
+    out = os.path.join(tmp, "rec.json")
+    try:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--group-train-child", out, "--seed",
+                               str(seed)] + (["--profile"] if profile else []),
+                              cwd=HERE, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"the process-group training child exited "
+                                 f"{proc.returncode}")
+        with open(out) as f:
+            rec = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec, rec["data"]["launches"]
+
+
+def eval_and_group_phase(predictor, shapes, card: str, seed: int,
+                         lap, profile: bool = False) -> tuple:
+    """Phase 18, lapped: (record, launches by path)."""
+    t0 = time.perf_counter()
+    rec, paths = phase_eval(predictor, shapes, card, seed)
+    rec["group_train"], paths["finetune_ddp"] = phase_group_train(
+        card, seed, profile)
+    paths["finetune_fsdp"] = rec["group_train"]["fsdp"]["launches"]
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"phase 18 seconds: {rec['seconds']:.1f} ({card})", flush=True)
+    print(f"kernels launched on the eval and group paths: "
+          f"{ {k: sorted(v) for k, v in paths.items()} }", flush=True)
+    lap("18 eval group_train")
+    return rec, paths
+
+
 def causal_language_path(predictor, cfg, card: str, seed: int, phases,
                          lap) -> dict:
     """Phases 12-15 (those in ``phases``), each lapped: their records, the
@@ -4830,13 +5510,16 @@ def main() -> int:
                         help="also profile one B=1 request per tier, eager "
                              "and replayed (torch.profiler)")
     parser.add_argument("--only", default="",
-                        help="comma-separated phases among 12-17 to run "
+                        help="comma-separated phases among 12-18 to run "
                              "after the build, skipping phases 2-11; such a "
                              "partial run prints no kernels or ok line")
+    # phase 18's training under a process group runs in a child process
+    # started with this flag (the file its record goes to)
+    parser.add_argument("--group-train-child", help=argparse.SUPPRESS)
     args = parser.parse_args()
     only = {int(p) for p in args.only.split(",") if p}
-    if only - {12, 13, 14, 15, 16, 17}:
-        parser.error(f"--only takes phases among 12-17, got {args.only}")
+    if only - {12, 13, 14, 15, 16, 17, 18}:
+        parser.error(f"--only takes phases among 12-18, got {args.only}")
 
     sys.path.insert(0, HERE)
     import torch
@@ -4852,6 +5535,9 @@ def main() -> int:
         print(f"chip_smoke: vla_adapter_torch comes from {pkg}, not from "
               f"this checkout", file=sys.stderr)
         return 2
+    if args.group_train_child:
+        group_train_child(args.group_train_child, args.seed, args.profile)
+        return 0
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
@@ -4888,6 +5574,12 @@ def main() -> int:
                                                                 lap)
         if 17 in only:
             causal["finetune_rlds"], _ = rlds_phase(card, args.seed, lap)
+        if 18 in only:
+            cfg, predictor, _, _ = build_flagship(args.seed)
+            causal["eval_group"], _ = eval_and_group_phase(
+                predictor, w8a8_shapes(cfg, predictor.tokenize), card,
+                args.seed, lap, profile=args.profile)
+            del predictor
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"card": card, "phase_s": phase_s, **causal}, f,
@@ -4968,6 +5660,14 @@ def main() -> int:
     rlds, rlds_launches = rlds_phase(
         card, args.seed, lap,
         dummy_s_per_step=train["main"]["median_s_per_step_3_10"])
+
+    # 18. closed-loop evaluation and training under a process group, on
+    # the flagship built again (phase 16 freed it)
+    cfg, predictor, _, _ = build_flagship(args.seed)
+    eval_group, eval_paths = eval_and_group_phase(predictor, shapes, card,
+                                                  args.seed, lap,
+                                                  profile=args.profile)
+    del predictor
     kernels = (kernel_summary(records, launches)
                + w8a8_kernel_summary(w8a8_records, w8a8_launches)
                + megalayer_kernel_summary(w8a8_records, w8a8_launches)
@@ -4975,7 +5675,7 @@ def main() -> int:
     paths = {"flagship_bf16": launches, "flagship_w8a8": w8a8_launches,
              "server": server_launches, "original_film": original_launches,
              "train": train_launches, **causal["launches_by_path"],
-             **zoo_paths, "finetune_rlds": rlds_launches}
+             **zoo_paths, "finetune_rlds": rlds_launches, **eval_paths}
     for entry in kernels:
         entry["launches_by_path"] = {path: counts.get(entry["name"], 0)
                                      for path, counts in paths.items()}
@@ -4989,7 +5689,7 @@ def main() -> int:
                        "server": server, "original_film": original,
                        "train": train, "attention_bwd_shapes": bwd_records,
                        **causal, "zoo": zoo, "finetune_rlds": rlds,
-                       "kernels": kernels,
+                       "eval_group": eval_group, "kernels": kernels,
                        "phase_s": phase_s}, f, indent=1)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -72,11 +72,12 @@ def test_prepare_image_resize_then_crop_matches_jax(shape):
 
 
 def test_policy_size_needs_neither_tf_nor_pil(monkeypatch):
-    monkeypatch.setattr(timg, "_tf", lambda: None)
+    # the port never imports TensorFlow; PIL only for the JPEG round trip
+    monkeypatch.setitem(sys.modules, "tensorflow", None)  # import tf fails
     monkeypatch.setitem(sys.modules, "PIL", None)  # import PIL fails
     img = _images(4, n=1, size=28)[0]
     np.testing.assert_array_equal(
         timg.prepare_image(img, size=28, center_crop_scale=0.9),
         _tf_center_crop(img, 0.9, 28))
-    with pytest.raises(ImportError, match="tensorflow or PIL"):
+    with pytest.raises(ImportError, match="needs PIL"):
         timg.prepare_image(img[:20], size=28)

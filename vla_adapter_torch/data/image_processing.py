@@ -2,9 +2,11 @@
 vla_adapter_tpu/data/image_processing.py).
 
 :func:`prepare_image` is the eval-time parity step: JPEG round-trip and
-lanczos3 resize to the policy size (TF when installed, else PIL), then an
-optional center crop that :func:`center_crop` computes in numpy to
-``tf.image.crop_and_resize``'s own arithmetic, with or without TF.
+lanczos3 resize to the policy size, computed without TensorFlow to
+``tf.io.encode_jpeg`` -> ``tf.io.decode_jpeg`` -> ``tf.image.resize``'s
+pixels (:func:`_resize_to_policy`), then an optional center crop that
+:func:`center_crop` computes in numpy to ``tf.image.crop_and_resize``'s
+own arithmetic.
 :class:`ImageProcessor` applies each tower's geometry (its
 ``resize_strategy``: "resize-naive", "letterbox" or "resize-crop", with the
 tower's PIL filter, bicubic by default) and stacks the towers' channels:
@@ -13,7 +15,8 @@ uint8 (H, W, 3*T) from
 :meth:`~ImageProcessor.norm_constants`, or fp32 normalized on the host by
 calling the processor.
 
-A uint8 (size, size, 3) image needs neither TF nor PIL, cropped or not.
+A uint8 (size, size, 3) image needs no PIL, cropped or not; no path
+imports TensorFlow.
 
 :class:`PixelPool` runs :func:`pool_pixels` in ``spawn`` worker processes
 that import numpy and this module only (no ``torch``, no CUDA).
@@ -22,6 +25,7 @@ that import numpy and this module only (no ``torch``, no CUDA).
 from __future__ import annotations
 
 import contextlib
+import io
 import os
 import threading
 from dataclasses import dataclass, field
@@ -39,34 +43,31 @@ SIGLIP_STD = (0.5, 0.5, 0.5)
 _F32 = np.float32
 
 
-def _tf():
-    try:
-        import tensorflow as tf
-    except ImportError:
-        return None
-    tf.config.set_visible_devices([], "GPU")
-    return tf
-
-
 def _resize_to_policy(image: np.ndarray, size: int) -> np.ndarray:
-    """JPEG round-trip + lanczos3 resize (TF), else a lanczos resize (PIL:
-    no JPEG round-trip, close, not bit-identical)."""
-    tf = _tf()
-    if tf is not None:
-        t = tf.io.decode_jpeg(tf.io.encode_jpeg(tf.convert_to_tensor(image)))
-        t = tf.image.resize(t, (size, size), method="lanczos3",
-                            antialias=True)
-        return tf.cast(tf.clip_by_value(tf.round(t), 0, 255),
-                       tf.uint8).numpy()
+    """The reference's JPEG round-trip + lanczos3 resize, bit for bit with
+    ``tf.image.resize(tf.io.decode_jpeg(tf.io.encode_jpeg(image)), (size,
+    size), "lanczos3", antialias=True)`` rounded and clipped to uint8: PIL
+    encodes at ``encode_jpeg``'s defaults (quality 95, 4:2:0 chroma,
+    baseline, no optimized tables), ``decode_image`` decodes as libjpeg
+    does for TF (the fast IDCT, fancy upsampling) and ``resize_image``
+    resamples with TF's scale-and-translate arithmetic."""
     try:
         from PIL import Image
     except ImportError as err:
         raise ImportError(
             f"resizing a {image.shape} image to the policy size {size} needs "
-            "tensorflow or PIL, and neither is installed; images already at "
-            f"({size}, {size}, 3) need neither") from err
-    return np.asarray(Image.fromarray(image).resize((size, size),
-                                                    Image.LANCZOS))
+            f"PIL; images already at ({size}, {size}, 3) do not") from err
+
+    from vla_adapter_torch.data.rlds.obs_transforms import (
+        decode_image,
+        resize_image,
+    )
+
+    buf = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(image, np.uint8)).save(
+        buf, format="JPEG", quality=95, subsampling="4:2:0", optimize=False,
+        progressive=False)
+    return resize_image(decode_image(buf.getvalue()), (size, size))
 
 
 def _bilinear_axis(n_in: int, n_out: int, y1: np.float32, y2: np.float32):
@@ -260,8 +261,8 @@ def _pool_worker_init(barrier, started) -> None:
     """Rendezvous so that no worker takes a task before every worker is up.
     A worker respawned after start-up (the original died mid-task) skips
     the rendezvous: ``started`` is set once the warm-up probe returned.
-    The workers import numpy and this module only; TF or PIL load at the
-    first image that is not at the policy size."""
+    The workers import numpy and this module only; PIL and the JPEG
+    round trip load at the first image that is not at the policy size."""
     if barrier is not None and not (started is not None and started.is_set()):
         try:
             barrier.wait(timeout=300)

@@ -1,0 +1,458 @@
+"""Process groups, the device mesh and sharded training (counterpart of
+vla_adapter_tpu/parallel/sharding.py, which places a GSPMD mesh).
+
+The reference trains with torch DDP (the finetune recipe) and FSDP
+HYBRID_SHARD (pretraining) over NCCL. The JAX package expresses both as one
+mesh with the axes ("data", "fsdp", "tensor"); the port runs them on
+``torch.distributed``, one process per card:
+
+* "data" (mesh (N, 1, 1)): DDP semantics. Every rank holds every tensor;
+  each micro-batch's trainable gradients are averaged across ranks before
+  they enter the accumulation carry, as the JAX step's gradients are the
+  global batch's mean before its carry rounds them.
+* "fsdp" (mesh (1, N, 1)): FSDP2 ``fully_shard`` on each vision tower
+  and the action head, then on the rest of the model; each parameter
+  that :func:`param_pspec` shards is split on the dim the JAX rule picks
+  (``shard_placement_fn``), all-gathered per group for its forward and
+  again for its backward, its gradient reduce-scattered (averaged).
+  Parameters the rule leaves whole, and the int8 weights, stay out of
+  FSDP (``ignored_params``); the trainable ones are averaged as under
+  "data". So the int8 base is whole on every rank: "fsdp" shards the
+  float tensors, their gradients and the optimizer state, not the int8
+  weights (``ROADMAP.md``).
+* both (mesh (R, S, 1)): HSDP, sharded within "fsdp", replicated across
+  "data".
+* "tensor": the placement rule is here (:func:`param_pspec`, column-,
+  row- and scale-parallel as the JAX package's), but training with
+  ``tensor > 1`` needs Megatron splits inside every Dense, attention and
+  fused-MLP call site: ``ROADMAP.md`` A.5. :func:`shard_model` refuses it.
+
+Start the group with :func:`initialize_distributed` (NCCL on the card,
+gloo only when the caller asks for the CPU), or run under ``torchrun``
+(:func:`torchrun_env` reads its variables).
+
+The JAX package's batch placement helpers (``shard_batch``,
+``shard_batch_from_local``, ``batch_sharding``, ``replicated``,
+``host_local_rows``, ``params_shardings``, ``shard_params``) have no
+counterpart: each rank feeds its own rows as ordinary tensors, and
+:func:`shard_model` places the parameters.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import re
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from vla_adapter_torch.utils.overwatch import (
+    group_initialized,
+    process_count,
+    process_index,
+)
+
+DATA_AXIS = "data"
+FSDP_AXIS = "fsdp"
+TENSOR_AXIS = "tensor"
+MESH_AXES = (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS)
+# The smallest tensor (elements) the "fsdp" axis shards (the JAX rule's).
+MIN_FSDP_SIZE = 2 ** 18
+# The smallest "fsdp" dim on which shard_model runs FSDP2. At 1 a one-rank
+# mesh runs it too, its all-gather and reduce-scatter over one card.
+MIN_FSDP_RANKS = 2
+TENSOR_AXIS_ITEM = ("the \"tensor\" mesh axis (Megatron splits inside every "
+                    "Dense, attention and fused-MLP call site) is ROADMAP.md "
+                    "A.5")
+
+
+def torchrun_env() -> Optional[Tuple[str, int, int, int]]:
+    """(address, world size, rank, local rank) from ``torchrun``'s
+    variables, or None outside it."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return None
+    address = (f"tcp://{os.environ.get('MASTER_ADDR', 'localhost')}:"
+               f"{os.environ.get('MASTER_PORT', '29500')}")
+    rank = int(os.environ["RANK"])
+    return (address, int(os.environ["WORLD_SIZE"]), rank,
+            int(os.environ.get("LOCAL_RANK", rank)))
+
+
+def initialize_distributed(address: Optional[str] = None,
+                           world: Optional[int] = None,
+                           rank: Optional[int] = None,
+                           local_rank: Optional[int] = None,
+                           device: str = "cuda") -> None:
+    """Start the process group (``init_process_group``): NCCL on the card,
+    with this process on card ``local_rank`` (default: the rank), or gloo
+    when ``device`` is "cpu". Never falls back from one to the other.
+    Without an ``address`` this is a single-process run and nothing
+    starts; a second call is a no-op."""
+    if address is None or group_initialized():
+        return
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("initialize_distributed: NCCL needs a card; "
+                               "pass device=\"cpu\" for gloo")
+        torch.cuda.set_device(rank if local_rank is None else local_rank)
+        backend = "nccl"
+    elif torch.device(device).type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"initialize_distributed: device {device!r}")
+    dist.init_process_group(backend, init_method=address, world_size=world,
+                            rank=rank)
+
+
+def create_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1):
+    """A ``DeviceMesh`` with the dims ("data", "fsdp", "tensor") over the
+    process group's ranks (one card each); data=-1: the ranks left. Needs
+    an initialized process group."""
+    if not group_initialized():
+        raise RuntimeError("create_mesh needs a process group "
+                           "(initialize_distributed)")
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = process_count()
+    if data == -1:
+        assert n % (fsdp * tensor) == 0, (n, fsdp, tensor)
+        data = n // (fsdp * tensor)
+    need = data * fsdp * tensor
+    assert need <= n, (data, fsdp, tensor, n)
+    ranks = torch.arange(need).reshape(data, fsdp, tensor)
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, ranks, mesh_dim_names=MESH_AXES)
+
+
+# --- the placement rule ------------------------------------------------------
+
+# The JAX package's tensor-parallel regexes over the port's names (a Flax
+# ``kernel`` is the port's ``weight``, ``kernel_q`` its ``weight_q``,
+# ``kernel_scale`` its ``weight_scale``): column-parallel q/k/v, MLP-up
+# and fc1 kernels, row-parallel o/down/fc2 kernels, and the int8 scales of
+# the column-split kernels.
+_TP_COL = re.compile(
+    r"(q_proj|k_proj|v_proj|gate_proj|up_proj|fc1|fc_in)\.weight(_q)?$")
+_TP_ROW = re.compile(r"(o_proj|down_proj|out_proj|fc2|fc_out)\.weight(_q)?$")
+_TP_COL_SCALE = re.compile(
+    r"(q_proj|k_proj|v_proj|gate_proj|up_proj|fc1|fc_in)\.weight_scale$")
+
+LAYOUTS = ("same", "transposed", "conv")
+
+
+def _jax_view(shape: Sequence[int], layers: int, layout: str):
+    """The tensor as the JAX package holds it: [(size, port dim or None)]
+    per JAX dim. A port tensor of a scanned stack is one layer of a JAX
+    array with a leading L; a Dense weight (out, in) and an int8 weight_q
+    (..., out, in) are the JAX (..., in, out); the patch embedding (out,
+    kh*kw*in) is the JAX (kh, kw, in, out), of whose dims only out is a
+    port dim."""
+    dims = [(int(s), d) for d, s in enumerate(shape)]
+    if layout == "transposed":
+        dims[-2:] = dims[-2:][::-1]
+    elif layout == "conv":
+        (out, _), (k, _) = dims
+        dims = [(1, None), (1, None), (k, None), (out, 0)]
+    elif layout != "same":
+        raise ValueError(f"layout {layout!r}: expected one of {LAYOUTS}")
+    return ([(layers, None)] if layers is not None else []) + dims
+
+
+def _jax_spec(name: str, view, fsdp_size: int, tensor_size: int,
+              min_fsdp_size: int, any_fsdp: bool = False) -> List:
+    """The JAX package's param_pspec over the JAX view. ``any_fsdp``: pick
+    the FSDP dim even at fsdp_size 1 (where every dim divides)."""
+    ndim = len(view)
+    spec = [None] * ndim
+    if tensor_size > 1:
+        if ndim >= 2 and _TP_COL.search(name) and \
+                view[-1][0] % tensor_size == 0:
+            spec[-1] = TENSOR_AXIS
+        elif ndim >= 2 and _TP_ROW.search(name) and \
+                view[-2][0] % tensor_size == 0:
+            spec[-2] = TENSOR_AXIS
+        elif _TP_COL_SCALE.search(name) and view[-1][0] % tensor_size == 0:
+            spec[-1] = TENSOR_AXIS
+    size = math.prod(s for s, _ in view)
+    if (fsdp_size > 1 or any_fsdp) and size >= min_fsdp_size:
+        # all but a stack's leading layer axis; the trailing dim first
+        start = 1 if ndim >= 3 else 0
+        for d in range(ndim - 1, start - 1, -1):
+            if spec[d] is None and view[d][0] % fsdp_size == 0:
+                spec[d] = FSDP_AXIS
+                break
+    return spec
+
+
+def _to_port(spec, view, ndim: int) -> Tuple:
+    out = [None] * ndim
+    for axis, (_, port_dim) in zip(spec, view):
+        if axis is not None and port_dim is not None:
+            out[port_dim] = axis
+    return tuple(out)
+
+
+def param_pspec(name: str, shape: Sequence[int], fsdp_size: int,
+                tensor_size: int = 1, min_fsdp_size: int = MIN_FSDP_SIZE,
+                layers: Optional[int] = None, layout: str = "same") -> Tuple:
+    """The mesh axis of each of the port tensor's dims (None: whole), by
+    the JAX package's rule. FSDP: the largest divisible dim of a tensor of
+    at least ``min_fsdp_size`` elements, the JAX layout's trailing dim
+    first (a Dense weight's out dim, the port's dim 0), never a stack's
+    leading layer axis. TP: the column-, row- and scale-parallel splits.
+    ``layers``: the size of the scanned stack the tensor is one layer of
+    (the JAX array's L; None outside a stack). ``layout``: "transposed" for a
+    Dense weight and an int8 weight_q, "conv" for the patch embedding,
+    else "same". Where the JAX rule picks a dim the port's tensor does not
+    have (the L of an (L, N) stack, a patch kernel's kh/kw/in), the port
+    keeps the tensor whole."""
+    view = _jax_view(shape, layers, layout)
+    spec = _jax_spec(name, view, fsdp_size, tensor_size, min_fsdp_size)
+    return _to_port(spec, view, len(shape))
+
+
+def param_layouts(model: nn.Module) -> Dict[str, Tuple[int, str]]:
+    """(layers, layout) of each of the model's parameters, for
+    :func:`param_pspec`."""
+    from vla_adapter_torch.models.layers import Dense
+    from vla_adapter_torch.models.vit import PatchEmbed
+
+    out = {}
+    for mod_name, module in model.named_modules():
+        parts = mod_name.split(".") if mod_name else []
+        layers = None
+        for i in range(len(parts) - 1):
+            if parts[i] in ("layers", "blocks") and parts[i + 1].isdigit():
+                layers = len(model.get_submodule(".".join(parts[:i + 1])))
+        for leaf, _ in module.named_parameters(recurse=False):
+            if isinstance(module, PatchEmbed) and leaf in ("weight",
+                                                           "weight_q"):
+                layout = "conv"
+            elif leaf == "weight_q" or (leaf == "weight"
+                                        and isinstance(module, Dense)):
+                layout = "transposed"
+            else:
+                layout = "same"
+            out[".".join(parts + [leaf])] = (layers, layout)
+    return out
+
+
+def model_pspecs(model: nn.Module, fsdp_size: int, tensor_size: int = 1,
+                 min_fsdp_size: int = MIN_FSDP_SIZE) -> Dict[str, Tuple]:
+    """:func:`param_pspec` of every parameter of ``model``, by name."""
+    params = dict(model.named_parameters())
+    return {name: param_pspec(name, params[name].shape, fsdp_size,
+                              tensor_size, min_fsdp_size, layers, layout)
+            for name, (layers, layout) in param_layouts(model).items()}
+
+
+def fsdp_dims(model: nn.Module, fsdp_size: int,
+              min_fsdp_size: Optional[int] = None) -> Dict[str, int]:
+    """The dim FSDP splits, of each parameter the rule shards: the
+    :func:`param_pspec` choice, taken at fsdp_size 1 too (every dim
+    divides there, so the rule's first candidate). ``min_fsdp_size``:
+    by default :data:`MIN_FSDP_SIZE`."""
+    if min_fsdp_size is None:
+        min_fsdp_size = MIN_FSDP_SIZE
+    params = dict(model.named_parameters())
+    out = {}
+    for name, (layers, layout) in param_layouts(model).items():
+        view = _jax_view(params[name].shape, layers, layout)
+        spec = _to_port(_jax_spec(name, view, fsdp_size, 1, min_fsdp_size,
+                                  any_fsdp=True),
+                        view, params[name].ndim)
+        if FSDP_AXIS in spec:
+            out[name] = spec.index(FSDP_AXIS)
+    return out
+
+
+# --- per-process data ---------------------------------------------------------
+
+def per_process_seed(seed: int, rank: Optional[int] = None) -> int:
+    """A distinct, deterministic data seed per process: ``seed`` and the
+    rank through a SeedSequence (the reference seeds one RLDS pipeline per
+    rank, so ranks never repeat each other's shuffles)."""
+    pi = process_index() if rank is None else rank
+    return int(np.random.SeedSequence([seed, pi]).generate_state(1)[0])
+
+
+def process_local_batch_size(global_batch_size: int) -> int:
+    """This process's share of the global batch (the config's batch size
+    is global, whatever the topology)."""
+    n = process_count()
+    assert global_batch_size % n == 0, (global_batch_size, n)
+    return global_batch_size // n
+
+
+# --- the model on the mesh ------------------------------------------------------
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's part of a tensor: a DTensor's local shard, else the
+    tensor."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
+@dataclass
+class Sharding:
+    """How :func:`shard_model` placed a model: the mesh, the FSDP-managed
+    parameters (name -> dim) and the group that reduces the rest."""
+
+    mesh: object
+    fsdp_dims: Dict[str, int] = field(default_factory=dict)
+
+    @property
+    def world(self) -> int:
+        return self.mesh.size()
+
+    def _fsdp_group(self):
+        return self.mesh[FSDP_AXIS].get_group()
+
+    def reduce_gradients(self, grads: List[torch.Tensor]
+                         ) -> List[torch.Tensor]:
+        """Average the gradients FSDP did not reduce (plain tensors) over
+        every rank, in one flat buffer per dtype; FSDP's own (DTensors,
+        already reduce-scattered and averaged) pass through."""
+        plain = [i for i, g in enumerate(grads) if not _is_dtensor(g)]
+        out = list(grads)
+        by_dtype: Dict[torch.dtype, List[int]] = {}
+        for i in plain:
+            by_dtype.setdefault(grads[i].dtype, []).append(i)
+        for idx in by_dtype.values():
+            flat = torch.cat([grads[i].reshape(-1) for i in idx])
+            dist.all_reduce(flat)
+            flat = flat / torch.full((), float(self.world), dtype=flat.dtype,
+                                     device=flat.device)
+            offset = 0
+            for i in idx:
+                n = grads[i].numel()
+                out[i] = flat[offset:offset + n].view_as(grads[i])
+                offset += n
+        return out
+
+    def global_norm(self, tensors: Sequence[torch.Tensor],
+                    sharded: Sequence[bool]) -> torch.Tensor:
+        """``optim.global_norm`` of the full tensors from this rank's
+        parts: each tensor's fp32 sum of squares, those of sharded tensors
+        summed over the "fsdp" group, then added in order (the unsharded
+        sum's order) and the root taken."""
+        sq = torch.stack([t.float().square().sum() for t in tensors])
+        mask = torch.as_tensor(list(sharded), device=sq.device)
+        if mask.any():
+            part = torch.where(mask, sq, torch.zeros_like(sq))
+            dist.all_reduce(part, group=self._fsdp_group())
+            sq = torch.where(mask, part, sq)
+        return torch.sqrt(sum(sq.unbind()))
+
+    def mean_metrics(self, metrics: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """The global batch's metrics: each scalar averaged over every
+        rank (every rank sees the same values)."""
+        if not metrics:
+            return metrics
+        names = list(metrics)
+        vec = torch.stack([metrics[k].float() for k in names])
+        dist.all_reduce(vec)
+        vec = vec / torch.full((), float(self.world), dtype=vec.dtype,
+                               device=vec.device)
+        return dict(zip(names, vec.unbind()))
+
+    def full(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor on every rank (a collective for a DTensor)."""
+        return t.full_tensor() if _is_dtensor(t) else t
+
+    def full_like(self, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of ``t``, this rank's shard of a tensor placed
+        as the DTensor ``like`` (an optimizer moment of a sharded
+        parameter)."""
+        if not _is_dtensor(like):
+            return t
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(t, like.device_mesh, like.placements,
+                                  shape=like.shape,
+                                  stride=like.stride()).full_tensor()
+
+    def local_slice(self, full: torch.Tensor, like: torch.Tensor
+                    ) -> torch.Tensor:
+        """This rank's shard of ``full`` as the DTensor ``like`` holds
+        its own (shards are even: the rule picks divisible dims)."""
+        if not _is_dtensor(like):
+            return full
+        mesh = like.device_mesh
+        out = full
+        for i, placement in enumerate(like.placements):
+            if placement.is_shard():
+                out = out.chunk(mesh.size(i), dim=placement.dim)[
+                    mesh.get_local_rank(i)]
+        return out.contiguous()
+
+
+def _groups(model: nn.Module) -> List[nn.Module]:
+    """The modules FSDP2 gathers and frees as one group each, before the
+    rest of the model: each vision tower and the action head. Not the
+    decoder: the VLA reads its token embedding outside its forward, and a
+    group per decoder layer would change the order in which each layer
+    input's gradient is summed (the hidden-state stack reads the input
+    too, and FSDP2 adds a node on a group's inputs), so the run would no
+    longer equal the unsharded one bit for bit."""
+    from vla_adapter_torch.models.action_head import L1RegressionActionHead
+    from vla_adapter_torch.models.vit import VisionTransformer
+
+    return [m for m in model.modules()
+            if isinstance(m, (VisionTransformer, L1RegressionActionHead))]
+
+
+def shard_model(model: nn.Module, mesh) -> Sharding:
+    """Place ``model`` (its whole state on this rank's device) on
+    ``mesh``. On an "fsdp" dim below :data:`MIN_FSDP_RANKS` nothing moves:
+    the step averages the gradients ("data"). Otherwise FSDP2
+    ``fully_shard`` takes every floating-point parameter the rule shards
+    (:data:`MIN_FSDP_SIZE`), on its dim, frozen ones included: one group
+    per vision tower and one for the action head (each gathered for its
+    forward, freed after it and gathered again for its backward, also
+    around a recompute), and one for the rest, the decoder's layers
+    included (gathered for the whole step); HSDP over ("data", "fsdp")
+    when "data" is above 1. Parameters the rule leaves whole stay whole
+    (``ignored_params``), and so do the int8 weights (``weight_q``): FSDP2
+    in torch 2.11 makes each sharded parameter with
+    ``requires_grad=True``, which an integer tensor refuses; their float
+    scales are sharded. Re-read the model's parameters afterwards: FSDP2
+    replaces them with DTensors. Raises for a "tensor" dim above 1."""
+    tensor = mesh[TENSOR_AXIS].size()
+    if tensor > 1:
+        raise NotImplementedError(f"training with tensor={tensor}: "
+                                  f"{TENSOR_AXIS_ITEM}")
+    if mesh.size() != process_count():
+        raise ValueError(f"a mesh of {mesh.size()} ranks in a group of "
+                         f"{process_count()}: every rank trains")
+    fsdp_size = mesh[FSDP_AXIS].size()
+    sharding = Sharding(mesh=mesh)
+    if fsdp_size < MIN_FSDP_RANKS:
+        return sharding
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    params = dict(model.named_parameters())
+    dims = {n: d for n, d in fsdp_dims(model, fsdp_size).items()
+            if params[n].is_floating_point()}
+    by_id = {id(params[n]): d for n, d in dims.items()}
+    dp_mesh = (mesh[(DATA_AXIS, FSDP_AXIS)] if mesh[DATA_AXIS].size() > 1
+               else mesh[FSDP_AXIS])
+    ignored = {p for n, p in params.items() if n not in dims}
+    for module in _groups(model) + [model]:
+        fully_shard(module, mesh=dp_mesh,
+                    shard_placement_fn=lambda p: Shard(by_id[id(p)]),
+                    ignored_params=ignored)
+    sharding.fsdp_dims = dims
+    return sharding

@@ -7,8 +7,12 @@ when every checkpoint is kept) holds ``trainable``, ``frozen`` and
 ``dataset_statistics.json``; a ``latest`` is written into
 ``latest.tmp`` and swapped in at the end, so a run cut during the write
 keeps its previous checkpoint. Each part is one safetensors file written
-with the port's own writer (``weights/safetensors_io.py``). One process
-writes (the port trains on one device).
+with the port's own writer (``weights/safetensors_io.py``). Under a
+process group (``state.sharding``) every rank gathers the whole state
+(FSDP2's shards through ``full_tensor``) and rank 0 writes the same files
+a single process writes, between barriers where the JAX package syncs its
+processes; ``load_checkpoint`` reads the whole state, which the loop then
+shards onto the mesh.
 """
 
 from __future__ import annotations
@@ -46,28 +50,57 @@ def unflatten_opt_state(flat: Dict[str, torch.Tensor]) -> dict:
     return state
 
 
+def _barrier(state) -> None:
+    if state.sharding is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def _whole_state(state):
+    """(trainable, frozen, optimizer state) as whole tensors; under a
+    process group every rank gathers them, in the same order."""
+    sh = state.sharding
+    if sh is None:
+        return state.trainable, state.frozen(), state.opt_state
+    trainable = {n: sh.full(p) for n, p in state.trainable.items()}
+    frozen = {n: sh.full(v) for n, v in state.frozen().items()}
+    opt = dict(state.opt_state)
+    for part in ("mu", "nu"):
+        opt[part] = {n: sh.full_like(v, state.trainable[n])
+                     for n, v in state.opt_state[part].items()}
+    return trainable, frozen, opt
+
+
 def save_checkpoint(run_dir, state, dataset_statistics: Optional[Dict] = None,
                     latest_only: bool = True) -> Path:
-    """Write ``state`` (a ``train.step.TrainState``) under ``run_dir``."""
+    """Write ``state`` (a ``train.step.TrainState``) under ``run_dir``;
+    under a process group every rank calls it and rank 0 writes."""
+    from vla_adapter_torch.utils.overwatch import is_main_process
+
     final = checkpoint_dir(run_dir, state.step, latest_only)
     out = final.with_name(final.name + ".tmp") if latest_only else final
-    if out.exists():
-        shutil.rmtree(out)
-    out.mkdir(parents=True)
-    save_file(state.trainable, out / "trainable.safetensors")
-    frozen = state.frozen()
-    if frozen:
-        save_file(frozen, out / "frozen.safetensors")
-    save_file(flatten_opt_state(state.opt_state),
-              out / "opt_state.safetensors")
-    if dataset_statistics is not None:
-        (out / "dataset_statistics.json").write_text(
-            json.dumps(dataset_statistics, indent=2))
-    (out / "meta.json").write_text(json.dumps({"step": state.step}))
-    if latest_only:
-        if final.exists():
-            shutil.rmtree(final)
-        out.rename(final)
+    writer = is_main_process()
+    if writer:
+        if out.exists():
+            shutil.rmtree(out)
+        out.mkdir(parents=True)
+    _barrier(state)  # the directory is ready
+    trainable, frozen, opt_state = _whole_state(state)
+    if writer:
+        save_file(trainable, out / "trainable.safetensors")
+        if frozen:
+            save_file(frozen, out / "frozen.safetensors")
+        save_file(flatten_opt_state(opt_state), out / "opt_state.safetensors")
+        if dataset_statistics is not None:
+            (out / "dataset_statistics.json").write_text(
+                json.dumps(dataset_statistics, indent=2))
+        (out / "meta.json").write_text(json.dumps({"step": state.step}))
+        if latest_only:
+            if final.exists():
+                shutil.rmtree(final)
+            out.rename(final)
+    _barrier(state)  # written: every rank may read it
     return final
 
 
@@ -75,7 +108,9 @@ def save_checkpoint(run_dir, state, dataset_statistics: Optional[Dict] = None,
 def load_checkpoint(path, state):
     """Restore ``state`` in place from a checkpoint directory: the
     trainable and frozen tensors are copied into the model's, the
-    optimizer state is moved to each moment's device. Returns ``state``."""
+    optimizer state is moved to each moment's device. Returns ``state``.
+    The state is whole here (before ``shard_model``): every rank reads
+    the files."""
     path = Path(path)
     meta = json.loads((path / "meta.json").read_text())
     trainable = load_file(path / "trainable.safetensors")

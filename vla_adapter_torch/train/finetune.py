@@ -13,7 +13,9 @@ its checkpoint, ``dataset_statistics.json`` included, under
 pipeline (``data/rlds_dataset.py``) over the TFDS datasets under
 ``--data.root_dir``, built in ``--data.num_workers`` spawn processes; only
 its reader needs ``tensorflow_datasets``. ``--data.use_dummy true`` trains
-on random batches instead.
+on random batches instead. Under ``torchrun --nproc_per_node N`` each
+process trains on its own card over NCCL (``--train.fsdp_axis N`` shards
+the model with FSDP2; by default the N ranks are the "data" axis).
 """
 
 from __future__ import annotations
@@ -66,9 +68,10 @@ def config_from_experiment(vla_id: str) -> FinetuneCLIConfig:
 
 
 def build_data_iter(cfg: FinetuneCLIConfig):
-    """RLDS mixture -> (batch iterator, statistics for the checkpoint),
-    the JAX package's build_data_iter on one process: the whole batch,
-    split into micro-batches under accumulation."""
+    """RLDS mixture -> (batch iterator, statistics for the checkpoint):
+    one pipeline per process, seeded by ``per_process_seed``, batching this
+    process's ``process_local_batch_size`` rows of the global batch (split
+    into micro-batches under accumulation)."""
     from vla_adapter_torch.data.action_tokenizer import ActionTokenizer
     from vla_adapter_torch.data.image_processing import image_processor_for
     from vla_adapter_torch.data.rlds.oxe.materialize import (
@@ -80,10 +83,13 @@ def build_data_iter(cfg: FinetuneCLIConfig):
         load_qwen_tokenizer,
     )
     from vla_adapter_torch.data.transform import VLABatchTransform
-    from vla_adapter_torch.train.loop import data_seed
+    from vla_adapter_torch.parallel.sharding import (
+        per_process_seed,
+        process_local_batch_size,
+    )
 
     model_cfg = cfg.train.model
-    seed = data_seed(cfg.train.seed)
+    seed = per_process_seed(cfg.train.seed)
     tok = load_qwen_tokenizer(cfg.data.tokenizer_dir)
     transform = VLABatchTransform(
         model_cfg, tokenize=TextToIds(tok),
@@ -94,7 +100,8 @@ def build_data_iter(cfg: FinetuneCLIConfig):
         load_camera_views=("primary", "wrist"))
     accum = cfg.train.grad_accumulation_steps
     ds = RLDSDataset(model_cfg, transform, kwargs_list, weights,
-                     batch_size=cfg.train.batch_size, train=True,
+                     batch_size=process_local_batch_size(
+                         cfg.train.batch_size), train=True,
                      image_aug=cfg.data.image_aug,
                      shuffle_buffer_size=cfg.data.shuffle_buffer_size,
                      accum_steps=accum if accum > 1 else None, seed=seed)
@@ -102,9 +109,17 @@ def build_data_iter(cfg: FinetuneCLIConfig):
 
 
 def main(argv=None):
+    from vla_adapter_torch.parallel.sharding import (
+        initialize_distributed,
+        torchrun_env,
+    )
     from vla_adapter_torch.train.loop import finetune, get_run_id
+    from vla_adapter_torch.utils.overwatch import process_count
 
     cfg = parse_config(FinetuneCLIConfig, argv)
+    env = torchrun_env()
+    if env is not None:  # torchrun: one process per card, NCCL
+        initialize_distributed(*env, device=cfg.device)
     if cfg.experiment is not None:
         # parse again on top of the recipe, so that explicit flags win
         cfg = parse_config(FinetuneCLIConfig, argv,
@@ -112,10 +127,10 @@ def main(argv=None):
         from vla_adapter_torch.core.experiments import get_experiment
 
         expected = get_experiment(cfg.experiment).expected_devices
-        if expected and expected != 1:
+        if expected and expected != process_count():
             log.warning("experiment %s was tuned for %d devices; training "
-                        "on one (the batch size is the caller's)",
-                        cfg.experiment, expected)
+                        "on %d (the batch size is the caller's)",
+                        cfg.experiment, expected, process_count())
     log.info("run id: %s", get_run_id(cfg.train))
     data_iter, stats = (None, None) if cfg.data.use_dummy \
         else build_data_iter(cfg)

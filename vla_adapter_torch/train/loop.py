@@ -2,10 +2,13 @@
 the reference's vla-scripts/finetune.py).
 
 Config -> model -> optimizer -> data -> train step -> metrics and
-checkpoints, on one device (the JAX package's mesh has no counterpart
-yet: multi-GPU training is ``ROADMAP.md`` A.7). Data comes from any
-iterator of model-format batches; by default ``data/dummy.py``'s, the swap
-the reference documents for smoke runs.
+checkpoints, on one card, or on one card per process under a
+``torch.distributed`` process group (``parallel/sharding.py``): the
+mesh's "data" axis averages the gradients, its "fsdp" axis shards the
+model with FSDP2, and each process feeds its own rows
+(``process_local_batch_size`` of them, seeded by ``per_process_seed``).
+Data comes from any iterator of model-format batches; by default
+``data/dummy.py``'s, the swap the reference documents for smoke runs.
 
 The model starts in float (a seeded random init from a
 ``torch.Generator``, or the caller's ``params``), the frozen tensors are
@@ -33,6 +36,14 @@ from vla_adapter_torch.infer.predict import resolve_device
 from vla_adapter_torch.models.layers import Runtime, init_random_, prepare_ste_
 from vla_adapter_torch.models.quantize import quantize_state_dict
 from vla_adapter_torch.models.vla import VLAModel
+from vla_adapter_torch.parallel.sharding import (
+    TENSOR_AXIS_ITEM,
+    create_mesh,
+    group_initialized,
+    per_process_seed,
+    process_local_batch_size,
+    shard_model,
+)
 from vla_adapter_torch.train.checkpoints import (
     find_resume_checkpoint,
     load_checkpoint,
@@ -48,6 +59,7 @@ from vla_adapter_torch.train.step import (
     make_train_step,
     to_device,
 )
+from vla_adapter_torch.utils.overwatch import is_main_process
 
 
 def get_run_id(cfg: TrainConfig) -> str:
@@ -58,12 +70,6 @@ def get_run_id(cfg: TrainConfig) -> str:
     return (f"{cfg.model.platform}+b{cfg.batch_size}+{lora}"
             f"+lr-{cfg.optim.learning_rate}"
             f"+{'pro' if cfg.model.head.use_pro_version else 'orig'}")
-
-
-def data_seed(seed: int) -> int:
-    """The data's seed: ``seed`` folded with process 0 through a
-    SeedSequence, the JAX package's per-process seed on one process."""
-    return int(np.random.SeedSequence([seed, 0]).generate_state(1)[0])
 
 
 def build_runtime(cfg: TrainConfig, kernels: str = "kernel") -> Runtime:
@@ -131,19 +137,36 @@ def finetune(
     steps on ``device`` (the card; "cpu" only when asked) and write the
     checkpoint at the end. ``params``: a float initial state dict (with
     adapters) instead of the seeded init. Returns the final state, whose
-    ``history`` holds each step's metrics."""
+    ``history`` holds each step's metrics.
+
+    Under an initialized process group the run spans its ranks on the
+    mesh (``cfg.data_axis``, ``cfg.fsdp_axis``, ``cfg.tensor_axis``):
+    ``data_iter`` yields this rank's rows, the model is placed by
+    ``shard_model``, rank 0 writes the checkpoints, and a resumed run
+    reads the whole state and shards it onto the mesh."""
     device = resolve_device(device)
-    if cfg.fsdp_axis != 1 or cfg.tensor_axis != 1:
-        raise NotImplementedError("the port trains on one device; sharded "
-                                  "training is ROADMAP.md A.7")
+    if cfg.tensor_axis != 1:
+        raise NotImplementedError(f"tensor_axis={cfg.tensor_axis}: "
+                                  f"{TENSOR_AXIS_ITEM}")
+    mesh = None
+    if group_initialized():
+        mesh = create_mesh(data=cfg.data_axis, fsdp=cfg.fsdp_axis,
+                           tensor=cfg.tensor_axis)
+    elif cfg.fsdp_axis != 1:
+        # (one process has one card: its "data" axis splits nothing, so
+        # data_axis is moot there; the JAX package splits the batch over
+        # the devices of its process, with the same numbers)
+        raise ValueError(f"fsdp_axis={cfg.fsdp_axis} needs as many "
+                         "processes: start a process group (torchrun, or "
+                         "parallel.sharding.initialize_distributed)")
     rt = rt or build_runtime(cfg)
     max_steps = max_steps if max_steps is not None else cfg.optim.max_steps
     accum = cfg.grad_accumulation_steps
     if data_iter is None:
-        data_iter = iter(DummyDataset(cfg.model, cfg.batch_size,
-                                      seed=data_seed(cfg.seed),
-                                      accum_steps=accum if accum > 1
-                                      else None))
+        data_iter = iter(DummyDataset(
+            cfg.model, process_local_batch_size(cfg.batch_size),
+            seed=per_process_seed(cfg.seed),
+            accum_steps=accum if accum > 1 else None))
     first = next(data_iter)
 
     model = VLAModel(cfg.model, rt, device="meta")
@@ -159,9 +182,12 @@ def finetune(
             load_checkpoint(ckpt, state)
     if rt.train_base_int8:
         prepare_ste_(model)
+    if mesh is not None:
+        place_state_(state, shard_model(model, mesh))
 
-    step_fn = make_train_step(model, tx, cfg)
-    metrics = Metrics(run_dir, window=max(accum, 8), run_id=get_run_id(cfg))
+    step_fn = make_train_step(model, tx, cfg, sharding=state.sharding)
+    metrics = Metrics(run_dir, window=max(accum, 8), run_id=get_run_id(cfg),
+                      trackers=("jsonl",) if is_main_process() else ())
 
     run_validation = None
     if val_iter is not None:
@@ -188,6 +214,20 @@ def finetune(
     save_checkpoint(run_dir, state, dataset_statistics,
                     latest_only=cfg.save_latest_checkpoint_only)
     metrics.close()
+    return state
+
+
+def place_state_(state: TrainState, sharding) -> TrainState:
+    """After ``shard_model``: the state's trainable tensors re-read from
+    the model (FSDP2 replaced the sharded ones by DTensors) and each
+    optimizer moment cut to its parameter's shard on this rank."""
+    params = dict(state.model.named_parameters())
+    state.trainable = {n: params[n] for n in state.trainable}
+    for part in ("mu", "nu"):
+        state.opt_state[part] = {
+            n: sharding.local_slice(v, state.trainable[n])
+            for n, v in state.opt_state[part].items()}
+    state.sharding = sharding
     return state
 
 

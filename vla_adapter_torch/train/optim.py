@@ -83,12 +83,14 @@ class AdamW:
                 "nu": {n: torch.zeros_like(z) for n, z in zeros.items()}}
 
     def update(self, grads: Dict[str, torch.Tensor], state: dict,
-               params: Dict[str, torch.Tensor]):
+               params: Dict[str, torch.Tensor], norm_fn=global_norm):
+        """``norm_fn``: the global norm of the list of fp32 gradients (a
+        sharded run's sums its ranks' parts)."""
         cfg = self.cfg
         names = list(grads)
         g = [grads[n].float() for n in names]
         if cfg.grad_clip_norm is not None:
-            norm = global_norm(g)
+            norm = norm_fn(g)
             max_norm = torch.full((), cfg.grad_clip_norm, dtype=torch.float32,
                                   device=norm.device)
             keep = norm < max_norm
@@ -138,12 +140,12 @@ def mask_updates(tx: AdamW, masks: Optional[Dict[str, torch.Tensor]]):
         def init(self, params):
             return tx.init(params)
 
-        def update(self, grads, state, params):
+        def update(self, grads, state, params, **kw):
             def mul(tree):
                 return {n: t * masks[n].to(t.dtype) if n in masks else t
                         for n, t in tree.items()}
 
-            updates, state = tx.update(mul(grads), state, params)
+            updates, state = tx.update(mul(grads), state, params, **kw)
             return mul(updates), state
 
     return _Masked()

@@ -28,6 +28,7 @@ from vla_adapter_torch.core.constants import ACTION_TOKEN_BEGIN_IDX, IGNORE_INDE
 from vla_adapter_torch.data.action_tokenizer import detokenize_bin_ids
 from vla_adapter_torch.models.vla import VLAModel
 from vla_adapter_torch.models.vlm import shifted_nll
+from vla_adapter_torch.parallel.sharding import local
 from vla_adapter_torch.train.optim import AdamW, apply_updates, global_norm
 from vla_adapter_torch.train.partition import mark_trainable_
 
@@ -39,13 +40,16 @@ MODEL_INPUTS = ("input_ids", "prompt_len", "text_valid", "pixel_values",
 class TrainState:
     """The step count, the model (holding every tensor, trainable and
     frozen), the trainable parameters by name (the model's own), the
-    optimizer state, and each step's metrics as the loop read them."""
+    optimizer state, each step's metrics as the loop read them, and the
+    placement on a process group's mesh (``parallel.sharding.Sharding``;
+    None in one process)."""
 
     step: int
     model: VLAModel
     trainable: Dict[str, torch.nn.Parameter]
     opt_state: dict
     history: List[dict] = field(default_factory=list)
+    sharding: Any = None
 
     def frozen(self) -> Dict[str, torch.Tensor]:
         """Every tensor of the model's state dict that is not trained."""
@@ -159,12 +163,20 @@ def make_loss_fn(model: VLAModel, objective: str = "l1",
     return loss_fn
 
 
-def make_train_step(model: VLAModel, tx: AdamW, cfg: TrainConfig):
+def make_train_step(model: VLAModel, tx: AdamW, cfg: TrainConfig,
+                    sharding=None):
     """step(state, batch, step_idx) -> metrics, updating ``state`` in
     place. With ``grad_accumulation_steps`` > 1 the batch has a leading
     micro-batch axis; each micro-batch's grads are added into a carry of
     ``accum_dtype`` (fp32 by default), which then returns to fp32 and is
-    divided by the count, before one update (the JAX package's scan)."""
+    divided by the count, before one update (the JAX package's scan).
+
+    Under a process group (``sharding``, ``parallel/sharding.py``) each
+    rank's batch holds its own rows: every micro-batch's gradients are the
+    global batch's mean before they enter the carry (FSDP2 reduce-scatters
+    those it shards, the rest are averaged across ranks), the optimizer
+    updates this rank's shards, the global norm sums the ranks' parts, and
+    the metrics are averaged across ranks."""
     loss_fn = make_loss_fn(model, cfg.objective)
     accum = cfg.grad_accumulation_steps
     carry_dtype = {None: None, "float32": torch.float32,
@@ -172,9 +184,21 @@ def make_train_step(model: VLAModel, tx: AdamW, cfg: TrainConfig):
 
     def single_grads(params: List[torch.Tensor], batch, generator):
         loss, metrics = loss_fn(batch, generator)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        if sharding is None:
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        else:
+            # backward(), not autograd.grad: FSDP2 reduces the gradients
+            # its hooks see accumulate
+            for p in params:
+                p.grad = None
+            loss.backward()
+            grads = [p.grad for p in params]
+            for p in params:
+                p.grad = None
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        if sharding is not None:
+            grads = [local(g) for g in sharding.reduce_gradients(grads)]
         per_sample = metrics.pop("per_sample", {})
         return grads, {k: v.detach() for k, v in metrics.items()}, \
             {k: v.detach() for k, v in per_sample.items()}
@@ -183,7 +207,7 @@ def make_train_step(model: VLAModel, tx: AdamW, cfg: TrainConfig):
              step_idx: int) -> Dict[str, Any]:
         names = list(state.trainable)
         params = [state.trainable[n] for n in names]
-        dev = params[0].device
+        dev = local(params[0]).device
         if accum > 1:
             carry, m_acc, rows = None, None, []
             for i in range(accum):
@@ -207,12 +231,18 @@ def make_train_step(model: VLAModel, tx: AdamW, cfg: TrainConfig):
         else:
             grads, metrics, per_sample = single_grads(
                 params, batch, noise_generator(cfg.seed, step_idx, 0, dev))
+        norm_fn = global_norm
+        if sharding is not None:
+            metrics = sharding.mean_metrics(metrics)
+            sharded = [n in sharding.fsdp_dims for n in names]
+            norm_fn = lambda g: sharding.global_norm(g, sharded)  # noqa: E731
         grads = dict(zip(names, grads))
         metrics["per_sample"] = per_sample
-        metrics["grad_norm"] = global_norm(grads.values())
-        updates, state.opt_state = tx.update(grads, state.opt_state,
-                                             state.trainable)
-        apply_updates(state.trainable, updates)
+        metrics["grad_norm"] = norm_fn(list(grads.values()))
+        updates, state.opt_state = tx.update(
+            grads, state.opt_state, {n: local(p) for n, p in
+                                     zip(names, params)}, norm_fn=norm_fn)
+        apply_updates({n: local(p) for n, p in zip(names, params)}, updates)
         state.step += 1
         return metrics
 

@@ -1,9 +1,10 @@
 """Process-aware logging ("overwatch"; counterpart of
 vla_adapter_tpu/utils/overwatch.py).
 
-INFO on process 0, ERROR elsewhere. The port runs one process on one card
-until multi-GPU serving and training are ported, so the process index is
-0 of 1.
+INFO on process 0, ERROR elsewhere. The process index and count are the
+``torch.distributed`` rank and world size once a process group is
+initialized (``parallel/sharding.py:initialize_distributed``), else 0 of
+1.
 """
 
 from __future__ import annotations
@@ -12,15 +13,21 @@ import logging
 import sys
 from typing import Optional
 
+import torch.distributed as dist
+
 _FORMAT = "%(asctime)s | %(levelname)-7s | %(name)s :: %(message)s"
 
 
+def group_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
 def process_index() -> int:
-    return 0
+    return dist.get_rank() if group_initialized() else 0
 
 
 def process_count() -> int:
-    return 1
+    return dist.get_world_size() if group_initialized() else 1
 
 
 def is_main_process() -> bool:
