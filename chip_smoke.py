@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--out FILE] [--profile] [--only 12,...,18]
+    python3 chip_smoke.py [--out FILE] [--profile] [--only 12,...,19]
 
 Phases, in order; any failure exits non-zero:
 
@@ -116,11 +116,11 @@ Phases, in order; any failure exits non-zero:
    quantized on the card): first B1 at the causal prefill (B=1, 4; S=128)
    and B2/B4 at a decode step's rows (M=1, 2, 4; bit for bit with their
    plain versions); "mega" must refuse to decode. Then, for bf16 and w8a8
-   at B=1 and 4, ``greedy_generate_cached`` of 32 tokens after prompts of
+   at B=1 and 4, ``greedy_generate_cached`` of 16 tokens after prompts of
    128 seeded ids, the main path, through the captured decode step, with
    the launches of exactly that call against
    :func:`expected_generate_launches`; the same call eagerly (the same
-   tokens) and 32 graphed steps against 32 eager steps from one prefill,
+   tokens) and 16 graphed steps against 16 eager steps from one prefill,
    every state tensor bit for bit; the kernel path against the plain path
    and the cached loop against the full recompute (``greedy_generate``'s
    logits), each teacher-forced on the generated tokens, by
@@ -166,7 +166,7 @@ Phases, in order; any failure exits non-zero:
    multimodal logits of images through the entry's ``ImageProcessor`` and
    prompts of 64-127 ids through its prompt builder, kernel vs plain, and
    its w8a8 "fused" twin (quantized on the card) against plain and against
-   bf16 (:data:`ZOO_W8A8_VS_BF16_SHARE`); ``greedy_generate_cached`` of 32
+   bf16 (:data:`ZOO_W8A8_VS_BF16_SHARE`); ``greedy_generate_cached`` of 16
    tokens at B=1 and 4 in bf16 and w8a8 as phase 12 checks it
    (:func:`generate_run`), ms per token against the step's bound. Then
    ``mistral-instruct-v0.1+7b`` (CLIP-L @ 336 with letterbox, the gelu-mlp
@@ -191,7 +191,7 @@ Phases, in order; any failure exits non-zero:
    spawn workers that see no CUDA device; every batch has the dummy
    batch's keys, shapes and dtypes and actions in [-1, 1]. The pipeline's
    host frames/s in this process and with the workers; then
-   ``train.loop.finetune`` trains the full-width flagship 10 steps at
+   ``train.loop.finetune`` trains the full-width flagship 6 steps at
    batch 16 on it as phase 11 sets it up, B1, B1-bwd and B4 launched per
    step as :func:`expected_train_launches` says; s/step and samples/s
    beside phase 11's dummy-data figure, the seconds the loop waits in
@@ -230,16 +230,47 @@ Phases, in order; any failure exits non-zero:
    tensors bit for bit, B1, B1-bwd and B4 launched per step as derived,
    s/step and peak memory. Phase 18 prints its seconds.
 
-``--only 12,...,18`` runs the build and any of phases 12-18 alone (no
-kernels or ok line; phases 16 and 17 alone build no flagship; phase 17
-alone has no phase-11 figure beside its s/step).
+19. the "tensor" mesh axis (:func:`tensor_phase`): kernel B4's int32
+   output at every split shape of the recipe at tensor 2 (a row split's
+   forward, a column split's dx; so400m's K 2152 and, at tensor 4, 1076,
+   zero-padded to a K of 16s) at the micro-batch's rows and at 20 rows:
+   each part bit for bit with the plain int32 product, the parts' sum
+   dequantized bit for bit with the whole-K call, timed beside it,
+   ``torch._int_mm`` and the bound; B1 and B1-bwd at each rank's heads
+   (the LLM's 7/1, DINOv2's 8 and so400m's 8 at micro-batch 16) within
+   phases 2's and 11's bounds; then the recipe's one-ulp spread in this
+   process (:func:`one_process_spread`: TENSOR_TRAIN_STEPS steps from one
+   init on each of TENSOR_SPREAD_SEEDS' perturbed pixels, and on the
+   batch as it is, which the whole run takes from phase 11's main run),
+   and phase 11's recipe at tensor 2 as two child processes on
+   the one card (NCCL refuses two ranks on one device; the group is gloo,
+   the tensor collectives go through CUDA IPC, :class:`SameCardTransport`,
+   given to ``finetune`` as its ``tensor_transport``): TENSOR_TRAIN_STEPS
+   steps, a checkpoint, TENSOR_RESUMED_STEPS resumed; each trainable
+   tensor's step-0 gradient norm and each step's loss within
+   TENSOR_SPREAD_MARGIN times the spread (:func:`spread_check`), every
+   rank the same losses and norms, launches of B1, B1-bwd, B4 and B4's
+   int32 output per step per rank as :func:`expected_tensor_launches`
+   derives them, peak memory per rank, s/step (two processes
+   time-sharing one card, not a tensor-parallel speed); the checkpoint
+   loaded by this process (each rank's parts of a few split tensors bit
+   for bit in it) and served through ``load_vla`` within phase 5's bound
+   of the trained LoRA model. Phase 19 prints its seconds.
+
+``--only 12,...,19`` runs the build and any of phases 12-19 alone (no
+kernels or ok line; phases 16, 17 and 19 alone build no flagship; phase
+17 alone has no phase-11 figure beside its s/step).
 
 Phases 9 and 10 took 100 s on an NVIDIA H100 80GB HBM3 at 700 W beside
 110 s for phases 1-8 (their per-phase seconds are printed; phase 9's
 kernel checks at B=8 and 16 about 20 s of it). To hold the whole run near
 twice phases 1-8 alone, phase 7 times 6 rounds at B=1
-and 4 at B=2 and B=4 (were 8 and 6), and phase 9 measures 4 s windows and
-runs its preprocess-pool server for bf16 only.
+and 4 at B=2 and B=4 (were 8 and 6), and phase 9 runs its preprocess-pool
+server for bf16 only. To make room for phase 19 in the 1200 s the whole
+run may take, depth was cut, not checks: phase 9 measures 2 s
+windows (were 4), phase 11 accumulates over 2 steps (were 3), phases 12
+and 16 generate 16 tokens (were 32), and phase 17 trains 6 steps (were
+10).
 
 With ``--profile`` phase 7 also profiles one B=1 request per tier, eager
 and replayed, and checks that the eager w8a8 tiers launch at least 3,000
@@ -257,7 +288,8 @@ line
 paths of phases 12-18: "generate", "generate_w8a8", "actions",
 "token_train", "pretrain", "phi", "zoo_logits", "zoo_generate",
 "zoo_generate_w8a8", "zoo_pretrain", "finetune_rlds", "eval_libero",
-"eval_calvin", "finetune_ddp" and "finetune_fsdp"; each entry's ``zoo_7b`` lists its
+"eval_calvin", "finetune_ddp", "finetune_fsdp" and "finetune_tensor"
+(rank 0 of phase 19); each entry's ``zoo_7b`` lists its
 phase-16 call sites (per call: ms, plain, bound, library). Exits non-zero without CUDA, and when
 the ``vla_adapter_torch`` package beside this script is missing.
 """
@@ -412,24 +444,50 @@ def eager_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return _event_ms(run, rounds) / reps
 
 
-def kernel_ms(fn, reps: int = 10) -> float:
-    """Device time of one call as torch.profiler sees it: the durations of
-    every kernel ``reps`` calls launch, summed, over ``reps``. For a call a
-    CUDA graph cannot capture (SDPA's masked backward through cuDNN), with
-    no host time in it."""
+class MeasurementError(RuntimeError):
+    """A timing that cannot be right (no device time, or calls the host
+    did not queue ahead of the card)."""
+
+
+# the card's spin ahead of the queued calls of :func:`queued_ms`, in
+# clock cycles (torch.cuda._sleep; ~50 ms at an H100's 1.98 GHz)
+QUEUE_SPIN_CYCLES = 100_000_000
+
+
+def queued_ms(fn, reps: int = 10, rounds: int = 3) -> float:
+    """Device time of one call, for a call a CUDA graph cannot capture
+    (SDPA's masked backward through cuDNN): ``reps`` calls queued behind a
+    spin on the card (``torch.cuda._sleep``), so that the host has
+    launched them all before the first one starts and no host gap falls
+    between them; CUDA events around the calls alone, the median over
+    ``rounds``, over ``reps``. CUDA events, not the profiler: late in a
+    run, and after a process group, ``torch.profiler`` lost SDPA's kernels
+    (0-65 µs read against 89-163 µs). Raises :class:`MeasurementError` if
+    the spin ended before the host had queued the calls, or no time
+    passed."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+        start.record()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / reps / 1e3
+        end.record()
+        if start.query():
+            raise MeasurementError("queued_ms: the card reached the calls "
+                                   "before the host had queued them")
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    ms = statistics.median(times)
+    if not ms > 0:
+        raise MeasurementError(f"queued_ms: {ms} ms per call")
+    return ms
 
 
 def device_ms_cold(fn, reps: int = 20, rounds: int = 5) -> float:
@@ -707,7 +765,7 @@ def phase_attention_bwd(shapes, card: str):
             return torch.autograd.grad(out, (qx, kx, vx), dout,
                                        retain_graph=True)
 
-        lib_ms = kernel_ms(sdpa_bwd)
+        lib_ms = queued_ms(sdpa_bwd)
         lib_eager_ms = eager_ms(sdpa_bwd, reps=5, rounds=3)
         key_valid = (np.ones((b, s), np.int32) if valid_np is None
                      else valid_np)
@@ -1151,8 +1209,9 @@ def phase_train(cfg, card: str, seed: int, profile: bool = False):
         profiled = ProfiledStep(batch, 2) if profile else None
         # every checkpoint kept: step 6's is resumed from in part 6
         kept = dataclasses.replace(tcfg, save_latest_checkpoint_only=False)
-        state, launches, wall, memory = _train_run(
-            kept, batch, 10, root / "main", data_iter=profiled, rt=rt)
+        with first_grad_squares() as main_grads:
+            state, launches, wall, memory = _train_run(
+                kept, batch, 10, root / "main", data_iter=profiled, rt=rt)
         if profiled is not None:
             if profiled.summary is None:
                 raise AssertionError("the profiled finetune step never ran")
@@ -1183,6 +1242,9 @@ def phase_train(cfg, card: str, seed: int, profile: bool = False):
                 "transposed_int8_copy_bytes": ste_bytes,
                 "frozen_unchanged": True, "trainable_moved": True}
         print("train_main " + json.dumps(dict(main, card=card)), flush=True)
+        # phase 19's unperturbed one-process reference
+        main["grad_norms"] = {n: v ** 0.5
+                              for n, v in main_grads.host().items()}
         rec["main"] = main
         main_losses = losses
         del state, final
@@ -1204,12 +1266,12 @@ def phase_train(cfg, card: str, seed: int, profile: bool = False):
             optim=dataclasses.replace(tcfg.optim, moments_dtype="bfloat16"))
         abatch = make_dummy_batch(cfg, batch_size,
                                   np.random.default_rng(seed), accum_steps=2)
-        state, launches, wall, _ = _train_run(acfg, abatch, 3,
+        state, launches, wall, _ = _train_run(acfg, abatch, 2,
                                               root / "accum")
         alosses = [h["loss"] for h in state.history]
         if not np.isfinite(alosses).all():
             raise AssertionError(f"accumulation losses {alosses}")
-        _check_train_launches(launches, per_micro, 6, "accumulation")
+        _check_train_launches(launches, per_micro, 4, "accumulation")
         mu = next(iter(state.opt_state["mu"].values()))
         if mu.dtype != torch.bfloat16:
             raise AssertionError(f"moments stored in {mu.dtype}")
@@ -2419,7 +2481,7 @@ def phase_checkpoint(bf16_pred, rng, card: str):
 SERVER_CLIENTS = (1, 4, 16)
 # the buckets that only the server runs: no earlier phase forwards them
 SERVER_ONLY_BATCHES = (8, 16)
-SERVER_WINDOW_S = 4.0
+SERVER_WINDOW_S = 2.0
 SERVER_WARMUP_S = 1.0
 
 
@@ -2949,7 +3011,7 @@ def megalayer_kernel_summary(records, launches):
 
 DEVICE = "cuda"       # where phases 14-15 build their models
 GEN_PROMPT = 128      # seeded prompt ids per sequence
-GEN_NEW = 32          # generated tokens per sequence
+GEN_NEW = 16          # generated tokens per sequence
 GEN_BATCHES = (1, 4)
 DECODE_ROWS = (1, 2, 4)  # B2/B4 checked bit for bit at these decode rows
 # kernel path vs plain path, bf16 logits of the flagship's language model
@@ -3854,7 +3916,7 @@ ZOO_PRETRAIN = "mistral-instruct-v0.1+7b"
 ZOO_13B = "llama2-13b-pure"   # B2's widest MLP, checked as a kernel only
 ZOO_TEXT = (64, 127)          # text ids per prompt, drawn in this range
 ZOO_GEN_TEXT = 96             # the cached generation's uniform prompt
-ZOO_NEW = 32                  # generated tokens per sequence
+ZOO_NEW = 16                  # generated tokens per sequence
 ZOO_BATCHES = (1, 4)
 ZOO_PRETRAIN_BATCH, ZOO_PRETRAIN_STEPS = 8, 3
 # the pretrain runs: each remat policy over the towers and the LLM, then
@@ -4574,6 +4636,10 @@ def rlds_mixture_shares(sources: dict, cfg, seed: int) -> dict:
     return {"frames": len(names), "shares": shares, "bound": bound}
 
 
+# steps of phase 17's finetune on RLDS batches
+RLDS_TRAIN_STEPS = 6
+
+
 def phase_finetune_rlds(card: str, seed: int,
                         dummy_s_per_step=None) -> tuple:
     """Phase 17 (module docstring): the flagship recipe trained on
@@ -4700,12 +4766,13 @@ def phase_finetune_rlds(card: str, seed: int,
         del model
         timed = TimedBatches(loader, reference)
         state, launches, wall, memory = _train_run(
-            tcfg, None, 10, root, data_iter=timed, rt=rt,
+            tcfg, None, RLDS_TRAIN_STEPS, root, data_iter=timed, rt=rt,
             dataset_statistics=ds.dataset_statistics)
         losses = [h["loss"] for h in state.history]
         if not np.isfinite(losses).all():
             raise AssertionError(f"RLDS finetune losses {losses}")
-        _check_train_launches(launches, per_micro, 10, "RLDS finetune")
+        _check_train_launches(launches, per_micro, RLDS_TRAIN_STEPS,
+                              "RLDS finetune")
         step_s = statistics.median(h["step_time"] for h in state.history[2:])
         wait = timed.timer.summary()
         run_dir = root / tcfg.run_id
@@ -5338,7 +5405,7 @@ def group_train_child(out_path: str, seed: int, profile: bool = False
         state, launches, wall, memory = _train_run(tcfg, batch, steps,
                                                    root / name,
                                                    data_iter=prof, **kw)
-        full = {n: (state.sharding.full(p) if state.sharding else p
+        full = {n: (state.sharding.full(p, n) if state.sharding else p
                     ).detach().clone()
                 for n, p in state.trainable.items()}
         dtensors = sum(type(p).__name__ == "DTensor"
@@ -5502,6 +5569,846 @@ def rlds_phase(card: str, seed: int, lap, dummy_s_per_step=None) -> tuple:
     return out
 
 
+# --- phase 19: the "tensor" mesh axis ------------------------------------------
+
+TENSOR = 2
+# the flagship recipe at tensor 2: steps of the first run (a checkpoint at
+# its end), then the steps resumed from that checkpoint
+TENSOR_TRAIN_STEPS = 4
+TENSOR_RESUMED_STEPS = 2
+# rows of B4's narrow design (M <= 32) at the split shapes
+TENSOR_NARROW_ROWS = 20
+# tensor 2 against one process. The base's split products are exact
+# (int32 partials summed before one dequant) and each head is the same
+# computation; what differs is the order of the bf16 sums a split adds up
+# across ranks (the LoRA partials x[:, lo:hi] @ lora_a[lo:hi], the head's
+# row-split float products, the gradients summed over the group), and
+# every int8 requantization downstream turns such an ulp into a rounding
+# flip now and then. The yardstick is the recipe's own spread under one
+# bf16 ulp of its input: one process again with each pixel scaled by
+# 1 +- 2^-8 (signs drawn from each of TENSOR_SPREAD_SEEDS), from the same
+# init, in the same phase. The split run is held, at step 0 in each
+# trainable tensor's gradient norm and at every step in the loss, within
+# TENSOR_SPREAD_MARGIN times the largest distance of a perturbed run from
+# the unperturbed one. A sum over the group at the wrong scale, or one
+# made twice, moves a gradient by its own size. The ranks' whole
+# trainable tensors must also stay equal bit for bit.
+TENSOR_SPREAD_SEEDS = (1, 2, 3)
+TENSOR_SPREAD_MARGIN = 3.0
+
+
+class first_grad_squares:
+    """Within the block, the first optimizer update's gradients (the train
+    step's, after its reductions over the process group: a rank's parts
+    of the split tensors) as {name: sum of squares} in ``self.sq`` (float64
+    scalars on the card)."""
+
+    def __enter__(self):
+        from vla_adapter_torch.train import optim
+
+        self.sq, self._update = {}, optim.AdamW.update
+        sq, update = self.sq, self._update
+
+        def record(tx, grads, *args, **kw):
+            if not sq:
+                sq.update({n: g.detach().double().square().sum()
+                           for n, g in grads.items()})
+            return update(tx, grads, *args, **kw)
+
+        optim.AdamW.update = record
+        return self
+
+    def __exit__(self, *exc):
+        from vla_adapter_torch.train import optim
+
+        optim.AdamW.update = self._update
+
+    def host(self) -> dict:
+        """{name: sum of squares} as floats (waits for the card)."""
+        names = sorted(self.sq)
+        import torch
+
+        values = torch.stack([self.sq[n] for n in names]).cpu().tolist()
+        return dict(zip(names, values))
+
+
+def perturbed_pixels(pixels: np.ndarray, seed: int) -> np.ndarray:
+    """Each pixel scaled by 1 + 2^-8 or 1 - 2^-8 (one bf16 ulp), the signs
+    drawn from ``seed``."""
+    sign = np.random.default_rng(seed).choice(
+        np.float32([-1.0, 1.0]), size=pixels.shape)
+    return (pixels * (np.float32(1.0) + sign * np.float32(2.0 ** -8))
+            ).astype(pixels.dtype)
+
+
+def one_process_spread(tcfg, batch, steps: int, reference=None) -> list:
+    """The recipe in one process from one init, ``steps`` steps on the
+    batch as it is (unless ``reference``, phase 11's main run, has them)
+    and then on each of TENSOR_SPREAD_SEEDS' perturbed pixels, each run
+    from the init again (the trainable tensors restored, the optimizer
+    started afresh, the steps counted from 0: the same head noise). Per
+    run its losses and the step-0 norm of each trainable tensor's
+    gradient. The model is built as ``finetune`` builds it, once."""
+    import math
+
+    import torch
+
+    from vla_adapter_torch.models.layers import prepare_ste_
+    from vla_adapter_torch.models.vla import VLAModel
+    from vla_adapter_torch.train.loop import build_runtime, initial_state
+    from vla_adapter_torch.train.optim import make_optimizer
+    from vla_adapter_torch.train.step import (
+        init_train_state,
+        make_train_step,
+        to_device,
+    )
+
+    rt = build_runtime(tcfg)
+    model = VLAModel(tcfg.model, rt, device="meta")
+    model.load_state_dict(initial_state(tcfg, rt, "cuda"), strict=True,
+                          assign=True)
+    tx = make_optimizer(tcfg.optim)
+    state = init_train_state(model, tx, tcfg.lora.enabled)
+    prepare_ste_(model)
+    step_fn = make_train_step(model, tx, tcfg)
+    start = {n: p.detach().clone() for n, p in state.trainable.items()}
+    model.train()
+    runs, seeds = [], (None,) + TENSOR_SPREAD_SEEDS
+    if reference is not None:
+        runs.append({"seed": None, "losses": reference["losses"][:steps],
+                     "grad_norms": reference["grad_norms"],
+                     "from": "phase 11"})
+        seeds = TENSOR_SPREAD_SEEDS
+    for seed in seeds:
+        b = dict(batch)
+        if seed is not None:
+            b["pixel_values"] = perturbed_pixels(b["pixel_values"], seed)
+        with torch.no_grad():
+            for n, p in state.trainable.items():
+                p.copy_(start[n])
+        state.opt_state, state.step = tx.init(state.trainable), 0
+        dev = to_device(b, "cuda")
+        with first_grad_squares() as grads:
+            losses = [step_fn(state, dev, i)["loss"] for i in range(steps)]
+        runs.append({"seed": seed, "losses": [float(x) for x in losses],
+                     "grad_norms": {n: math.sqrt(v) for n, v in
+                                    grads.host().items()}})
+    del state, model, start
+    torch.cuda.empty_cache()
+    return runs
+
+
+def stacked_norms(norms: dict) -> dict:
+    """Per-tensor norms {name: norm} combined over the layers of each stack
+    ({name with its layer indices as "*": root of the sum of squares}),
+    the JAX package's leaves (its layers are scanned, each tensor stacked
+    over them)."""
+    import re
+
+    out = collections.defaultdict(float)
+    for n, v in norms.items():
+        out[re.sub(r"\.\d+\.", ".*.", n)] += v * v
+    return {n: v ** 0.5 for n, v in out.items()}
+
+
+def spread_check(got, ref, perturbed, what: str) -> dict:
+    """``got`` (a list or dict of numbers) against ``ref`` within
+    TENSOR_SPREAD_MARGIN times the largest |perturbed - ref| of each entry
+    over the perturbed runs; the readings, worst first."""
+    keys = sorted(ref) if isinstance(ref, dict) else range(len(ref))
+    rows = []
+    for k in keys:
+        spread = max(abs(p[k] - ref[k]) for p in perturbed)
+        diff = abs(got[k] - ref[k])
+        rows.append({"entry": k, "got": got[k], "ref": ref[k], "diff": diff,
+                     "spread": spread,
+                     "ratio": diff / spread if spread > 0 else (
+                         0.0 if diff == 0 else float("inf"))})
+    rows.sort(key=lambda r: -r["ratio"])
+    bad = [r for r in rows if not r["diff"] <= TENSOR_SPREAD_MARGIN
+           * r["spread"]]
+    if bad:
+        raise AssertionError(
+            f"tensor {TENSOR} {what}: {len(bad)} of {len(rows)} beyond "
+            f"{TENSOR_SPREAD_MARGIN} x the one-ulp spread: {bad[:5]}")
+    return {"entries": len(rows), "worst_ratio_to_spread": rows[0]["ratio"],
+            "worst": rows[:5],
+            "ratio_quartiles": [rows[len(rows) * q // 4]["ratio"]
+                                for q in (1, 2, 3)]}
+
+
+def _digest(t) -> str:
+    """A hash of a tensor's values (bit for bit)."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
+def tensor_split_modes(model, tensor: int) -> dict:
+    """{Dense name: "col", "row" or None} of every straight-through
+    (frozen w8a8) Dense of the training model, by ``param_pspec``'s rule at
+    ``tensor``."""
+    from vla_adapter_torch.parallel.sharding import model_pspecs
+
+    specs = model_pspecs(model, 1, tensor)
+    out = {}
+    for name, mod in model.named_modules():
+        if getattr(mod, "ste", False):
+            spec = specs[f"{name}.weight_q"]
+            out[name] = (None if "tensor" not in spec
+                         else "col" if spec.index("tensor") == 0 else "row")
+    return out
+
+
+def expected_tensor_launches(model, tensor: int) -> dict:
+    """:func:`expected_train_launches` per rank of a ``tensor`` split: B1
+    and B1-bwd as one process (each rank attends over its heads in one
+    call); a column-split Dense runs its forward on B4 (twice where it
+    recomputes) and its dx on B4's int32 output, a row-split one its
+    forward on the int32 output and its dx on B4."""
+    from vla_adapter_torch.ops import w8a8_matmul
+
+    out = dict(expected_train_launches(model))
+    modes = tensor_split_modes(model, tensor)
+    rt = model.rt
+    first = {f"{tower}.blocks.0.attn.{p}" for tower in (
+        "vision_backbone.featurizer", "vision_backbone.fused_featurizer")
+        for p in ("q_proj", "k_proj", "v_proj")}
+    b4 = i32 = 0
+    for name, mode in modes.items():
+        stack = ("llm" if name.startswith("language_model") else
+                 "vit" if name.startswith("vision_backbone") else None)
+        twice = 2 if stack and rt.remat_policy_of(stack) else 1
+        dx = 0 if name in first else 1
+        if mode is None:
+            b4 += twice + dx
+        elif mode == "col":
+            b4, i32 = b4 + twice, i32 + dx
+        else:
+            b4, i32 = b4 + dx, i32 + twice
+    out[w8a8_matmul.KERNEL_NAME] = b4
+    out[w8a8_matmul.INT32_KERNEL_NAME] = i32
+    return out
+
+
+def tensor_b4_shapes(cfg, batch: int, tensor: int = TENSOR):
+    """The int32-output products of the flagship recipe at ``tensor``:
+    (owner, M, local K, N, whole K, {what: calls}, int32 launches per
+    micro-batch) per distinct shape, a row split's forward (K its part of
+    the input; twice where its stack recomputes) and a column split's dx
+    (K its part of the output; none for the first tower block's q/k/v), at
+    the micro-batch's rows and at TENSOR_NARROW_ROWS rows; and so400m's
+    fc2 at tensor 4 (K 1076, no launch at tensor 2)."""
+    from vla_adapter_torch.core.config import TrainConfig
+    from vla_adapter_torch.models.vla import VLAModel
+    from vla_adapter_torch.train.loop import build_runtime
+
+    model = VLAModel(cfg, build_runtime(TrainConfig(model=cfg,
+                                                    base_int8=True)),
+                     device="meta")
+    rows = {o: m for o, m, _, _ in ste_shapes(cfg, batch)}
+    rt = model.rt
+    out = {}
+    for name, mode in tensor_split_modes(model, tensor).items():
+        if mode is None:
+            continue
+        mod = model.get_submodule(name)
+        owner = next(o for o in ("fused_featurizer", "featurizer",
+                                 "language_model", "projector")
+                     if o in name.split("."))
+        stack = {"language_model": "llm", "projector": None}.get(owner,
+                                                                 "vit")
+        leaf = name.rsplit(".", 1)[-1]
+        if mode == "row":
+            whole, n, what = mod.in_features, mod.features, "forward"
+            calls = 2 if stack and rt.remat_policy_of(stack) else 1
+        else:
+            whole, n, what = mod.features, mod.in_features, "dx"
+            calls = 0 if ".blocks.0.attn." in name else 1
+        for m in (rows[owner], TENSOR_NARROW_ROWS):
+            key = (owner, m, whole // tensor, n)
+            entry = out.setdefault(key, {
+                "owner": owner, "m": m, "k": whole // tensor, "n": n,
+                "whole_k": whole, "calls": collections.Counter(),
+                "launches_per_micro_batch": 0})
+            entry["calls"][f"{leaf} {what}"] += 1
+            if m == rows[owner]:
+                entry["launches_per_micro_batch"] += calls
+    so400m = model.vision_backbone.fused_featurizer.blocks[0].mlp.fc2
+    for m in (rows["fused_featurizer"], TENSOR_NARROW_ROWS):
+        out[("fused_featurizer", m, so400m.in_features // 4,
+             so400m.features)] = {
+            "owner": "fused_featurizer", "m": m,
+            "k": so400m.in_features // 4, "n": so400m.features,
+            "whole_k": so400m.in_features,
+            "calls": {"fc2 forward at tensor 4": 1},
+            "launches_per_micro_batch": 0}
+    return [dict(v, calls=dict(v["calls"])) for _, v in sorted(out.items())]
+
+
+def tensor_b4_record(sh, gen, card: str) -> dict:
+    """B4's int32 output at one split shape: x (M, whole K) bf16 with row
+    scales over the whole K, each part of K quantized into a zeroed tail
+    (a K of 16s) and multiplied against its zero-padded weight part; every
+    part bit for bit with the plain int32 product, and the parts' sum
+    dequantized bit for bit with the whole-K call (B4's own dequant).
+    Times: the part's kernel, the whole-K call, the plain product and
+    ``torch._int_mm`` at the part's padded shape, against the bound."""
+    import torch
+
+    from vla_adapter_torch.ops import w8a8_matmul as ops
+
+    m, k, n, whole = sh["m"], sh["k"], sh["n"], sh["whole_k"]
+    dev = torch.device("cuda")
+    x = torch.randn(m, whole, generator=gen, device=dev).bfloat16()
+    x[:, 3] *= 20.0   # an outlier column, in the first part
+    x[1::2, whole - 2] *= 40.0   # odd rows peak in the last part
+    w = torch.randint(-127, 128, (n, whole), generator=gen, device=dev,
+                      dtype=torch.int8)
+    ws = torch.rand(n, generator=gen, device=dev) * 0.01 + 1e-3
+    rs = ops.row_scale(x.float().abs().amax(-1, keepdim=True))
+    kp = ops.padded_k(k)
+    parts, acc = [], None
+    for r in range(whole // k):
+        xr, wr = x[:, r * k:(r + 1) * k], w[:, r * k:(r + 1) * k]
+        xq, wq = ops.quantize_to(xr, rs, kp), ops.pad_k(wr)
+        got = ops.w8a8_matmul(xq, None, wq, None, out_dtype=torch.int32)
+        want = ops.int_matmul(ops.quantize_to(xr, rs), wr).to(torch.int32)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"B4 int32 {sh}: part {r} differs from the "
+                                 f"plain product by "
+                                 f"{int((got - want).abs().max())}")
+        parts.append((xq, wq, xr, wr))
+        acc = got if acc is None else acc + got
+    xq_whole = ops.quantize_to(x, rs)
+    whole_out = ops.w8a8_matmul(xq_whole, rs, w, ws)
+    summed = (acc.float() * rs * ws).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    if not torch.equal(summed, whole_out):
+        raise AssertionError(f"B4 int32 {sh}: the parts' sum dequantized "
+                             f"differs from the whole-K call by "
+                             f"{float((summed.float() - whole_out.float()).abs().max())}")
+    xq, wq, xr, wr = parts[0]
+    lib_ms, padded = _int_mm_ms(xq, wq)
+    ops_n = 2 * m * k * n
+    nbytes = m * kp + n * kp + 4 * m * n
+    t_ops, t_bytes = ops_n / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES
+    rec = dict(sh, card=card, padded_k=kp, parts=whole // k,
+               bitwise_equal=True, sum_bitwise_equal_to_whole=True,
+               max_abs_err=0.0,
+               ms=device_ms(lambda: ops.w8a8_matmul(
+                   xq, None, wq, None, out_dtype=torch.int32), reps=10,
+                   rounds=3),
+               whole_k_ms=device_ms(lambda: ops.w8a8_matmul(
+                   xq_whole, rs, w, ws), reps=10, rounds=3),
+               plain_ms=device_ms(lambda: ops.w8a8_matmul_reference(
+                   xq, None, wq, None, out_dtype=torch.int32), reps=5),
+               int_mm_ms=lib_ms, int_mm_padded_to_24_rows=padded,
+               bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               ops=ops_n, bytes=nbytes)
+    print("tensor_b4_shape " + json.dumps(rec), flush=True)
+    return rec
+
+
+def tensor_attention_shapes(cfg, batch: int, seed: int, tensor: int = TENSOR):
+    """B1-bwd's training shapes (:func:`attention_bwd_shapes`: the LLM,
+    DINOv2, so400m) with each rank's heads at ``tensor``."""
+    out = []
+    for name, b, h, hkv, s, d, valid, causal, calls in \
+            attention_bwd_shapes(cfg, batch, seed)[:3]:
+        out.append((f"{name}_tensor{tensor}", b, h // tensor,
+                    max(hkv // tensor, 1), s, d, valid, causal, calls))
+    return out
+
+
+def phase_tensor_attention(shapes, card: str) -> list:
+    """B1 at each rank's heads against its plain version (phase 2's
+    KERNEL_ATOL), then B1-bwd and B1 as phase 11 holds and times them."""
+    import torch
+
+    from vla_adapter_torch.ops.attention_kernel import (
+        attention_reference,
+        fused_attention,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    fwd_err = {}
+    for name, b, h, hkv, s, d, valid_np, causal, _ in shapes:
+        q = torch.randn(b, h, s, d, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn(b, hkv, s, d, generator=gen, device=dev)
+                .bfloat16() for _ in range(2))
+        valid = (None if valid_np is None
+                 else torch.from_numpy(valid_np).to(dev))
+        got = fused_attention(q, k, v, valid, causal=causal)
+        want = attention_reference(q, k, v, valid, causal=causal)
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= KERNEL_ATOL:
+            raise AssertionError(f"B1 {name}: {err} from plain")
+        fwd_err[name] = err
+    records = phase_attention_bwd(shapes, card)
+    for rec in records:
+        rec["fwd_max_abs_err"] = fwd_err[rec["shape"]]
+    return records
+
+
+class SameCardTransport:
+    """Phase 19's tensor collectives: all-reduce and all-gather among the
+    processes of a tensor group that share one card, through CUDA IPC
+    (NCCL refuses two ranks on one device, and gloo moves a CUDA tensor
+    through host memory and TCP: the recipe at tensor 2 took 103 s a step
+    that way on an H100). Passed to ``finetune`` as its
+    ``tensor_transport``: ``SameCardTransport(group, rank, size, device)``. Each rank owns a device buffer of two slots that every rank maps
+    (``torch.multiprocessing``'s CUDA sharing) and two interprocess events
+    per slot, "written" and "read". A collective (on slot s, alternating)
+    waits until every rank has read this rank's slot s of two collectives
+    ago, copies its tensor there, records "written", meets the others at
+    one host barrier (gloo, on the CPU), waits for their "written", reads
+    every rank's slot in rank order and records "read". Tensors above the
+    slot's size go in pieces."""
+
+    SLOT_BYTES = 64 << 20
+
+    def __init__(self, group, rank: int, size: int, device):
+        import torch
+        import torch.distributed as dist
+        from torch.multiprocessing.reductions import reduce_tensor
+
+        self.group, self.rank, self.size = group, rank, size
+        self.device = torch.device(device)
+        self.buf = torch.empty(2 * self.SLOT_BYTES, dtype=torch.uint8,
+                               device=self.device)
+        self.events = [[torch.cuda.Event(interprocess=True,
+                                         blocking=False)
+                        for _ in range(2)] for _ in range(2)]  # [kind][slot]
+        mine = (reduce_tensor(self.buf),
+                [[bytes(e.ipc_handle()) for e in kind]
+                 for kind in self.events])
+        every = [None] * size
+        dist.all_gather_object(every, mine, group=group)
+        self.bufs, self.peer_events = [], []
+        for r, ((rebuild, args), handles) in enumerate(every):
+            if r == rank:
+                self.bufs.append(self.buf)
+                self.peer_events.append(self.events)
+            else:
+                self.bufs.append(rebuild(*args))
+                self.peer_events.append([[torch.cuda.Event.from_ipc_handle(
+                    self.device, h) for h in kind] for kind in handles])
+        self.slot = 0
+
+    def _exchange(self, flat: torch.Tensor, read):
+        """One collective on ``flat`` (1-D, at most a slot): ``read(parts)``
+        gets every rank's part in rank order, on this rank's stream."""
+        import torch
+        import torch.distributed as dist
+
+        n = flat.numel() * flat.element_size()
+        s, self.slot = self.slot, self.slot ^ 1
+        stream = torch.cuda.current_stream(self.device)
+        written, done = 0, 1
+        for r in range(self.size):
+            if r != self.rank:   # every reader is done with my slot s
+                stream.wait_event(self.peer_events[r][done][s])
+        lo = s * self.SLOT_BYTES
+        self.buf[lo:lo + n].view(flat.dtype).copy_(flat)
+        self.events[written][s].record(stream)
+        dist.barrier(group=self.group)
+        for r in range(self.size):
+            if r != self.rank:
+                stream.wait_event(self.peer_events[r][written][s])
+        out = read([b[lo:lo + n].view(flat.dtype) for b in self.bufs])
+        self.events[done][s].record(stream)
+        return out
+
+    def _pieces(self, t: torch.Tensor):
+        flat = t.reshape(-1)
+        step = self.SLOT_BYTES // t.element_size()
+        return [flat[i:i + step] for i in range(0, flat.numel(), step)]
+
+    def all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        """t (contiguous) replaced by the elementwise SUM or MAX over the
+        ranks, taken in rank order."""
+        import torch
+        import torch.distributed as dist
+
+        fn = {dist.ReduceOp.SUM: torch.add,
+              dist.ReduceOp.MAX: torch.maximum}[op]
+
+        def read(parts):
+            acc = parts[0].clone()
+            for part in parts[1:]:
+                acc = fn(acc, part)
+            return acc
+
+        if not t.is_contiguous():
+            raise ValueError("SameCardTransport.all_reduce: a contiguous "
+                             "tensor is reduced in place")
+        for piece in self._pieces(t):
+            piece.copy_(self._exchange(piece, read))
+        return t
+
+    def all_gather(self, t: torch.Tensor):
+        """Every rank's t (same shape), in rank order."""
+        import torch
+
+        outs = [torch.empty_like(t) for _ in range(self.size)]
+        views = [o.reshape(-1) for o in outs]
+        step = self.SLOT_BYTES // t.element_size()
+        for i, piece in enumerate(self._pieces(t.contiguous())):
+            got = self._exchange(piece, lambda parts: [p.clone()
+                                                       for p in parts])
+            for v, g in zip(views, got):
+                v[i * step:i * step + g.numel()].copy_(g)
+        return outs
+
+
+def tensor_train_child(rank: int, port: int, out_path: str, seed: int
+                       ) -> None:
+    """One rank of phase 19's training: the flagship recipe at batch 16 on
+    the mesh (1, 1, TENSOR), two processes on the one card over gloo
+    (NCCL refuses two ranks on one card): TENSOR_TRAIN_STEPS steps and
+    their checkpoint, then TENSOR_RESUMED_STEPS resumed from it; the
+    launches per step checked against :func:`expected_tensor_launches`;
+    each rank's losses, s/step, peak memory and sums of its parts of a
+    few split tensors written as JSON to ``out_path``."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from vla_adapter_torch.data.dummy import make_dummy_batch
+    from vla_adapter_torch.models.vla import VLAModel
+    from vla_adapter_torch.ops import cuda_lib
+    from vla_adapter_torch.parallel.sharding import initialize_distributed
+    from vla_adapter_torch.train.loop import build_runtime
+
+    cuda_lib.load_libraries(SOURCES)
+    initialize_distributed(f"tcp://localhost:{port}", TENSOR, rank,
+                           local_rank=0, device="cuda", backend="gloo")
+
+    tcfg = dataclasses.replace(train_config(seed), tensor_axis=TENSOR,
+                               save_freq=1000)
+    batch = make_dummy_batch(tcfg.model, tcfg.batch_size,
+                             np.random.default_rng(seed))
+    per_micro = expected_tensor_launches(
+        VLAModel(tcfg.model, build_runtime(tcfg), device="meta"), TENSOR)
+    root = Path(out_path).parent / "runs"
+    rec = {"rank": rank, "card": card_line()}
+    go, deadline = Path(out_path).parent / "go", time.monotonic() + 600
+    while not go.exists():   # the parent's one-process runs hold the card
+        if time.monotonic() > deadline:
+            raise TimeoutError("phase 19: no go from the parent")
+        time.sleep(0.1)
+    with first_grad_squares() as grads:
+        state, launches, wall, memory = _train_run(
+            tcfg, batch, TENSOR_TRAIN_STEPS, root,
+            tensor_transport=SameCardTransport)
+    _check_train_launches(launches, per_micro, TENSOR_TRAIN_STEPS,
+                          f"tensor rank {rank}")
+    step_s = [h["step_time"] for h in state.history]
+    sh = state.sharding
+    # each trainable tensor's step-0 gradient norm over the whole tensor:
+    # a split one's squares summed over the group
+    import math
+
+    import torch.distributed as dist
+
+    sq = grads.host()
+    split = sorted(n for n in sq if n in sh.tensor_dims)
+    summed = torch.tensor([sq[n] for n in split], dtype=torch.float64)
+    dist.all_reduce(summed)
+    sq.update(zip(split, summed.tolist()))
+    rec["grad_norms"] = {n: math.sqrt(v) for n, v in sq.items()}
+    probes = ("action_head.blocks.0.q_proj.weight",
+              "language_model.layers.0.self_attn.o_proj.lora_a",
+              "action_head.fc_out.weight")
+    rec.update(
+        losses=[h["loss"] for h in state.history], step_s=step_s,
+        s_per_step=statistics.median(step_s[1:-1]), wall_s=wall,
+        peak_gib=memory["max_memory_allocated_bytes"] / 2**30,
+        launches=launches, launches_per_step_derived=per_micro,
+        split_tensors=len(sh.tensor_dims),
+        partial_tensors=len(sh.tensor_partial),
+        int8_bytes=sum(p.numel() for p in state.model.parameters()
+                       if p.dtype == torch.int8),
+        probes={n: sh.tensor_dims.get(n) for n in probes})
+    del state
+    torch.cuda.empty_cache()
+    state, launches, _, _ = _train_run(
+        tcfg, batch, TENSOR_TRAIN_STEPS + TENSOR_RESUMED_STEPS, root,
+        resume=True, tensor_transport=SameCardTransport)
+    _check_train_launches(launches, per_micro, TENSOR_RESUMED_STEPS,
+                          f"tensor rank {rank} resumed")
+    rec["resumed_losses"] = [h["loss"] for h in state.history]
+    rec["resumed_steps"] = [h["step"] for h in state.history]
+    rec["checkpoint"] = str(root / tcfg.run_id / "latest")
+    # this rank's parts of the probes as it wrote the checkpoint, and its
+    # copy of every whole trainable tensor (the same on every rank)
+    rec["ckpt_probes"] = {n: _digest(state.trainable[n])
+                          for n in rec["probes"]}
+    rec["whole_trainable_digest"] = _digest(torch.cat([
+        p.detach().float().reshape(-1) for n, p in state.trainable.items()
+        if n not in state.sharding.tensor_dims]))
+    print("tensor_rank " + json.dumps({k: v for k, v in rec.items()
+                                       if k not in ("ckpt_probes",
+                                                    "grad_norms")}),
+          flush=True)
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_tensor_train(cfg, card: str, seed: int, reference=None
+                       ) -> tuple:
+    """Phase 19 (c): the recipe's one-ulp spread in one process
+    (:func:`one_process_spread`), then the two ranks of
+    :func:`tensor_train_child` as child processes, held against it
+    (:func:`spread_check`: each stack's step-0 gradient norm, each
+    step's loss), then the checkpoint they wrote loaded by this process
+    and served through ``load_vla`` within phase 5's bound of the trained
+    LoRA model. The ranks start (imports, kernels, process group) while
+    the spread runs, and train after it. ``reference``: phase 11's main
+    run, the unperturbed one. Returns (record, launches of rank 0)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from vla_adapter_torch.data.dummy import make_dummy_batch
+    from vla_adapter_torch.data.normalization import dataset_statistics
+    from vla_adapter_torch.data.tokenization import MockTokenizer
+    from vla_adapter_torch.infer.predict import Predictor
+    from vla_adapter_torch.models.layers import Runtime
+    from vla_adapter_torch.models.lora import merge_lora
+    from vla_adapter_torch.models.quantize import dequantize_params
+    from vla_adapter_torch.models.vla import VLAModel
+    from vla_adapter_torch.train.checkpoints import load_checkpoint
+    from vla_adapter_torch.train.loop import build_runtime, initial_state
+    from vla_adapter_torch.train.optim import make_optimizer
+    from vla_adapter_torch.train.step import init_train_state
+    from vla_adapter_torch.weights.export import export_checkpoint_dir
+    from vla_adapter_torch.weights.load import load_vla
+
+    tcfg = dataclasses.replace(train_config(seed), save_freq=1000)
+    rec = {"card": card, "tensor": TENSOR, "ranks_on_one_card": TENSOR,
+           "backend": "gloo", "collectives": "CUDA IPC (SameCardTransport)",
+           "steps": TENSOR_TRAIN_STEPS,
+           "resumed_steps": TENSOR_RESUMED_STEPS}
+    tmp = Path(tempfile.mkdtemp(prefix="vla_tensor_"))
+    try:
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tensor-child",
+             str(tmp / f"rank{r}.json"), "--tensor-rank", str(r),
+             "--tensor-port", str(port), "--seed", str(seed)], cwd=HERE)
+            for r in range(TENSOR)]
+        try:
+            batch = make_dummy_batch(cfg, tcfg.batch_size,
+                                     np.random.default_rng(seed))
+            t0 = time.perf_counter()
+            alone, *perturbed = one_process_spread(
+                tcfg, batch, TENSOR_TRAIN_STEPS, reference)
+            rec["one_process_spread_s"] = time.perf_counter() - t0
+            rec["reference_from"] = alone.get("from", "phase 19")
+            (tmp / "go").touch()   # the ranks train now
+            rcs = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if rcs != [0] * TENSOR:
+            raise AssertionError(f"tensor ranks exited {rcs}")
+        rec["ranks_s"] = time.perf_counter() - t0 - rec[
+            "one_process_spread_s"]
+        ranks = [json.load(open(tmp / f"rank{r}.json"))
+                 for r in range(TENSOR)]
+        r0 = ranks[0]
+        for r in ranks:
+            if r["losses"] != r0["losses"] or \
+                    r["resumed_losses"] != r0["resumed_losses"]:
+                raise AssertionError("the tensor ranks read different "
+                                     f"losses: {[x['losses'] for x in ranks]}")
+            if r["grad_norms"] != r0["grad_norms"]:
+                raise AssertionError("the tensor ranks read different "
+                                     "step-0 gradient norms")
+            if r["resumed_steps"] != list(range(
+                    TENSOR_TRAIN_STEPS,
+                    TENSOR_TRAIN_STEPS + TENSOR_RESUMED_STEPS)):
+                raise AssertionError(f"resumed steps {r['resumed_steps']}")
+            if r["whole_trainable_digest"] != r0["whole_trainable_digest"]:
+                raise AssertionError("the ranks' whole trainable tensors "
+                                     "differ")
+        if not (np.isfinite(r0["losses"]).all()
+                and np.isfinite(r0["resumed_losses"]).all()):
+            raise AssertionError(f"tensor {TENSOR} losses {r0['losses']}, "
+                                 f"resumed {r0['resumed_losses']}")
+        if set(r0["grad_norms"]) != set(alone["grad_norms"]):
+            raise AssertionError("the tensor ranks' trainable tensors are "
+                                 "not one process's")
+        ref = alone["losses"]
+        rel = lambda xs: [abs(x - y) / abs(y)  # noqa: E731
+                          for x, y in zip(xs, ref)]
+        norms = [stacked_norms(r["grad_norms"])
+                 for r in (r0, alone, *perturbed)]
+        print("tensor_spread " + json.dumps({
+            "losses": r0["losses"], "one_process_losses": ref,
+            "perturbed_losses": [p["losses"] for p in perturbed],
+            "grad_norms": norms[0], "one_process_grad_norms": norms[1],
+            "perturbed_grad_norms": norms[2:]}), flush=True)
+        losses = spread_check(r0["losses"], ref,
+                              [p["losses"] for p in perturbed],
+                              "loss at step")
+        grads = spread_check(norms[0], norms[1], norms[2:],
+                             "step-0 gradient norm of")
+        rec.update(losses=r0["losses"], one_process_losses=ref,
+                   perturbed_losses=[p["losses"] for p in perturbed],
+                   spread_seeds=list(TENSOR_SPREAD_SEEDS),
+                   spread_margin=TENSOR_SPREAD_MARGIN,
+                   loss_rel_diff=rel(r0["losses"]),
+                   loss_rel_spread=[max(a) for a in zip(
+                       *[rel(p["losses"]) for p in perturbed])],
+                   loss_check=losses, grad_norm_check=grads,
+                   whole_trainable_equal_across_ranks=True,
+                   resumed_losses=r0["resumed_losses"],
+                   s_per_step=[r["s_per_step"] for r in ranks],
+                   s_per_step_note="two processes time-sharing one card, "
+                                   "not a tensor-parallel speed",
+                   peak_gib=[r["peak_gib"] for r in ranks],
+                   int8_bytes_per_rank=[r["int8_bytes"] for r in ranks],
+                   launches_per_rank=[r["launches"] for r in ranks],
+                   launches_per_step_derived=r0["launches_per_step_derived"],
+                   split_tensors=r0["split_tensors"],
+                   partial_tensors=r0["partial_tensors"])
+        # the checkpoint (written at step 6 by rank 0) in one process
+        rt = build_runtime(tcfg)
+        model = VLAModel(cfg, rt, device="meta")
+        model.load_state_dict(initial_state(tcfg, rt, "cuda"), strict=True,
+                              assign=True)
+        state = init_train_state(model, make_optimizer(tcfg.optim),
+                                 tcfg.lora.enabled)
+        load_checkpoint(r0["checkpoint"], state)
+        if state.step != TENSOR_TRAIN_STEPS + TENSOR_RESUMED_STEPS:
+            raise AssertionError(f"checkpoint at step {state.step}")
+        for r in ranks:
+            for n, got in r["ckpt_probes"].items():
+                dim = r["probes"][n]
+                whole = state.trainable[n]
+                part = whole if dim is None else whole.chunk(
+                    TENSOR, dim=dim)[r["rank"]]
+                if _digest(part) != got:
+                    raise AssertionError(f"checkpoint {n}: rank "
+                                         f"{r['rank']}'s part differs")
+        trained = {k: v.detach().clone() for k, v in
+                   dequantize_params(state.model.state_dict()).items()}
+        del state, model
+        torch.cuda.empty_cache()
+        srng = np.random.default_rng(seed)
+        stats = {"libero_spatial": dataset_statistics(
+            srng.uniform(-1, 1, size=(1000, 7)),
+            proprio=srng.normal(size=(1000, 8)),
+            action_mask=[True] * 6 + [False])}
+        export_checkpoint_dir(merge_lora(trained, tcfg.lora.scale), cfg,
+                              tmp / "export", norm_stats=stats)
+        tok = MockTokenizer()
+        tokenize = lambda t: tok(t).input_ids  # noqa: E731
+        served = load_vla(tmp / "export", tokenize=tokenize,
+                          center_crop=False, device="cuda")
+        lora_rt = Runtime(dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                          lora_rank=tcfg.lora.rank,
+                          lora_scale=tcfg.lora.scale)
+        lora_pred = Predictor(cfg=cfg, params=trained, tokenize=tokenize,
+                              norm_stats=stats, rt=lora_rt,
+                              center_crop=False, device="cuda",
+                              cuda_graph=False)
+        rows = [served.preprocess(im, INSTRUCTION, p)
+                for im, p in _requests(cfg, srng, 4)]
+        got = served.normalized_actions(rows)
+        want = lora_pred.normalized_actions(rows)
+        diff = float(np.abs(got - want).max())
+        if not (np.isfinite(got).all() and diff <= FLAGSHIP_ACTIONS_ATOL):
+            raise AssertionError(f"tensor checkpoint served {diff} from the "
+                                 f"trained LoRA model")
+        rec["served_max_abs_diff_normalized"] = diff
+        del served, lora_pred, trained
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("tensor_train " + json.dumps(rec), flush=True)
+    return rec, r0["launches"]
+
+
+def tensor_phase(cfg, card: str, seed: int, lap, reference=None
+                 ) -> tuple:
+    """Phase 19, lapped: (record, launches of rank 0's run)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch = train_config(seed).batch_size
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    rec = {"b4": [tensor_b4_record(sh, gen, card)
+                  for sh in tensor_b4_shapes(cfg, batch)]}
+    t1 = time.perf_counter()
+    rec["attention"] = phase_tensor_attention(
+        tensor_attention_shapes(cfg, batch, seed), card)
+    t2 = time.perf_counter()
+    rec["train"], launches = phase_tensor_train(cfg, card, seed,
+                                                reference)
+    rec["seconds"] = time.perf_counter() - t0
+    rec["seconds_by_part"] = {"b4": t1 - t0, "attention": t2 - t1,
+                              "train": rec["seconds"] - (t2 - t0)}
+    print(f"phase 19 parts: {json.dumps(rec['seconds_by_part'])}",
+          flush=True)
+    print(f"phase 19 seconds: {rec['seconds']:.1f} ({card})", flush=True)
+    print(f"kernels launched on the tensor path (rank 0): "
+          f"{sorted(launches)}", flush=True)
+    lap("19 tensor")
+    return rec, launches
+
+
+def tensor_kernel_summary(rec, launches):
+    """The kernels line's entry for B4's int32 output: per-call times and
+    bounds of phase 19 summed over the calls of one micro-batch on a rank
+    of the tensor-2 recipe (each split shape's calls at the micro-batch's
+    rows, from :func:`expected_tensor_launches`' modes)."""
+    from vla_adapter_torch.ops import w8a8_matmul
+
+    rows = rec["b4"]
+
+    def total(key):
+        return sum(r[key] * r["launches_per_micro_batch"] for r in rows)
+
+    t_ops = total("ops") / PEAK_INT8_OPS
+    t_bytes = total("bytes") / PEAK_HBM_BYTES
+    return [{
+        "name": w8a8_matmul.INT32_KERNEL_NAME, "route": "cuda",
+        "source": "vla_adapter_torch/csrc/w8a8_matmul.cu",
+        "replaces": "vla_adapter_tpu/ops/pallas_matmul.py:140",
+        "launches": launches.get(w8a8_matmul.INT32_KERNEL_NAME, 0),
+        "max_abs_err": max(r["max_abs_err"] for r in rec["b4"]),
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": total("int_mm_ms"),
+        "library": "torch._int_mm at the same padded operands",
+        "per": f"sum over the {int(sum(r['launches_per_micro_batch'] for r in rows))}"
+               " int32 launches of one micro-batch of 16 on a rank of the "
+               "tensor-2 recipe (row-split forwards, recomputed ones "
+               "included, and column-split dx)"}]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -5510,16 +6417,20 @@ def main() -> int:
                         help="also profile one B=1 request per tier, eager "
                              "and replayed (torch.profiler)")
     parser.add_argument("--only", default="",
-                        help="comma-separated phases among 12-18 to run "
+                        help="comma-separated phases among 12-19 to run "
                              "after the build, skipping phases 2-11; such a "
                              "partial run prints no kernels or ok line")
     # phase 18's training under a process group runs in a child process
-    # started with this flag (the file its record goes to)
+    # started with this flag (the file its record goes to), and phase 19's
+    # ranks in child processes started with the three after it
     parser.add_argument("--group-train-child", help=argparse.SUPPRESS)
+    parser.add_argument("--tensor-child", help=argparse.SUPPRESS)
+    parser.add_argument("--tensor-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--tensor-port", type=int, help=argparse.SUPPRESS)
     args = parser.parse_args()
     only = {int(p) for p in args.only.split(",") if p}
-    if only - {12, 13, 14, 15, 16, 17, 18}:
-        parser.error(f"--only takes phases among 12-18, got {args.only}")
+    if only - {12, 13, 14, 15, 16, 17, 18, 19}:
+        parser.error(f"--only takes phases among 12-19, got {args.only}")
 
     sys.path.insert(0, HERE)
     import torch
@@ -5537,6 +6448,10 @@ def main() -> int:
         return 2
     if args.group_train_child:
         group_train_child(args.group_train_child, args.seed, args.profile)
+        return 0
+    if args.tensor_child:
+        tensor_train_child(args.tensor_rank, args.tensor_port,
+                           args.tensor_child, args.seed)
         return 0
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
@@ -5580,6 +6495,11 @@ def main() -> int:
                 predictor, w8a8_shapes(cfg, predictor.tokenize), card,
                 args.seed, lap, profile=args.profile)
             del predictor
+        if 19 in only:
+            from vla_adapter_torch.core.config import VLAConfig
+
+            causal["tensor"], _ = tensor_phase(VLAConfig(), card, args.seed,
+                                               lap)
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"card": card, "phase_s": phase_s, **causal}, f,
@@ -5668,14 +6588,21 @@ def main() -> int:
                                                   args.seed, lap,
                                                   profile=args.profile)
     del predictor
+
+    # 19. the "tensor" mesh axis: B4's int32 output at the split shapes,
+    # B1/B1-bwd at each rank's heads, the recipe at tensor 2 on two ranks
+    tensor, tensor_launches = tensor_phase(cfg, card, args.seed, lap,
+                                           reference=train["main"])
     kernels = (kernel_summary(records, launches)
                + w8a8_kernel_summary(w8a8_records, w8a8_launches)
                + megalayer_kernel_summary(w8a8_records, w8a8_launches)
-               + attention_bwd_kernel_summary(bwd_records, train_launches))
+               + attention_bwd_kernel_summary(bwd_records, train_launches)
+               + tensor_kernel_summary(tensor, tensor_launches))
     paths = {"flagship_bf16": launches, "flagship_w8a8": w8a8_launches,
              "server": server_launches, "original_film": original_launches,
              "train": train_launches, **causal["launches_by_path"],
-             **zoo_paths, "finetune_rlds": rlds_launches, **eval_paths}
+             **zoo_paths, "finetune_rlds": rlds_launches, **eval_paths,
+             "finetune_tensor": tensor_launches}
     for entry in kernels:
         entry["launches_by_path"] = {path: counts.get(entry["name"], 0)
                                      for path, counts in paths.items()}
@@ -5689,8 +6616,8 @@ def main() -> int:
                        "server": server, "original_film": original,
                        "train": train, "attention_bwd_shapes": bwd_records,
                        **causal, "zoo": zoo, "finetune_rlds": rlds,
-                       "eval_group": eval_group, "kernels": kernels,
-                       "phase_s": phase_s}, f, indent=1)
+                       "eval_group": eval_group, "tensor": tensor,
+                       "kernels": kernels, "phase_s": phase_s}, f, indent=1)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,6 @@ Each multi-process test spawns its ranks (``tests/torch_dist_worker.py``)
 on a free port with an overall timeout and asserts every exit code.
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -205,26 +204,6 @@ def test_eval_calvin_gathers_chains_in_rank_order(tmp_path):
 
 
 # --- refusals --------------------------------------------------------------------
-
-def test_tensor_axis_raises_naming_the_roadmap_item(tmp_path):
-    from vla_adapter_torch.train.loop import finetune
-
-    cfg = dataclasses.replace(worker.train_cfg(tmp_path, "t"), tensor_axis=2)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.5"):
-        finetune(cfg, device="cpu", max_steps=1)
-
-    class Dim:
-        def __init__(self, n):
-            self.n = n
-
-        def size(self):
-            return self.n
-
-    mesh = {tsh.DATA_AXIS: Dim(1), tsh.FSDP_AXIS: Dim(1),
-            tsh.TENSOR_AXIS: Dim(2)}
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.5"):
-        tsh.shard_model(torch.nn.Linear(2, 2), mesh)
-
 
 def test_fsdp_axis_needs_a_process_group(tmp_path):
     from vla_adapter_torch.train.loop import finetune

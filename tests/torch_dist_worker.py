@@ -16,6 +16,7 @@ rank writes what it saw to ``DIR/rank<r>.pt`` for the test to compare.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import socket
@@ -33,7 +34,17 @@ from tests.torch_tiny import tiny_cfg
 
 ROOT = Path(__file__).resolve().parent.parent
 GLOBAL_BATCH = 8
-MODES = {"data": (-1, 1), "fsdp": (1, 2), "hsdp": (2, 2)}
+# mode: the mesh (data, fsdp, tensor)
+MODES = {"data": (-1, 1, 1), "fsdp": (1, 2, 1), "hsdp": (2, 2, 1),
+         "tp2": (1, 1, 2), "tp4": (1, 1, 4), "dp_tp": (2, 1, 2),
+         "fsdp_tp": (1, 2, 2), "tp2_ste": (1, 1, 2), "tp4_ste": (1, 1, 4),
+         "dp_tp_ste": (2, 1, 2), "fsdp_tp_ste": (1, 2, 2)}
+# the Runtime's act_int8_min_dim of a mode's recipe where it is not the
+# default (256, above every width of the tiny model: each frozen int8
+# Dense takes the weight-only upcast): at 1 every one trains through the
+# straight-through w8a8 product, as the flagship's wide ones do
+STE_MIN_DIM = 1
+ACT_INT8_MIN_DIM = {m: STE_MIN_DIM for m in MODES if m.endswith("_ste")}
 GROUP_TIMEOUT_S = 120   # every rank of a group has ended by then
 
 
@@ -83,11 +94,11 @@ def train_cfg(root, run_id: str, mode=None, accum: int = 1, steps: int = 2,
     """The tiny VLA's LoRA recipe over the int8 base at a global batch of
     8, head noise at the recipe's std, on the mesh of ``mode`` (None: one
     process), in either package's config classes (``C``, ``K``)."""
-    data, fsdp = MODES[mode] if mode else (-1, 1)
+    data, fsdp, tensor = MODES[mode] if mode else (-1, 1, 1)
     return C.TrainConfig(
         model=tiny_cfg(C, K), batch_size=GLOBAL_BATCH, base_int8=True,
         lora=C.LoRAConfig(rank=4, alpha=8.0), data_axis=data,
-        fsdp_axis=fsdp, grad_accumulation_steps=accum,
+        fsdp_axis=fsdp, tensor_axis=tensor, grad_accumulation_steps=accum,
         accum_dtype="bfloat16" if accum > 1 else None, frozen_bf16=False,
         save_freq=1000, log_freq=1000, run_id=run_id, run_root_dir=str(root),
         optim=C.OptimizerConfig(learning_rate=1e-3, max_steps=steps,
@@ -124,19 +135,48 @@ def fixed_head_noise(unit: np.ndarray):
     return head_noise
 
 
-def run(cfg, batch, steps, init, resume=False):
+def run(cfg, batch, steps, init, resume=False, min_dim=None):
     """finetune from the float weights ``init`` over one repeated batch in
-    fp32 (a bf16 product rounds differently at another row count):
-    (losses, whole trainable tensors, the state)."""
+    fp32 (a bf16 product rounds differently at another row count), at the
+    Runtime's act_int8_min_dim ``min_dim`` (None: its default): (losses,
+    whole trainable tensors, the state)."""
     from vla_adapter_torch.train.loop import build_runtime, finetune
 
     rt = dataclasses.replace(build_runtime(cfg), dtype=torch.float32)
-    state = finetune(cfg, data_iter=itertools.repeat(batch), max_steps=steps,
-                     device="cpu", resume=resume, rt=rt, params=init)
+    if min_dim is not None:
+        rt = dataclasses.replace(rt, act_int8_min_dim=min_dim)
+    with first_grads() as grads:
+        state = finetune(cfg, data_iter=itertools.repeat(batch),
+                         max_steps=steps, device="cpu", resume=resume, rt=rt,
+                         params=init)
     sh = state.sharding
-    full = {n: (sh.full(p) if sh else p).detach().clone()
+    full = {n: (sh.full(p, n) if sh else p).detach().clone()
             for n, p in state.trainable.items()}
+    state.first_grads = {
+        n: (sh.full_like(g, state.trainable[n], n) if sh else g
+            ).detach().clone() for n, g in grads.items()}
     return [h["loss"] for h in state.history], full, state
+
+
+@contextlib.contextmanager
+def first_grads():
+    """A dict that receives the gradients of the first optimizer update
+    made inside the block (the train step's, after its reductions over the
+    process group: this rank's parts of the split tensors)."""
+    from vla_adapter_torch.train import optim
+
+    seen, update = {}, optim.AdamW.update
+
+    def record(self, grads, *args, **kw):
+        if not seen:
+            seen.update({n: g.detach().clone() for n, g in grads.items()})
+        return update(self, grads, *args, **kw)
+
+    optim.AdamW.update = record
+    try:
+        yield seen
+    finally:
+        optim.AdamW.update = update
 
 
 def checkpoint_layout(ckpt) -> dict:
@@ -153,6 +193,9 @@ def checkpoint_layout(ckpt) -> dict:
 
 
 def train_scenario(args, init) -> dict:
+    tensor = MODES[args.mode][2]
+    if tensor > 1:
+        return tensor_scenario(args, init)
     world, rank = args.world, args.rank
     root = Path(args.out) / "runs"
     out = {}
@@ -186,6 +229,152 @@ def train_scenario(args, init) -> dict:
     return out
 
 
+def tensor_scenario(args, init) -> dict:
+    """A mesh with a "tensor" dim: the 2-step run over this rank's rows
+    (those of its ("data", "fsdp") coordinate) and its checkpoint's
+    layout; on "tp2" also the split Denses (:func:`split_dense_records`),
+    each rank's parts of the frozen base, a checkpoint written under the
+    group and resumed on it, and 2-way accumulation."""
+    from vla_adapter_torch.utils.overwatch import process_count, process_index
+
+    tensor = MODES[args.mode][2]
+    world, rank = args.world, args.rank
+    min_dim = ACT_INT8_MIN_DIM.get(args.mode)
+    root = Path(args.out) / "runs"
+    out = {"rank": process_index(), "world": process_count()}
+    if args.mode == "tp2":
+        out["dense"] = split_dense_records()
+    cfg = train_cfg(root, f"{args.mode}-full", args.mode)
+    mine = rows(global_batch(cfg, 1), rank // tensor, world // tensor, 1)
+    out["losses"], out["trained"], state = run(cfg, mine, 2, init,
+                                               min_dim=min_dim)
+    out["first_grads"] = state.first_grads
+    out["ste"] = sum(getattr(m, "ste", False) for m in state.model.modules())
+    sh = state.sharding
+    out["mesh"] = dict(zip(sh.mesh.mesh_dim_names, tuple(sh.mesh.shape)))
+    out["checkpoint"] = checkpoint_layout(root / f"{args.mode}-full" /
+                                          "latest")
+    out["tensor_dims"] = dict(sh.tensor_dims)
+    out["partial"] = sorted(sh.tensor_partial)
+    out["fsdp_dims"] = dict(sh.fsdp_dims)
+    if args.mode != "tp2":
+        return out
+    local = {n: p.detach().clone() for n, p in
+             state.model.named_parameters()}
+    out["local_frozen"] = {n: v for n, v in local.items()
+                           if n not in state.trainable}
+    out["local_shapes"] = {n: tuple(v.shape) for n, v in local.items()}
+    cfg_b = dataclasses.replace(cfg, run_id=f"{args.mode}-resumed")
+    run(cfg_b, mine, 1, init, min_dim=min_dim)
+    out["resumed_losses"], out["resumed"], _ = run(
+        cfg_b, mine, 2, init, resume=True, min_dim=min_dim)
+    cfg_a = train_cfg(root, f"{args.mode}-accum", args.mode, accum=2,
+                      steps=1)
+    out["accum_losses"], out["accum_trained"], _ = run(
+        cfg_a, rows(global_batch(cfg_a, 2), rank // tensor, world // tensor,
+                    2), 1, init, min_dim=min_dim)
+    return out
+
+
+DENSE_BRANCHES = ("float", "int8", "ste")
+
+
+def split_dense_records(m: int = 6, k: int = 32, n: int = 40,
+                        seed: int = 7) -> dict:
+    """One Dense per branch ("float", weight-only "int8", the
+    straight-through "ste" with act_int8_min_dim=1), with LoRA (rank 4,
+    non-zero b) and bias, and the "ste" base alone ("ste_base": no LoRA,
+    no bias; "ste_base_k24" at K 24, whose halves of 12 are zero-padded
+    where K 32's halves of 16 are not), split "col" and "row" over this
+    rank's tensor group of 2,
+    each beside the unsplit Dense of the same weights: the forward, dx and
+    the gradients of the whole tensors (those the rank uses in part summed
+    over the group, as the train step sums them), for the test to hold.
+    Every row of x and of the output gradient has its absmax on one half
+    of K or N, alternating, so half the rows peak on the other rank's
+    half."""
+    import torch.distributed as dist
+
+    from vla_adapter_torch.models.layers import Dense, FP32_RUNTIME
+    from vla_adapter_torch.models.quantize import quantize_weight
+    from vla_adapter_torch.parallel.tensor import TensorGroup
+
+    tg = TensorGroup(None, dist.get_rank(), dist.get_world_size())
+    rng = np.random.default_rng(seed)
+
+    def peaked(rows_, width):
+        a = rng.normal(size=(rows_, width)).astype(np.float32)
+        for i in range(rows_):
+            half = width // 2
+            j = (i % 2) * half + rng.integers(half)
+            a[i, j] = 9.0 * np.sign(a[i, j])
+        return torch.from_numpy(a)
+
+    out = {}
+    n_base = k
+    for branch in DENSE_BRANCHES + ("ste_base", "ste_base_k24"):
+        base = branch.startswith("ste_base")
+        k = 24 if branch == "ste_base_k24" else n_base
+        rt = dataclasses.replace(
+            FP32_RUNTIME, lora_rank=0 if base else 4, lora_scale=2.0,
+            weights_int8=branch != "float", act_int8=branch.startswith("ste"),
+            act_int8_min_dim=1, train_base_int8=branch.startswith("ste"))
+        weight = torch.from_numpy(
+            rng.normal(size=(n, k)).astype(np.float32) / np.sqrt(k))
+        tensors = {"bias": torch.from_numpy(
+            rng.normal(size=n).astype(np.float32))}
+        if not base:
+            tensors["lora_a"] = torch.from_numpy(
+                rng.normal(size=(k, 4)).astype(np.float32))
+            tensors["lora_b"] = torch.from_numpy(
+                rng.normal(size=(4, n)).astype(np.float32))
+        if branch == "float":
+            tensors["weight"] = weight
+        else:
+            tensors["weight_q"], tensors["weight_scale"] = \
+                quantize_weight(weight)
+        x, g = peaked(m, k), peaked(m, n)
+        for mode in ("col", "row"):
+            pair = {}
+            for split in (False, True):
+                dense = Dense(k, n, use_bias=True, rt=rt)
+                with torch.no_grad():
+                    for name, t in tensors.items():
+                        getattr(dense, name).copy_(t)
+                    if base:
+                        dense.bias = None
+                trained = [name for name in ("bias", "lora_a", "lora_b")
+                           if getattr(dense, name, None) is not None]
+                for name in trained:
+                    getattr(dense, name).requires_grad_(True)
+                xin, gout = x.clone(), g
+                if split:
+                    dense.split_(mode, tg)
+                    lo, hi = dense.tp_range
+                    if mode == "row":
+                        xin = x[:, lo:hi].clone()
+                    else:
+                        gout = g[:, lo:hi]
+                if dense.ste:
+                    from vla_adapter_torch.models.layers import prepare_ste_
+
+                    prepare_ste_(dense)
+                xin.requires_grad_(True)
+                y = dense(xin)
+                (y * gout).sum().backward()
+                grads = {name: getattr(dense, name).grad.clone()
+                         for name in trained}
+                if split:
+                    for name in dense.tensor_partial():
+                        dist.all_reduce(grads[name])
+                pair["split" if split else "whole"] = {
+                    "y": y.detach(), "dx": xin.grad.detach(), **grads,
+                    "state": sorted(dense.state_dict())}
+            pair["range"] = dense.tp_range
+            out[f"{branch}/{mode}"] = pair
+    return out
+
+
 def one_rank_runs(args, init) -> dict:
     """One process, the head noise drawn as the recipe draws it: 2 steps
     without a group, then under a one-rank group on "data" and under
@@ -210,17 +399,18 @@ def one_rank_runs(args, init) -> dict:
     return out
 
 
-def single_process_runs(root, init) -> dict:
+def single_process_runs(root, init, min_dim=None) -> dict:
     """The "train" scenario's runs in one process over the whole global
-    batch."""
+    batch, at act_int8_min_dim ``min_dim`` (:func:`run`)."""
     out = {}
     cfg = train_cfg(root, "single")
-    out["losses"], out["trained"], _ = run(cfg, global_batch(cfg, 1), 2,
-                                           init)
+    out["losses"], out["trained"], state = run(
+        cfg, global_batch(cfg, 1), 2, init, min_dim=min_dim)
+    out["first_grads"] = state.first_grads
     out["checkpoint"] = checkpoint_layout(Path(root) / "single" / "latest")
     cfg_a = train_cfg(root, "single-accum", accum=2, steps=1)
     out["accum_losses"], out["accum_trained"], _ = run(
-        cfg_a, global_batch(cfg_a, 2), 1, init)
+        cfg_a, global_batch(cfg_a, 2), 1, init, min_dim=min_dim)
     return out
 
 

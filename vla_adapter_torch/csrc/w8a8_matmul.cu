@@ -25,6 +25,16 @@
 // (quant_bits), rounded half to even. No xq is written to device memory.
 // The int32 sum is exact in any order over k.
 //
+// Split K (the "tensor" mesh axis): with xq given, the kernel can write the
+// int32 accumulator itself (out_dtype 2, no dequant). A rank's partial over
+// its slice of K is then exact, the ranks' partials add exactly in int32,
+// and the dequant runs once after that sum, so a row-split projection (or
+// a column split's straight-through dx) equals the unsplit one bit for bit.
+// A shard's K need not be a multiple of 16 (so400m's MLP at tensor 2: 2152;
+// at 4: 1076): the caller zero-pads the weight shard once to 16 * ceil(K /
+// 16) and writes xq into a zeroed tail as it quantizes, so the kernel keeps
+// its 16-byte rows and int8 zeros add nothing.
+//
 // Two designs by the number of rows:
 // * M > 32 ("wide": Qwen2 q/o, the ViT projections, projector fc3, the
 //   head's K/V stacks, every "dense" matmul): a CTA of 4 warps owns 64 rows
@@ -211,6 +221,12 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* o, float v0, float v1)
 __device__ __forceinline__ float dequant(int acc, float r, float w) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), r), w);
 }
+// One output: the dequantized acc, or (OutT int32) the accumulator itself.
+template <typename OutT>
+__device__ __forceinline__ void store_result(OutT* o, int acc, float r, const float* w) {
+  if constexpr (std::is_same<OutT, int>::value) *o = acc;
+  else store_out(o, dequant(acc, r, *w));
+}
 
 // ---------------------------------------------------------------- narrow
 constexpr int kNarrowRows = 64;  // weight rows per narrow CTA (4 warps)
@@ -344,8 +360,8 @@ __global__ void __launch_bounds__(128) w8a8_narrow_kernel(const Params p) {
     if (threadIdx.x < kRows)
       scale_s[threadIdx.x] = row_scale(__int_as_float(amax_s[threadIdx.x]));
     __syncthreads();
-  } else if (threadIdx.x < kRows) {
-    scale_s[threadIdx.x] = threadIdx.x < p.m ? p.rs[z * p.rs_ls + threadIdx.x] : 1.0f;
+  } else if (threadIdx.x < kRows) {  // (no rs with an int32 output)
+    scale_s[threadIdx.x] = threadIdx.x < p.m && p.rs ? p.rs[z * p.rs_ls + threadIdx.x] : 1.0f;
   }
   // --- this CTA's slice of xq into shared memory ---
 #pragma unroll
@@ -448,7 +464,7 @@ __global__ void __launch_bounds__(128) w8a8_narrow_kernel(const Params p) {
       const int tok = 8 * nt + 2 * t + (i & 1);
       const int col = n_lo + ((i & 2) ? 8 : 0);
       if (tok < p.m && col < p.n)
-        store_out(out + (long long)tok * p.n + col, dequant(acc[nt][i], scale_s[tok], ws[col]));
+        store_result(out + (long long)tok * p.n + col, acc[nt][i], scale_s[tok], ws + col);
     }
 }
 
@@ -681,9 +697,9 @@ __global__ void __launch_bounds__(kWideThreads) w8a8_wide_kernel(const Params p)
         }
       }
     }
-  } else if (threadIdx.x < kWideRows) {
+  } else if (threadIdx.x < kWideRows) {  // (no rs with an int32 output)
     const int r = m0 + threadIdx.x;
-    scale_s[threadIdx.x] = r < p.m ? p.rs[z * p.rs_ls + r] : 1.0f;
+    scale_s[threadIdx.x] = r < p.m && p.rs ? p.rs[z * p.rs_ls + r] : 1.0f;
   }
 
   // A fragments of step s for this warp (m16n8k32 layout, k in order):
@@ -779,9 +795,13 @@ __global__ void __launch_bounds__(kWideThreads) w8a8_wide_kernel(const Params p)
     for (int nt = 0; nt < BN / 8; ++nt) {
       const int col = n0 + 8 * nt + 2 * t;
       if (col >= p.n) continue;  // N even: col + 1 < N as well
-      const float2 wv = *reinterpret_cast<const float2*>(ws + col);
-      store_pair(out + (long long)r * p.n + col, dequant(acc[4 * nt + 2 * half], rsv, wv.x),
-                 dequant(acc[4 * nt + 2 * half + 1], rsv, wv.y));
+      const int a0 = acc[4 * nt + 2 * half], a1 = acc[4 * nt + 2 * half + 1];
+      if constexpr (std::is_same<OutT, int>::value) {
+        *reinterpret_cast<int2*>(out + (long long)r * p.n + col) = make_int2(a0, a1);
+      } else {
+        const float2 wv = *reinterpret_cast<const float2*>(ws + col);
+        store_pair(out + (long long)r * p.n + col, dequant(a0, rsv, wv.x), dequant(a1, rsv, wv.y));
+      }
     }
   }
 }
@@ -910,6 +930,10 @@ cudaError_t dispatch_out(const Params& p, int layers, int out_dtype,
   switch (out_dtype) {
     case 0: return launch<XT, __nv_bfloat16>(p, layers, part_cap, count_cap, s);
     case 1: return launch<XT, float>(p, layers, part_cap, count_cap, s);
+    case 2:  // the int32 accumulator, no dequant: xq given only
+      if constexpr (std::is_same<XT, int8_t>::value)
+        return launch<XT, int>(p, layers, part_cap, count_cap, s);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -948,10 +972,14 @@ Params make_params(const void* x, const void* rs, const void* w, const void* ws,
 // x (layers, M, K) [layer stride x_ls, 0 = shared]: int8 (x_dtype 0, with
 // rs (layers, M) f32), bf16 (1) or f32 (2), quantized per row inside;
 // w (L, N, K) int8, ws (L, N) f32, out (layers, M, N) bf16 (out_dtype 0)
-// or f32 (1). part / count: a zeroed int32 scratch of part_cap / count_cap
-// entries for the split over K at M <= 32 (left zeroed; null: no split).
-// K % 16 == 0, N even, pointers 16-byte aligned (the wrapper checks shapes;
-// PyTorch allocations are aligned). Returns a cudaError_t.
+// or f32 (1), or (out_dtype 2, int8 x only) the int32 accumulator with no
+// dequant (rs and ws unread, may be null): the exact partial product of a
+// split K, summed across ranks before the dequant. part / count: a zeroed
+// int32 scratch of part_cap / count_cap entries for the split over K at
+// M <= 32 (left zeroed; null: no split). K % 16 == 0, N even, pointers
+// 16-byte aligned (the wrapper checks shapes; PyTorch allocations are
+// aligned; a K not a multiple of 16 is zero-padded by the caller, once for
+// the weight and inside the quantization for x). Returns a cudaError_t.
 extern "C" int vla_w8a8_matmul(
     const void* x, const void* rs, const void* w, const void* ws, void* out,
     int m, int n, int k, int layer0, int layers,
@@ -959,7 +987,7 @@ extern "C" int vla_w8a8_matmul(
     long long o_ls, int x_dtype, int out_dtype, void* part, void* count,
     long long part_cap, long long count_cap, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || k % 16 || n % 2 || layers <= 0 ||
-      (x_dtype == 0 && rs == nullptr))
+      (x_dtype == 0 && rs == nullptr && out_dtype != 2) || (out_dtype == 2 && x_dtype != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p = make_params(x, rs, w, ws, out, m, n, k, layer0, x_ls, rs_ls,
                                w_ls, ws_ls, o_ls, part, count);

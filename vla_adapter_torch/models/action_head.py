@@ -38,11 +38,14 @@ from vla_adapter_torch.core.config import ActionHeadConfig
 from vla_adapter_torch.models.layers import (
     BatchedDense,
     Dense,
+    HeadPlan,
     LayerNorm,
     Runtime,
+    head_plan,
     remat,
     new_param,
     normal_init_,
+    take_cols,
 )
 from vla_adapter_torch.ops.rope import apply_rope_interleaved, interleaved_cos_sin
 
@@ -88,6 +91,11 @@ def _attend(q: torch.Tensor, streams: List[Tuple[torch.Tensor, torch.Tensor]],
     return _merge(out)
 
 
+def _plan(block) -> HeadPlan:
+    """The heads a block computes (all, unless its o_proj is row-split)."""
+    return head_plan(block.o_proj, block.cfg.num_attn_heads, block.head_dim)
+
+
 class BridgeBlockPro(nn.Module):
     """Per-stream K/V; the adapter/task streams arrive projected and roped,
     the self stream projects and ropes the evolving latents here."""
@@ -96,6 +104,7 @@ class BridgeBlockPro(nn.Module):
         super().__init__()
         self.cfg, self.rt = cfg, rt
         d = cfg.hidden_dim
+        self.head_dim = d // cfg.num_attn_heads
         self.gating_factor = new_param((1,), rt, device)
         self.q_proj = Dense(d, d, rt=rt, device=device)
         self.k_self = Dense(d, d, rt=rt, device=device)
@@ -110,15 +119,26 @@ class BridgeBlockPro(nn.Module):
         normal_init_(self.gating_factor, 1.0, gen)
 
     def forward(self, x, k_adapter, v_adapter, k_task, v_task):
+        """The streams arrive with this rank's heads (:func:`head_plan`
+        of o_proj), as q, k_self and v_self are taken here."""
         cfg, dt = self.cfg, self.rt.dtype
-        h = cfg.num_attn_heads
+        plan = _plan(self)
+        cols = (plan.h0 * self.head_dim, plan.h1 * self.head_dim)
+        h = plan.h1 - plan.h0
         ratio_g = torch.tanh(self.gating_factor.to(dt))
-        q = _rope_batched(_heads(self.q_proj(x), h), cfg.rope_base)
-        k_self = _rope_batched(_heads(self.k_self(x), h), cfg.rope_base)
-        v_self = _heads(self.v_self(x), h)
+        q, k_self, v_self = (
+            _heads(take_cols(dense(x), dense, *cols, plan), h)
+            for dense in (self.q_proj, self.k_self, self.v_self))
+        q = _rope_batched(q, cfg.rope_base)
+        k_self = _rope_batched(k_self, cfg.rope_base)
         streams = [(k_self, v_self), (k_adapter, v_adapter), (k_task, v_task)]
-        out = self.o_proj(_attend(q, streams, ratio_g))
+        out = self.o_proj(plan.output(_attend(q, streams, ratio_g)))
         return F.relu(self.ffn_fc(self.ffn_norm(out + x)))
+
+    def tensor_partial(self):
+        """The gate scales every head's task logits: under split heads
+        each rank's gradient of it is a part of the whole one."""
+        return ["gating_factor"] if _plan(self).tg is not None else []
 
 
 class BridgeBlock(nn.Module):
@@ -130,6 +150,7 @@ class BridgeBlock(nn.Module):
         super().__init__()
         self.cfg, self.rt = cfg, rt
         d = cfg.hidden_dim
+        self.head_dim = d // cfg.num_attn_heads
         self.gating_factor = new_param((1,), rt, device)
         self.q_proj = Dense(d, d, rt=rt, device=device)
         self.o_proj = Dense(d, d, rt=rt, device=device)
@@ -141,13 +162,18 @@ class BridgeBlock(nn.Module):
 
     def forward(self, x, k_adapter, v_adapter, k_task, v_task, k_self,
                 v_self):
-        h = self.cfg.num_attn_heads
+        plan = _plan(self)
+        h = plan.h1 - plan.h0
         ratio_g = torch.tanh(self.gating_factor.to(self.rt.dtype))
         streams = [(_heads(k_self, h), _heads(v_self, h)),
                    (k_adapter, v_adapter), (k_task, v_task)]
-        out = self.o_proj(_attend(_heads(self.q_proj(x), h), streams,
-                                  ratio_g))
+        q = take_cols(self.q_proj(x), self.q_proj, plan.h0 * self.head_dim,
+                      plan.h1 * self.head_dim, plan)
+        out = self.o_proj(plan.output(_attend(_heads(q, h), streams,
+                                              ratio_g)))
         return F.relu(self.ffn_fc(self.ffn_norm(out + x)))
+
+    tensor_partial = BridgeBlockPro.tensor_partial
 
 
 class L1RegressionActionHead(nn.Module):
@@ -185,7 +211,7 @@ class L1RegressionActionHead(nn.Module):
                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg, dt = self.cfg, self.rt.dtype
         b, _, _, llm_dim = hidden_states.shape
-        nb, h, t = cfg.num_blocks, cfg.num_attn_heads, self.num_task_tokens
+        nb, t = cfg.num_blocks, self.num_task_tokens
         h_task = hidden_states[:, 1:nb + 1, :t].to(dt)
         h_adapter = hidden_states[:, 1:nb + 1, t:].to(dt)
         if proprio_features is not None:
@@ -193,31 +219,42 @@ class L1RegressionActionHead(nn.Module):
             p = proprio_features[:, None].to(dt).expand(b, nb, 1, llm_dim)
             h_adapter = torch.cat([h_adapter, p], dim=2)
 
+        # the blocks' heads (under the "tensor" axis, this rank's): the
+        # whole stacks' columns of those heads
+        plan = _plan(self.blocks[0])
+        cols = (plan.h0 * self.blocks[0].head_dim,
+                plan.h1 * self.blocks[0].head_dim)
+        h = plan.h1 - plan.h0
+
+        def heads(t):
+            return _heads(take_cols(t, None, *cols, plan), h)
+
         if cfg.use_pro_version:
-            k_adapter = _rope_batched(_heads(self.k_adapter(h_adapter), h),
+            k_adapter = _rope_batched(heads(self.k_adapter(h_adapter)),
                                       cfg.rope_base)
-            v_adapter = _heads(self.v_adapter(h_adapter), h)
-            k_task = _rope_batched(_heads(self.k_task(h_task), h),
-                                   cfg.rope_base)
-            v_task = _heads(self.v_task(h_task), h)
+            v_adapter = heads(self.v_adapter(h_adapter))
+            k_task = _rope_batched(heads(self.k_task(h_task)), cfg.rope_base)
+            v_task = heads(self.v_task(h_task))
         else:  # the shared stacks over both streams
-            k_adapter = _heads(self.k_proj(h_adapter), h)
-            v_adapter = _heads(self.v_proj(h_adapter), h)
-            k_task = _heads(self.k_proj(h_task), h)
-            v_task = _heads(self.v_proj(h_task), h)
+            k_adapter = heads(self.k_proj(h_adapter))
+            v_adapter = heads(self.v_proj(h_adapter))
+            k_task = heads(self.k_proj(h_task))
+            v_task = heads(self.v_proj(h_task))
 
         x = torch.zeros((b, self.num_actions_chunk, self.action_dim * llm_dim),
                         dtype=dt, device=hidden_states.device)
         if noise is not None:
             x = x + noise.to(dt)
-        x = F.relu(self.fc_in(self.input_norm(x)))
+        x = self.fc_in.whole_output(F.relu(self.fc_in(self.input_norm(x))))
         policy = (self.rt.remat_policy_of("head")
                   if torch.is_grad_enabled() else None)
         for i, block in enumerate(self.blocks):
             streams = (k_adapter[:, i], v_adapter[:, i], k_task[:, i],
                        v_task[:, i])
             if not cfg.use_pro_version:  # the self stream: layer i's slice
-                streams += (self.k_proj.layer(x, i), self.v_proj.layer(x, i))
+                streams += tuple(take_cols(stack.layer(x, i), None, *cols,
+                                           plan)
+                                 for stack in (self.k_proj, self.v_proj))
             x = (remat(policy, block, x, *streams) if policy is not None
                  else block(x, *streams))
         return self.fc_out(self.out_norm(x))

@@ -26,6 +26,7 @@ import functools
 import math
 import threading
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,8 +39,19 @@ from vla_adapter_torch.ops.fused_mlp import (
     w8a8_mlp,
 )
 from vla_adapter_torch.ops.w8a8_matmul import (
+    pad_k,
+    quantize_to,
+    row_scale,
     w8a8_linear,
     w8a8_linear_reference,
+)
+from vla_adapter_torch.parallel.tensor import (
+    TensorGroup,
+    all_max_,
+    copy_in,
+    gather_cols,
+    int8_product,
+    reduce_out,
 )
 
 W8A8_IMPLS = ("dense", "fused", "mega")
@@ -333,17 +345,95 @@ class W8A8STE(torch.autograd.Function):
         return dx.reshape(*lead, weight_q.shape[1]), None, None, None, None
 
 
+class RowW8A8STE(torch.autograd.Function):
+    """:class:`W8A8STE` of a row-split Dense (the "tensor" axis): x holds
+    this rank's slice of K, weight_q (N, K / T) and weight_scale (N,)
+    whole. Forward: each row's absmax over the whole K (the local one,
+    then a MAX over the group), ``quantize_rows`` against it into xq
+    zero-padded to ``weight_qk``'s K (:func:`ops.w8a8_matmul.pad_k`), the
+    int32 product summed over the group (kernel B4's int32 output on the
+    card), then the dequant once: the unsplit product bit for bit.
+    Backward: dy is whole, so dx (this rank's columns) is the unsplit
+    backward's against this rank's ``weight_qt``, with no collective."""
+
+    @staticmethod
+    def forward(ctx, x, weight_q, weight_scale, weight_qt, weight_qk,
+                kernels, tg):
+        ctx.save_for_backward(weight_q, weight_scale, weight_qt)
+        ctx.kernels = kernels
+        lead, k = x.shape[:-1], x.shape[-1]
+        xf = x.reshape(-1, k)
+        rs = row_scale(all_max_(xf.float().abs().amax(-1, keepdim=True), tg))
+        acc = int8_product(quantize_to(xf, rs, weight_qk.shape[-1]),
+                           weight_qk, tg, kernels)
+        # the unsplit product's dequant (B4's, w8a8_matmul_reference's)
+        y = (acc.float() * rs * weight_scale.float()).to(x.dtype)
+        return y.reshape(*lead, weight_q.shape[0])
+
+    @staticmethod
+    def backward(ctx, dy):
+        return W8A8STE.backward(ctx, dy)[:5] + (None, None)
+
+
+class ColW8A8STE(torch.autograd.Function):
+    """:class:`W8A8STE` of a column-split Dense: weight_q (N / T, K) and
+    weight_scale (N / T,), x whole. Forward: the unsplit forward on this
+    rank's columns (every row's scale is over the whole K it holds).
+    Backward: dy holds this rank's columns, so ``dys = dy * weight_scale``
+    takes each row's absmax over the whole N (a MAX over the group), is
+    quantized against it, multiplied against this rank's ``weight_qt``
+    rows (zero-padded to a K of 16s) in int32 and summed over the group,
+    and dequantized once: the whole dx, bit for bit with the unsplit
+    backward, on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, weight_q, weight_scale, weight_qt, kernels, tg):
+        ctx.save_for_backward(weight_scale, weight_qt)
+        ctx.kernels, ctx.tg = kernels, tg
+        return torch.ops.vla_adapter_torch.w8a8_ste(x, weight_q, weight_scale,
+                                                    kernels)
+
+    @staticmethod
+    def backward(ctx, dy):
+        weight_scale, weight_qt = ctx.saved_tensors
+        lead, n = dy.shape[:-1], dy.shape[-1]
+        dys = dy.reshape(-1, n).float() * weight_scale.float()
+        rs = row_scale(all_max_(dys.abs().amax(-1, keepdim=True), ctx.tg))
+        acc = int8_product(quantize_to(dys, rs, weight_qt.shape[-1]),
+                           weight_qt, ctx.tg, ctx.kernels)
+        dx = (acc.float() * rs).to(dy.dtype)
+        return dx.reshape(*lead, weight_qt.shape[0]), None, None, None, \
+            None, None
+
+
 @torch.no_grad()
 def prepare_ste_(model: nn.Module) -> int:
     """Give every Dense that trains through :class:`W8A8STE` its
     ``weight_qt``, the ``(in, out)`` copy of its int8 weight that kernel B4
     reads for dx (made from ``weight_q`` as it stands: call after loading
-    or quantizing the frozen base). Returns the bytes the copies take."""
+    or quantizing the frozen base, and after ``shard_model``, which
+    splits it). Under a "tensor" split the int8 operands of a split K are
+    zero-padded to a K of 16s (:func:`ops.w8a8_matmul.pad_k`): a column
+    split's ``weight_qt`` and a row split's ``weight_qk`` (the forward's
+    weight, of which ``weight_q`` becomes the view of its first K
+    columns: one copy). Returns the bytes the copies take."""
     total = 0
     for module in model.modules():
         if isinstance(module, Dense) and module.ste:
-            module.weight_qt = module.weight_q.t().contiguous()
+            qt = module.weight_q.detach().t()
+            if module.tp_mode == "col":
+                module.weight_qt = pad_k(qt)
+            else:
+                module.weight_qt = qt.contiguous()
             total += module.weight_qt.numel()
+            if module.tp_mode == "row":
+                w = module.weight_q
+                module.weight_qk = pad_k(w.detach())
+                if module.weight_qk.data_ptr() != w.data_ptr():
+                    module.weight_q = nn.Parameter(
+                        module.weight_qk[:, :w.shape[1]],
+                        requires_grad=w.requires_grad)
+                    total += module.weight_qk.numel() - w.numel()
     return total
 
 
@@ -385,7 +475,20 @@ class Dense(nn.Module):
     """y = x @ W^T + b in rt.dtype. Under rt.weights_int8: w8a8 (kernel B4;
     :class:`W8A8STE` under rt.train_base_int8) when rt.w8a8 admits both
     widths, else the weight-only int8 upcast. With rt.lora_rank, plus the
-    LoRA delta."""
+    LoRA delta.
+
+    Split over the "tensor" axis (:meth:`split_`, by ``shard_model``):
+    "col" holds the rows [lo, hi) of the weight (and of an int8 scale) and
+    returns those output columns (its input's gradient summed over the
+    group: ``copy_in``, or the int32 sum inside :class:`ColW8A8STE`); "row"
+    holds the columns [lo, hi) of the weight, takes those input columns (a
+    whole input is cut to them) and sums the partial products over the
+    group (``reduce_out``, or the int32 sum inside :class:`RowW8A8STE`),
+    whole scale and bias applied after. Biases and LoRA tensors stay whole:
+    a column split uses the bias and ``lora_b`` columns [lo, hi), a row
+    split sums ``x @ lora_a[lo:hi]`` over the group before ``lora_b``;
+    those of them a rank uses only in part (:meth:`tensor_partial`) have
+    their gradients summed over the group by the train step."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  *, rt: Runtime, device=None):
@@ -403,6 +506,52 @@ class Dense(nn.Module):
         self.ste = rt.train_base_int8 and rt.w8a8(in_features, features)
         if self.ste:
             self.register_buffer("weight_qt", None, persistent=False)
+            self.register_buffer("weight_qk", None, persistent=False)
+        self.tp: TensorGroup = None
+        self.tp_mode = None     # None (whole), "col" or "row"
+        self.tp_range = None    # [lo, hi) of the split axis
+
+    @torch.no_grad()
+    def split_(self, mode: str, tg: TensorGroup) -> None:
+        """Keep this rank's part of the weight: "col" its output rows (and
+        those of an int8 scale), "row" its input columns. Call before
+        :func:`prepare_ste_`."""
+        if mode not in ("col", "row"):
+            raise ValueError(f"split mode {mode!r}: expected 'col' or 'row'")
+        lo, hi = tg.chunk(self.features if mode == "col" else
+                          self.in_features)
+        names = ["weight_q", "weight_scale"] if self.rt.weights_int8 \
+            else ["weight"]
+        for name in names:
+            p = getattr(self, name)
+            if mode == "col":
+                part = p[lo:hi]
+            elif name == "weight_scale":
+                continue   # the whole output's scale
+            else:
+                part = p[:, lo:hi]
+            setattr(self, name, nn.Parameter(part.clone(),
+                                             requires_grad=p.requires_grad))
+        self.tp, self.tp_mode, self.tp_range = tg, mode, (lo, hi)
+
+    def tensor_partial(self):
+        """The whole parameters of which a split Dense uses only a part, so
+        that each rank's gradient is a part of the whole one (summed over
+        the group by the train step)."""
+        if self.tp_mode == "col":
+            names = ["bias", "lora_a", "lora_b"]
+        elif self.tp_mode == "row":
+            names = ["lora_a"]
+        else:
+            return []
+        return [n for n in names if getattr(self, n, None) is not None]
+
+    def whole_output(self, y: torch.Tensor) -> torch.Tensor:
+        """This Dense's output (or an elementwise function of it) made
+        whole where it is column-split, for a replicated consumer."""
+        if self.tp_mode != "col":
+            return y
+        return gather_cols(y, self.tp, partial=False)
 
     def init_params_(self, gen: torch.Generator) -> None:
         if self.rt.lora_rank > 0:
@@ -418,6 +567,8 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rt = self.rt
         dt = rt.dtype
+        if self.tp is not None:
+            return self._split_forward(x)
         if not rt.weights_int8:
             bias = None if self.bias is None else self.bias.to(dt)
             y = F.linear(x.to(dt), self.weight.to(dt), bias)
@@ -440,6 +591,116 @@ class Dense(nn.Module):
         dt = self.rt.dtype
         delta = (x.to(dt) @ self.lora_a.to(dt)) @ self.lora_b.to(dt)
         return y + self.rt.lora_scale * delta
+
+    def _split_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward of a split Dense (see the class docstring)."""
+        rt, dt, tg = self.rt, self.rt.dtype, self.tp
+        lo, hi = self.tp_range
+        col = self.tp_mode == "col"
+        lora = rt.lora_rank > 0
+        if rt.weights_int8 and not self.ste \
+                and rt.w8a8(self.in_features, self.features):
+            raise ValueError("a split Dense trains: its w8a8 product is the "
+                             "straight-through one (train_base_int8)")
+        if col:
+            xs = copy_in(x, tg)   # the float products' input
+        elif x.shape[-1] == self.in_features:
+            x = xs = copy_in(x, tg)[..., lo:hi]   # a whole input, cut
+        else:
+            xs = x
+        if self.ste:
+            if col:
+                y = ColW8A8STE.apply(x.to(dt), self.weight_q,
+                                     self.weight_scale, self.weight_qt,
+                                     rt.kernels, tg)
+            else:
+                y = RowW8A8STE.apply(x.to(dt), self.weight_q,
+                                     self.weight_scale, self.weight_qt,
+                                     self.weight_qk, rt.kernels, tg)
+        elif rt.weights_int8:
+            y = F.linear(xs.to(dt), self.weight_q.to(dt))
+            if col:
+                y = y * self.weight_scale.to(dt)
+        elif col:   # the bias inside the product, as unsplit
+            bias = None if self.bias is None else self.bias[lo:hi].to(dt)
+            y = F.linear(xs.to(dt), self.weight.to(dt), bias)
+        else:
+            y = F.linear(xs.to(dt), self.weight.to(dt))
+        if col:
+            if self.bias is not None and rt.weights_int8:
+                y = y + self.bias[lo:hi].to(dt)
+            if lora:
+                delta = (xs.to(dt) @ self.lora_a.to(dt)) \
+                    @ self.lora_b[:, lo:hi].to(dt)
+                y = y + rt.lora_scale * delta
+            return y
+        xa = xs.to(dt) @ self.lora_a[lo:hi].to(dt) if lora else None
+        if self.ste:
+            if lora:
+                xa = reduce_out(xa, tg)
+        elif lora:   # one sum for both partials
+            y, xa = reduce_out(torch.cat([y, xa], dim=-1), tg).split(
+                [self.features, rt.lora_rank], dim=-1)
+        else:
+            y = reduce_out(y, tg)
+        if rt.weights_int8 and not self.ste:
+            y = y * self.weight_scale.to(dt)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        if lora:
+            y = y + rt.lora_scale * (xa @ self.lora_b.to(dt))
+        return y
+
+
+@dataclass(frozen=True)
+class HeadPlan:
+    """The attention heads a rank computes under the "tensor" axis: the q
+    heads [h0, h1), whose output columns [c0, c1) (counted from head h0)
+    are the rows of the o-projection this rank holds; all heads and every
+    column when the o-projection is whole. ``tg`` is None when nothing is
+    split."""
+
+    h0: int
+    h1: int
+    c0: int
+    c1: int
+    tg: TensorGroup = None
+
+    def output(self, out: torch.Tensor) -> torch.Tensor:
+        """The o-projection's columns of the heads' output (..., (h1 - h0)
+        * d)."""
+        if (self.c0, self.c1) == (0, out.shape[-1]):
+            return out
+        return out[..., self.c0:self.c1]
+
+
+def head_plan(o_proj: "Dense", num_heads: int, head_dim: int) -> HeadPlan:
+    """The heads a rank computes: those whose output columns its row-split
+    o-projection reads (rows [lo, hi) of its input: a head-aligned split
+    reads whole heads, another takes the heads that overlap them)."""
+    if o_proj.tp_mode != "row":
+        return HeadPlan(0, num_heads, 0, num_heads * head_dim)
+    lo, hi = o_proj.tp_range
+    h0, h1 = lo // head_dim, -(-hi // head_dim)
+    return HeadPlan(h0, h1, lo - h0 * head_dim, hi - h0 * head_dim,
+                    o_proj.tp)
+
+
+def take_cols(t: torch.Tensor, dense: Optional["Dense"], lo: int, hi: int,
+              plan: HeadPlan) -> torch.Tensor:
+    """Columns [lo, hi) of a projection's whole output, from ``t`` (its
+    output as this rank holds it: ``dense``'s columns when it is
+    column-split, else whole; ``dense`` None for a whole tensor). A split
+    that holds exactly [lo, hi) is taken as it is; another is gathered
+    first. Under a split plan each rank computes only its heads, so the
+    gradient of a gathered or a whole tensor is summed over the group."""
+    if dense is not None and dense.tp_mode == "col":
+        if dense.tp_range == (lo, hi):
+            return t
+        t = gather_cols(t, dense.tp, partial=plan.tg is not None)
+    elif plan.tg is not None:
+        t = copy_in(t, plan.tg)
+    return t if (lo, hi) == (0, t.shape[-1]) else t[..., lo:hi]
 
 
 class BatchedDense(nn.Module):

@@ -40,8 +40,10 @@ from vla_adapter_torch.models.layers import (
     Runtime,
     checkpoint_name,
     fused_mlp,
+    head_plan,
     normal_init_,
     remat,
+    take_cols,
 )
 from vla_adapter_torch.ops.attention import dot_product_attention
 from vla_adapter_torch.ops.megalayer import (
@@ -65,22 +67,34 @@ class Qwen2Attention(nn.Module):
         self.o_proj = Dense(cfg.num_heads * hd, d, False, rt=rt, device=device)
 
     def qkv(self, x, cos, sin):
-        """The roped q (B, S, H, Dh) and k, v (B, S, Hkv, Dh)."""
+        """The roped q (B, S, H, Dh) and k, v (B, S, Hkv, Dh). Under the
+        "tensor" axis (q/k/v column-split, o_proj row-split) the heads of
+        this rank (:func:`layers.head_plan`) and the KV heads of their
+        groups; where those are not whole groups (a split that is not
+        head-aligned), one KV head per q head."""
         cfg = self.cfg
         b, s, _ = x.shape
-        q = self.q_proj(x).view(b, s, cfg.num_heads, cfg.head_dim)
-        k = self.k_proj(x).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = self.v_proj(x).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        d, g = cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
+        plan = head_plan(self.o_proj, cfg.num_heads, d)
+        k0, k1 = plan.h0 // g, (plan.h1 - 1) // g + 1
+        q = take_cols(self.q_proj(x), self.q_proj, plan.h0 * d, plan.h1 * d,
+                      plan).view(b, s, -1, d)
+        k, v = (take_cols(dense(x), dense, k0 * d, k1 * d, plan
+                          ).view(b, s, -1, d)
+                for dense in (self.k_proj, self.v_proj))
+        if plan.h0 % g or (plan.h1 - plan.h0) % g:
+            idx = torch.arange(plan.h0, plan.h1, device=x.device) // g - k0
+            k, v = k[:, :, idx], v[:, :, idx]
         return apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin), v
 
     def forward(self, x, cos, sin, valid, causal: bool,
                 return_kv: bool = False):
-        cfg = self.cfg
         b, s, _ = x.shape
         q, k, v = self.qkv(x, cos, sin)
         out = dot_product_attention(q, k, v, valid, causal=causal,
                                     impl=self.rt.kernels)
-        out = self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+        plan = head_plan(self.o_proj, self.cfg.num_heads, self.cfg.head_dim)
+        out = self.o_proj(plan.output(out.reshape(b, s, -1)))
         return (out, (k, v)) if return_kv else out
 
     def decode_step(self, x, k_cache, v_cache, pos, cos, sin):

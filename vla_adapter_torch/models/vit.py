@@ -33,7 +33,9 @@ from vla_adapter_torch.models.layers import (
     activation,
     checkpoint_name,
     fused_mlp,
+    head_plan,
     remat,
+    take_cols,
 )
 from vla_adapter_torch.ops.attention import dot_product_attention
 
@@ -74,14 +76,17 @@ class ViTAttention(nn.Module):
         self.out_proj = Dense(hd, e, rt=rt, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Under the "tensor" axis (q/k/v column-split, out_proj row-split)
+        each rank attends over its own heads (:func:`layers.head_plan`)."""
         b, n, _ = x.shape
-        h, d = self.cfg.num_heads, self.cfg.head_dim
-        q = self.q_proj(x).view(b, n, h, d)
-        k = self.k_proj(x).view(b, n, h, d)
-        v = self.v_proj(x).view(b, n, h, d)
+        d = self.cfg.head_dim
+        plan = head_plan(self.out_proj, self.cfg.num_heads, d)
+        lo, hi = plan.h0 * d, plan.h1 * d
+        q, k, v = (take_cols(dense(x), dense, lo, hi, plan).view(b, n, -1, d)
+                   for dense in (self.q_proj, self.k_proj, self.v_proj))
         out = dot_product_attention(q, k, v, None, causal=False,
                                     impl=self.rt.kernels)
-        return self.out_proj(out.reshape(b, n, h * d))
+        return self.out_proj(plan.output(out.reshape(b, n, -1)))
 
 
 class ViTMLP(nn.Module):

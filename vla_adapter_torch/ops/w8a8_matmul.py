@@ -24,6 +24,14 @@ where layer ``l`` of x meets layer ``l`` of the stack.
 On a CPU tensor the wrappers return the plain versions
 (:func:`w8a8_linear_reference`, :func:`w8a8_matmul_reference`); a CUDA
 tensor always goes to the kernel, or raises.
+
+Split K (the "tensor" mesh axis, ``parallel/tensor.py``): the xq entry
+with ``out_dtype=torch.int32`` writes the int32 accumulator with no
+dequant (launches counted as ``w8a8_matmul_int32``), so the ranks' partial
+products over their slices of K add exactly before one dequant. The
+kernel reads 16-byte rows, so a K that is not a multiple of 16 is
+zero-padded: the weight once (:func:`pad_k`), x as it is quantized
+(:func:`quantize_to`, against row scales that may come from the whole K).
 """
 
 from __future__ import annotations
@@ -37,8 +45,9 @@ from vla_adapter_torch.ops import cuda_lib
 
 KERNEL_NAME = "w8a8_matmul"
 STACKED_KERNEL_NAME = "w8a8_matmul_stacked"
+INT32_KERNEL_NAME = "w8a8_matmul_int32"
 SOURCE = "w8a8_matmul.cu"
-_OUT_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_OUT_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int32: 2}
 _X_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 # The kernel's split over K at M <= 32 adds int32 partials into a scratch
 # that it leaves zeroed, and its CTAs exchange their rows' slice maxima
@@ -56,13 +65,41 @@ def quantize_rows(x: torch.Tensor):
     row_scale float32 (..., 1)) with x ~ xq * row_scale. The scale is
     ``max(absmax, 1e-8) / 127`` (a division, as JAX and the CUDA kernels
     compute it), the rounding half to even."""
-    xf = x.float()
+    scale = row_scale(x.float().abs().amax(dim=-1, keepdim=True))
+    return quantize_to(x, scale), scale
+
+
+def row_scale(absmax: torch.Tensor) -> torch.Tensor:
+    """The int8 row scale of a row's absmax: ``max(absmax, 1e-8) / 127``."""
     # 127 as a device tensor: PyTorch's CUDA division by a Python scalar
     # multiplies by its reciprocal, which rounds some scales an ulp away
-    d127 = torch.full((), 127.0, device=xf.device)
-    scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / d127
-    xq = torch.round(xf / scale).clamp_(-127, 127).to(torch.int8)
-    return xq, scale
+    d127 = torch.full((), 127.0, device=absmax.device)
+    return absmax.float().clamp_min(1e-8) / d127
+
+
+def padded_k(k: int) -> int:
+    """The K the kernel reads: ``k`` rounded up to a multiple of 16."""
+    return -(-k // 16) * 16
+
+
+def pad_k(w: torch.Tensor) -> torch.Tensor:
+    """``w`` (..., K) zero-padded to (..., :func:`padded_k` (K)); ``w``
+    itself (contiguous) when K is a multiple of 16."""
+    k = w.shape[-1]
+    if padded_k(k) == k:
+        return w.contiguous()
+    return torch.nn.functional.pad(w, (0, padded_k(k) - k))
+
+
+def quantize_to(x: torch.Tensor, scale: torch.Tensor,
+                width: Optional[int] = None) -> torch.Tensor:
+    """x float (..., K) quantized against the row scales ``scale`` (...,
+    1): ``clip(round_half_even(x / scale), -127, 127)`` as int8 (...,
+    width), zeros past K (``width`` >= K; default K)."""
+    x = x.float()
+    if width is not None and width != x.shape[-1]:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[-1]))  # 0 / s
+    return torch.round(x / scale).clamp_(-127, 127).to(torch.int8)
 
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -79,9 +116,14 @@ def w8a8_matmul_reference(xq, rs, w, ws, *, out_dtype=torch.bfloat16,
     """Plain version. xq (M, K) int8 and rs (M, 1) f32 against w (N, K)
     int8 and ws (N,) f32; or against layer ``layer`` of w (L, N, K), ws
     (L, N); or xq (L, M, K), rs (L, M, 1) against every layer of the stack.
-    Returns (M, N) or (L, M, N) in out_dtype."""
+    Returns (M, N) or (L, M, N) in out_dtype; with out_dtype int32 the
+    exact product itself (rs and ws unread, may be None)."""
     if layer is not None:
-        w, ws = w[layer], ws[layer]
+        w = w[layer]
+    if out_dtype == torch.int32:
+        return int_matmul(xq, w).to(torch.int32)
+    if layer is not None:
+        ws = ws[layer]
     acc = int_matmul(xq, w).float()
     return (acc * rs * ws.float().unsqueeze(-2)).to(out_dtype)
 
@@ -125,10 +167,15 @@ def _launch(name, x, rs, w, ws, out_dtype, layer0: int,
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"{name}: out_dtype {out_dtype} not in "
                         f"{list(_OUT_DTYPES)}")
-    if (x.dtype not in _X_DTYPES or (x.dtype == torch.int8) != (rs is not None)
-            or w.dtype != torch.int8):
+    raw = out_dtype == torch.int32
+    if (x.dtype not in _X_DTYPES or w.dtype != torch.int8
+            or (raw and x.dtype != torch.int8)
+            or (not raw and (x.dtype == torch.int8) != (rs is not None))):
         raise TypeError(f"{name}: x {x.dtype} (int8 with row scales, or "
-                        f"bf16/f32) and w {w.dtype} (int8)")
+                        f"bf16/f32; int8 for an int32 output) and w "
+                        f"{w.dtype} (int8)")
+    if raw:
+        rs = ws = None
     m, k = x.shape[-2:]
     n = w.shape[-2]
     if w.shape[-1] != k or k % 16 or n % 2:
@@ -145,7 +192,8 @@ def _launch(name, x, rs, w, ws, out_dtype, layer0: int,
     x, w = x.contiguous(), w.contiguous()
     if rs is not None:
         rs = rs.float().contiguous()
-    ws = ws.float().contiguous()
+    if ws is not None:
+        ws = ws.float().contiguous()
     out = torch.empty((layers, m, n) if batched else (m, n),
                       dtype=out_dtype, device=x.device)
     lib = _lib()
@@ -153,14 +201,15 @@ def _launch(name, x, rs, w, ws, out_dtype, layer0: int,
         part, count = _scratch(x.device)
         err = lib.vla_w8a8_matmul(
             x.data_ptr(), None if rs is None else rs.data_ptr(),
-            w.data_ptr(), ws.data_ptr(), out.data_ptr(), m, n, k, layer0,
+            w.data_ptr(), None if ws is None else ws.data_ptr(),
+            out.data_ptr(), m, n, k, layer0,
             layers, m * k * batched, m * batched, n * k, n, m * n * batched,
             _X_DTYPES[x.dtype], _OUT_DTYPES[out_dtype], part.data_ptr(),
             count.data_ptr(), _PART_CAP, _COUNT_CAP,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
-    cuda_lib.count_launch(name)
+    cuda_lib.count_launch(INT32_KERNEL_NAME if raw else name)
     return out
 
 
@@ -169,19 +218,23 @@ def _check_device(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: unsupported device {t.device}")
 
 
-def w8a8_matmul(xq: torch.Tensor, rs: torch.Tensor, w: torch.Tensor,
-                ws: torch.Tensor, *, out_dtype=torch.bfloat16) -> torch.Tensor:
+def w8a8_matmul(xq: torch.Tensor, rs: Optional[torch.Tensor],
+                w: torch.Tensor, ws: Optional[torch.Tensor], *,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
     """Kernel B4. xq (M, K) int8, rs (M, 1) f32, w (N, K) int8 in the
-    ``(out, in)`` layout, ws (N,) f32 -> (M, N) out_dtype (bf16 or f32).
-    K % 16 == 0, N even."""
+    ``(out, in)`` layout, ws (N,) f32 -> (M, N) out_dtype (bf16 or f32);
+    or, out_dtype int32, the exact int32 product xq @ w^T (rs and ws
+    unread, may be None). K % 16 == 0 (:func:`pad_k`), N even."""
     if xq.device.type == "cpu":
         return w8a8_matmul_reference(xq, rs, w, ws, out_dtype=out_dtype)
     _check_device(KERNEL_NAME, xq)
-    if xq.dim() != 2 or w.dim() != 2 or rs.shape != (xq.shape[0], 1) \
-            or ws.shape != (w.shape[0],):
-        raise ValueError(f"{KERNEL_NAME}: shapes xq {tuple(xq.shape)} rs "
-                         f"{tuple(rs.shape)} w {tuple(w.shape)} ws "
-                         f"{tuple(ws.shape)}")
+    raw = out_dtype == torch.int32
+    if xq.dim() != 2 or w.dim() != 2 \
+            or (not raw and (rs.shape != (xq.shape[0], 1)
+                             or ws.shape != (w.shape[0],))):
+        raise ValueError(f"{KERNEL_NAME}: shapes xq {tuple(xq.shape)} w "
+                         f"{tuple(w.shape)}, rs and ws for "
+                         f"out_dtype {out_dtype}")
     return _launch(KERNEL_NAME, xq, rs, w, ws, out_dtype, 0, False)
 
 

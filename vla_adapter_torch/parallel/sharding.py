@@ -22,10 +22,19 @@ mesh with the axes ("data", "fsdp", "tensor"); the port runs them on
   weights (``ROADMAP.md``).
 * both (mesh (R, S, 1)): HSDP, sharded within "fsdp", replicated across
   "data".
-* "tensor": the placement rule is here (:func:`param_pspec`, column-,
-  row- and scale-parallel as the JAX package's), but training with
-  ``tensor > 1`` needs Megatron splits inside every Dense, attention and
-  fused-MLP call site: ``ROADMAP.md`` A.5. :func:`shard_model` refuses it.
+* "tensor" (mesh (., ., T)): Megatron splits on plain local tensors
+  (``parallel/tensor.py``), placed by :func:`param_pspec` as the JAX
+  package's GSPMD places them: column-parallel q/k/v, gate/up, fc1 and
+  fc_in weights (with their int8 scales), row-parallel o/out_proj,
+  down_proj, fc2 and fc_out weights; biases, LoRA tensors, norms and the
+  head's K/V stacks stay whole. Each split ``Dense`` keeps its part
+  (``Dense.split_``) and the attention of its heads; FSDP2 then shards
+  the local parts over the "fsdp" dim, on the dim the rule picks after
+  the tensor dim. The ranks of one tensor group share their rows and
+  their head noise; gradients and metrics are averaged over the
+  ("data", "fsdp") ranks only, and the gradients of whole parameters a
+  rank uses in part are summed over the tensor group. The tensor dim is
+  the mesh's innermost: ranks t, t + T, ... share a tensor coordinate.
 
 Start the group with :func:`initialize_distributed` (NCCL on the card,
 gloo only when the caller asks for the CPU), or run under ``torchrun``
@@ -66,9 +75,6 @@ MIN_FSDP_SIZE = 2 ** 18
 # The smallest "fsdp" dim on which shard_model runs FSDP2. At 1 a one-rank
 # mesh runs it too, its all-gather and reduce-scatter over one card.
 MIN_FSDP_RANKS = 2
-TENSOR_AXIS_ITEM = ("the \"tensor\" mesh axis (Megatron splits inside every "
-                    "Dense, attention and fused-MLP call site) is ROADMAP.md "
-                    "A.5")
 
 
 def torchrun_env() -> Optional[Tuple[str, int, int, int]]:
@@ -87,24 +93,33 @@ def initialize_distributed(address: Optional[str] = None,
                            world: Optional[int] = None,
                            rank: Optional[int] = None,
                            local_rank: Optional[int] = None,
-                           device: str = "cuda") -> None:
+                           device: str = "cuda",
+                           backend: Optional[str] = None) -> None:
     """Start the process group (``init_process_group``): NCCL on the card,
     with this process on card ``local_rank`` (default: the rank), or gloo
     when ``device`` is "cpu". Never falls back from one to the other.
+    ``backend="gloo"`` on the card is the caller's explicit choice (gloo's
+    collectives take CUDA tensors; NCCL refuses two ranks on one card).
     Without an ``address`` this is a single-process run and nothing
     starts; a second call is a no-op."""
     if address is None or group_initialized():
         return
-    if torch.device(device).type == "cuda":
+    kind = torch.device(device).type
+    if kind == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError("initialize_distributed: NCCL needs a card; "
+            raise RuntimeError(f"initialize_distributed: "
+                               f"{(backend or 'nccl').upper()} needs a card; "
                                "pass device=\"cpu\" for gloo")
         torch.cuda.set_device(rank if local_rank is None else local_rank)
-        backend = "nccl"
-    elif torch.device(device).type == "cpu":
+        backend = backend or "nccl"
+    elif kind == "cpu":
+        if backend not in (None, "gloo"):
+            raise ValueError(f"initialize_distributed: {backend} on the CPU")
         backend = "gloo"
     else:
         raise ValueError(f"initialize_distributed: device {device!r}")
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"initialize_distributed: backend {backend!r}")
     dist.init_process_group(backend, init_method=address, world_size=world,
                             rank=rank)
 
@@ -252,19 +267,21 @@ def model_pspecs(model: nn.Module, fsdp_size: int, tensor_size: int = 1,
 
 
 def fsdp_dims(model: nn.Module, fsdp_size: int,
-              min_fsdp_size: Optional[int] = None) -> Dict[str, int]:
+              min_fsdp_size: Optional[int] = None,
+              tensor_size: int = 1) -> Dict[str, int]:
     """The dim FSDP splits, of each parameter the rule shards: the
-    :func:`param_pspec` choice, taken at fsdp_size 1 too (every dim
-    divides there, so the rule's first candidate). ``min_fsdp_size``:
-    by default :data:`MIN_FSDP_SIZE`."""
+    :func:`param_pspec` choice (after the "tensor" dim of a
+    ``tensor_size`` split), taken at fsdp_size 1 too (every dim divides
+    there, so the rule's first candidate). ``min_fsdp_size``: by default
+    :data:`MIN_FSDP_SIZE`. The model's shapes are the whole ones."""
     if min_fsdp_size is None:
         min_fsdp_size = MIN_FSDP_SIZE
     params = dict(model.named_parameters())
     out = {}
     for name, (layers, layout) in param_layouts(model).items():
         view = _jax_view(params[name].shape, layers, layout)
-        spec = _to_port(_jax_spec(name, view, fsdp_size, 1, min_fsdp_size,
-                                  any_fsdp=True),
+        spec = _to_port(_jax_spec(name, view, fsdp_size, tensor_size,
+                                  min_fsdp_size, any_fsdp=True),
                         view, params[name].ndim)
         if FSDP_AXIS in spec:
             out[name] = spec.index(FSDP_AXIS)
@@ -273,18 +290,23 @@ def fsdp_dims(model: nn.Module, fsdp_size: int,
 
 # --- per-process data ---------------------------------------------------------
 
-def per_process_seed(seed: int, rank: Optional[int] = None) -> int:
-    """A distinct, deterministic data seed per process: ``seed`` and the
-    rank through a SeedSequence (the reference seeds one RLDS pipeline per
-    rank, so ranks never repeat each other's shuffles)."""
-    pi = process_index() if rank is None else rank
+def per_process_seed(seed: int, rank: Optional[int] = None,
+                     tensor: int = 1) -> int:
+    """A distinct, deterministic data seed per ("data", "fsdp")
+    coordinate: ``seed`` and the coordinate (the rank over the ``tensor``
+    ranks of a tensor group, the mesh's innermost dim) through a
+    SeedSequence (the reference seeds one RLDS pipeline per rank, so ranks
+    never repeat each other's shuffles; the ranks of a tensor group draw
+    the same rows)."""
+    pi = (process_index() if rank is None else rank) // tensor
     return int(np.random.SeedSequence([seed, pi]).generate_state(1)[0])
 
 
-def process_local_batch_size(global_batch_size: int) -> int:
-    """This process's share of the global batch (the config's batch size
-    is global, whatever the topology)."""
-    n = process_count()
+def process_local_batch_size(global_batch_size: int, tensor: int = 1) -> int:
+    """This process's rows of the global batch (the config's batch size is
+    global, whatever the topology): the batch over the ("data", "fsdp")
+    ranks, the ranks of a tensor group holding the same rows."""
+    n = process_count() // tensor
     assert global_batch_size % n == 0, (global_batch_size, n)
     return global_batch_size // n
 
@@ -306,96 +328,152 @@ def local(t: torch.Tensor) -> torch.Tensor:
 @dataclass
 class Sharding:
     """How :func:`shard_model` placed a model: the mesh, the FSDP-managed
-    parameters (name -> dim) and the group that reduces the rest."""
+    parameters (name -> dim), the tensor-split ones (name -> dim of the
+    whole tensor), the whole parameters a rank uses in part (their
+    gradients summed over the tensor group), the tensor group and the group
+    of the ("data", "fsdp") ranks that share this rank's tensor coordinate
+    (None: the world, when tensor is 1)."""
 
     mesh: object
     fsdp_dims: Dict[str, int] = field(default_factory=dict)
+    tensor_dims: Dict[str, int] = field(default_factory=dict)
+    tensor_partial: Sequence[str] = ()
+    tp: object = None
+    dp_group: object = None
 
     @property
-    def world(self) -> int:
-        return self.mesh.size()
+    def dp_size(self) -> int:
+        """The ranks whose rows differ: data x fsdp."""
+        return self.mesh[DATA_AXIS].size() * self.mesh[FSDP_AXIS].size()
 
     def _fsdp_group(self):
         return self.mesh[FSDP_AXIS].get_group()
 
-    def reduce_gradients(self, grads: List[torch.Tensor]
-                         ) -> List[torch.Tensor]:
+    def _mean_dp(self, flat: torch.Tensor) -> torch.Tensor:
+        if self.dp_size > 1:
+            dist.all_reduce(flat, group=self.dp_group)
+            flat = flat / torch.full((), float(self.dp_size),
+                                     dtype=flat.dtype, device=flat.device)
+        return flat
+
+    def reduce_gradients(self, grads: List[torch.Tensor],
+                         names: Sequence[str] = ()) -> List[torch.Tensor]:
         """Average the gradients FSDP did not reduce (plain tensors) over
-        every rank, in one flat buffer per dtype; FSDP's own (DTensors,
-        already reduce-scattered and averaged) pass through."""
-        plain = [i for i, g in enumerate(grads) if not _is_dtensor(g)]
+        the ("data", "fsdp") ranks, in one flat buffer per dtype; FSDP's
+        own (DTensors, already reduce-scattered and averaged) pass through.
+        Then sum the local parts of those of ``names`` that a rank uses in
+        part (:attr:`tensor_partial`) over the tensor group, in one flat
+        buffer per dtype."""
         out = list(grads)
-        by_dtype: Dict[torch.dtype, List[int]] = {}
-        for i in plain:
-            by_dtype.setdefault(grads[i].dtype, []).append(i)
-        for idx in by_dtype.values():
-            flat = torch.cat([grads[i].reshape(-1) for i in idx])
-            dist.all_reduce(flat)
-            flat = flat / torch.full((), float(self.world), dtype=flat.dtype,
-                                     device=flat.device)
-            offset = 0
-            for i in idx:
-                n = grads[i].numel()
-                out[i] = flat[offset:offset + n].view_as(grads[i])
-                offset += n
+        plain = [i for i, g in enumerate(grads) if not _is_dtensor(g)]
+        _flat_apply(out, plain, self._mean_dp)
+        partial = set(self.tensor_partial)
+        summed = [i for i, n in enumerate(names) if n in partial]
+        if summed:
+            local_parts = [local(g) for g in out]
+            _flat_apply(local_parts, summed, self.tp.all_reduce)
+            for i in summed:
+                out[i] = _with_local(out[i], local_parts[i])
         return out
 
     def global_norm(self, tensors: Sequence[torch.Tensor],
-                    sharded: Sequence[bool]) -> torch.Tensor:
+                    names: Sequence[str]) -> torch.Tensor:
         """``optim.global_norm`` of the full tensors from this rank's
-        parts: each tensor's fp32 sum of squares, those of sharded tensors
-        summed over the "fsdp" group, then added in order (the unsharded
-        sum's order) and the root taken."""
+        parts: each tensor's fp32 sum of squares, those of FSDP-sharded
+        tensors summed over the "fsdp" group and those of tensor-split ones
+        over the tensor group (whole ones counted once), then added in
+        order (the unsharded sum's order) and the root taken."""
         sq = torch.stack([t.float().square().sum() for t in tensors])
-        mask = torch.as_tensor(list(sharded), device=sq.device)
-        if mask.any():
-            part = torch.where(mask, sq, torch.zeros_like(sq))
-            dist.all_reduce(part, group=self._fsdp_group())
-            sq = torch.where(mask, part, sq)
+        for split, reduce in (
+                (self.fsdp_dims,
+                 lambda t: dist.all_reduce(t, group=self._fsdp_group())),
+                (self.tensor_dims, lambda t: self.tp.all_reduce(t))):
+            mask = torch.as_tensor([n in split for n in names],
+                                   device=sq.device)
+            if mask.any():
+                part = torch.where(mask, sq, torch.zeros_like(sq))
+                reduce(part)
+                sq = torch.where(mask, part, sq)
         return torch.sqrt(sum(sq.unbind()))
 
     def mean_metrics(self, metrics: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
-        """The global batch's metrics: each scalar averaged over every
-        rank (every rank sees the same values)."""
+        """The global batch's metrics: each scalar averaged over the
+        ("data", "fsdp") ranks (every rank sees the same values: a tensor
+        group's ranks hold the same rows)."""
         if not metrics:
             return metrics
         names = list(metrics)
-        vec = torch.stack([metrics[k].float() for k in names])
-        dist.all_reduce(vec)
-        vec = vec / torch.full((), float(self.world), dtype=vec.dtype,
-                               device=vec.device)
+        vec = self._mean_dp(torch.stack([metrics[k].float() for k in names]))
         return dict(zip(names, vec.unbind()))
 
-    def full(self, t: torch.Tensor) -> torch.Tensor:
-        """The whole tensor on every rank (a collective for a DTensor)."""
-        return t.full_tensor() if _is_dtensor(t) else t
+    def full(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """The whole tensor of the parameter ``name`` (or its gradient) on
+        every rank: a collective for a DTensor or a tensor-split one."""
+        t = t.full_tensor() if _is_dtensor(t) else t
+        return self._tensor_gather(t, name)
 
-    def full_like(self, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-        """The whole tensor of ``t``, this rank's shard of a tensor placed
-        as the DTensor ``like`` (an optimizer moment of a sharded
-        parameter)."""
-        if not _is_dtensor(like):
+    def _tensor_gather(self, t: torch.Tensor, name) -> torch.Tensor:
+        if name not in self.tensor_dims:
             return t
-        from torch.distributed.tensor import DTensor
+        return torch.cat(self.tp.all_gather(t), dim=self.tensor_dims[name])
 
-        return DTensor.from_local(t, like.device_mesh, like.placements,
-                                  shape=like.shape,
-                                  stride=like.stride()).full_tensor()
+    def full_like(self, t: torch.Tensor, like: torch.Tensor,
+                  name: str) -> torch.Tensor:
+        """The whole tensor of ``t``, this rank's part of a tensor placed
+        as the parameter ``like`` named ``name`` (an optimizer moment of a
+        sharded or split parameter)."""
+        if _is_dtensor(like):
+            from torch.distributed.tensor import DTensor
 
-    def local_slice(self, full: torch.Tensor, like: torch.Tensor
-                    ) -> torch.Tensor:
-        """This rank's shard of ``full`` as the DTensor ``like`` holds
-        its own (shards are even: the rule picks divisible dims)."""
-        if not _is_dtensor(like):
-            return full
-        mesh = like.device_mesh
+            t = DTensor.from_local(t, like.device_mesh, like.placements,
+                                   shape=like.shape,
+                                   stride=like.stride()).full_tensor()
+        return self._tensor_gather(t, name)
+
+    def local_slice(self, full: torch.Tensor, like: torch.Tensor,
+                    name: str) -> torch.Tensor:
+        """This rank's part of the whole tensor ``full`` as the parameter
+        ``like`` named ``name`` holds its own: its tensor-split part, then
+        the DTensor's shard of that (shards are even: the rule picks
+        divisible dims)."""
         out = full
-        for i, placement in enumerate(like.placements):
-            if placement.is_shard():
-                out = out.chunk(mesh.size(i), dim=placement.dim)[
-                    mesh.get_local_rank(i)]
+        if name in self.tensor_dims:
+            out = out.chunk(self.tp.size, dim=self.tensor_dims[name])[
+                self.tp.rank]
+        if _is_dtensor(like):
+            mesh = like.device_mesh
+            for i, placement in enumerate(like.placements):
+                if placement.is_shard():
+                    out = out.chunk(mesh.size(i), dim=placement.dim)[
+                        mesh.get_local_rank(i)]
         return out.contiguous()
+
+
+def _flat_apply(tensors: List[torch.Tensor], idx: Sequence[int], fn) -> None:
+    """``fn`` over the tensors at ``idx`` as one flat buffer per dtype, the
+    results written back into ``tensors`` (views of the buffer)."""
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i in idx:
+        by_dtype.setdefault(tensors[i].dtype, []).append(i)
+    for group in by_dtype.values():
+        flat = fn(torch.cat([tensors[i].reshape(-1) for i in group]))
+        offset = 0
+        for i in group:
+            n = tensors[i].numel()
+            tensors[i] = flat[offset:offset + n].view_as(tensors[i])
+            offset += n
+
+
+def _with_local(t: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
+    """``t`` with its local part replaced by ``part`` (a DTensor keeps its
+    placement)."""
+    if not _is_dtensor(t):
+        return part
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(part, t.device_mesh, t.placements,
+                              shape=t.shape, stride=t.stride())
 
 
 def _groups(model: nn.Module) -> List[nn.Module]:
@@ -413,39 +491,110 @@ def _groups(model: nn.Module) -> List[nn.Module]:
             if isinstance(m, (VisionTransformer, L1RegressionActionHead))]
 
 
-def shard_model(model: nn.Module, mesh) -> Sharding:
+def _dp_group(mesh):
+    """The process group of the ("data", "fsdp") ranks that share this
+    rank's tensor coordinate; every rank creates every such group, in
+    order (None, the world, when the tensor dim is 1)."""
+    tensor = mesh[TENSOR_AXIS].size()
+    if tensor == 1:
+        return None
+    ranks = mesh.mesh.reshape(-1, tensor)
+    mine = None
+    for t in range(tensor):
+        group = dist.new_group(ranks[:, t].tolist())
+        if t == mesh[TENSOR_AXIS].get_local_rank():
+            mine = group
+    return mine
+
+
+def split_tensor_(model: nn.Module, mesh, transport=None
+                  ) -> Tuple[Dict[str, int], List[str], object]:
+    """Split every parameter :func:`param_pspec` gives the "tensor" axis,
+    in place, to this rank's part: each such weight (or int8 weight and,
+    column-split, its scale) is a ``Dense``'s, which takes the role the
+    rule gives it ("col" for the output dim, "row" for the input dim;
+    ``Dense.split_``). ``transport``: None (the collectives over the
+    tensor group's backend), or ``transport(group, rank, size, device)``
+    making the object they go through instead
+    (``parallel.tensor.TensorGroup``). Returns (name -> split dim, the
+    whole parameters a rank uses in part, the ``TensorGroup``)."""
+    from vla_adapter_torch.models.layers import Dense
+    from vla_adapter_torch.parallel.tensor import TensorGroup
+
+    sub = mesh[TENSOR_AXIS]
+    group, rank = sub.get_group(), sub.get_local_rank()
+    if transport is not None:
+        transport = transport(group, rank, sub.size(),
+                              next(model.parameters()).device)
+    tg = TensorGroup(group, rank, sub.size(), transport)
+    specs = model_pspecs(model, mesh[FSDP_AXIS].size(), tg.size)
+    split = {n: spec.index(TENSOR_AXIS) for n, spec in specs.items()
+             if TENSOR_AXIS in spec}
+    done = set()
+    for mod_name, module in model.named_modules():
+        if not isinstance(module, Dense):
+            continue
+        prefix = f"{mod_name}." if mod_name else ""
+        weight = prefix + ("weight_q" if module.rt.weights_int8 else "weight")
+        if weight not in split:
+            continue
+        mode = "col" if split[weight] == 0 else "row"
+        scale = prefix + "weight_scale"
+        if module.rt.weights_int8 and (scale in split) != (mode == "col"):
+            raise ValueError(f"{scale}: the rule splits it with a {mode} "
+                             "weight" + (" not" if mode == "col" else ""))
+        module.split_(mode, tg)
+        done |= {weight, scale} if scale in split else {weight}
+    missed = sorted(set(split) - done)
+    if missed:
+        raise ValueError(f"the rule splits {missed[:4]} over \"tensor\", "
+                         "which no Dense holds")
+    partial = []
+    for mod_name, module in model.named_modules():
+        prefix = f"{mod_name}." if mod_name else ""
+        partial += [prefix + leaf for leaf in
+                    getattr(module, "tensor_partial", lambda: [])()]
+    return split, partial, tg
+
+
+def shard_model(model: nn.Module, mesh, tensor_transport=None) -> Sharding:
     """Place ``model`` (its whole state on this rank's device) on
-    ``mesh``. On an "fsdp" dim below :data:`MIN_FSDP_RANKS` nothing moves:
-    the step averages the gradients ("data"). Otherwise FSDP2
+    ``mesh``. On a "tensor" dim above 1, first the Megatron splits
+    (:func:`split_tensor_`; the int8 base is split before
+    ``models.layers.prepare_ste_`` builds its transposed copies from the
+    local parts). On an "fsdp" dim below :data:`MIN_FSDP_RANKS` nothing
+    more moves: the step averages the gradients ("data"). Otherwise FSDP2
     ``fully_shard`` takes every floating-point parameter the rule shards
-    (:data:`MIN_FSDP_SIZE`), on its dim, frozen ones included: one group
-    per vision tower and one for the action head (each gathered for its
-    forward, freed after it and gathered again for its backward, also
-    around a recompute), and one for the rest, the decoder's layers
-    included (gathered for the whole step); HSDP over ("data", "fsdp")
-    when "data" is above 1. Parameters the rule leaves whole stay whole
-    (``ignored_params``), and so do the int8 weights (``weight_q``): FSDP2
-    in torch 2.11 makes each sharded parameter with
+    (:data:`MIN_FSDP_SIZE`), on its dim (after the tensor dim), frozen ones
+    included: one group per vision tower and one for the action head (each
+    gathered for its forward, freed after it and gathered again for its
+    backward, also around a recompute), and one for the rest, the
+    decoder's layers included (gathered for the whole step); HSDP over
+    ("data", "fsdp") when "data" is above 1. Parameters the rule leaves
+    whole stay whole (``ignored_params``), and so do the int8 weights
+    (``weight_q``): FSDP2 in torch 2.11 makes each sharded parameter with
     ``requires_grad=True``, which an integer tensor refuses; their float
     scales are sharded. Re-read the model's parameters afterwards: FSDP2
-    replaces them with DTensors. Raises for a "tensor" dim above 1."""
-    tensor = mesh[TENSOR_AXIS].size()
-    if tensor > 1:
-        raise NotImplementedError(f"training with tensor={tensor}: "
-                                  f"{TENSOR_AXIS_ITEM}")
+    replaces them with DTensors, and the tensor split with their parts.
+    ``tensor_transport``: :func:`split_tensor_`'s ``transport``."""
     if mesh.size() != process_count():
         raise ValueError(f"a mesh of {mesh.size()} ranks in a group of "
                          f"{process_count()}: every rank trains")
     fsdp_size = mesh[FSDP_AXIS].size()
-    sharding = Sharding(mesh=mesh)
+    tensor = mesh[TENSOR_AXIS].size()
+    sharding = Sharding(mesh=mesh, dp_group=_dp_group(mesh))
+    # the FSDP dims from the whole shapes, before the tensor split
+    dims = fsdp_dims(model, fsdp_size, tensor_size=tensor)
+    if tensor > 1:
+        (sharding.tensor_dims, sharding.tensor_partial,
+         sharding.tp) = split_tensor_(model, mesh, tensor_transport)
     if fsdp_size < MIN_FSDP_RANKS:
         return sharding
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
     params = dict(model.named_parameters())
-    dims = {n: d for n, d in fsdp_dims(model, fsdp_size).items()
-            if params[n].is_floating_point()}
+    dims = {n: d for n, d in dims.items() if params[n].is_floating_point()}
     by_id = {id(params[n]): d for n, d in dims.items()}
     dp_mesh = (mesh[(DATA_AXIS, FSDP_AXIS)] if mesh[DATA_AXIS].size() > 1
                else mesh[FSDP_AXIS])

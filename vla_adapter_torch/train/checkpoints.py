@@ -9,10 +9,12 @@ when every checkpoint is kept) holds ``trainable``, ``frozen`` and
 keeps its previous checkpoint. Each part is one safetensors file written
 with the port's own writer (``weights/safetensors_io.py``). Under a
 process group (``state.sharding``) every rank gathers the whole state
-(FSDP2's shards through ``full_tensor``) and rank 0 writes the same files
-a single process writes, between barriers where the JAX package syncs its
+(FSDP2's shards through ``full_tensor``, the "tensor" axis's parts through
+an all-gather over the tensor group) and rank 0 writes the same files a
+single process writes, between barriers where the JAX package syncs its
 processes; ``load_checkpoint`` reads the whole state, which the loop then
-shards onto the mesh.
+places on the mesh (a checkpoint written at any mesh loads at any other,
+and in one process).
 """
 
 from __future__ import annotations
@@ -63,11 +65,11 @@ def _whole_state(state):
     sh = state.sharding
     if sh is None:
         return state.trainable, state.frozen(), state.opt_state
-    trainable = {n: sh.full(p) for n, p in state.trainable.items()}
-    frozen = {n: sh.full(v) for n, v in state.frozen().items()}
+    trainable = {n: sh.full(p, n) for n, p in state.trainable.items()}
+    frozen = {n: sh.full(v, n) for n, v in state.frozen().items()}
     opt = dict(state.opt_state)
     for part in ("mu", "nu"):
-        opt[part] = {n: sh.full_like(v, state.trainable[n])
+        opt[part] = {n: sh.full_like(v, state.trainable[n], n)
                      for n, v in state.opt_state[part].items()}
     return trainable, frozen, opt
 

@@ -14,8 +14,15 @@ pipeline (``data/rlds_dataset.py``) over the TFDS datasets under
 ``--data.root_dir``, built in ``--data.num_workers`` spawn processes; only
 its reader needs ``tensorflow_datasets``. ``--data.use_dummy true`` trains
 on random batches instead. Under ``torchrun --nproc_per_node N`` each
-process trains on its own card over NCCL (``--train.fsdp_axis N`` shards
-the model with FSDP2; by default the N ranks are the "data" axis).
+process trains on its own card over NCCL: by default the N ranks are the
+"data" axis; ``--train.fsdp_axis F`` shards the model with FSDP2 over F of
+them and ``--train.tensor_axis T`` splits its projections over T
+(Megatron column and row splits, the JAX package's "tensor" placement);
+the ranks of a tensor group read the same rows.
+
+    torchrun --nproc_per_node 4 -m vla_adapter_torch.train.finetune \
+        --experiment vla-adapter+libero-spatial --data.use_dummy true \
+        --train.batch_size 16 --train.tensor_axis 2
 """
 
 from __future__ import annotations
@@ -69,9 +76,10 @@ def config_from_experiment(vla_id: str) -> FinetuneCLIConfig:
 
 def build_data_iter(cfg: FinetuneCLIConfig):
     """RLDS mixture -> (batch iterator, statistics for the checkpoint):
-    one pipeline per process, seeded by ``per_process_seed``, batching this
-    process's ``process_local_batch_size`` rows of the global batch (split
-    into micro-batches under accumulation)."""
+    one pipeline per ("data", "fsdp") coordinate, seeded by
+    ``per_process_seed``, batching its ``process_local_batch_size`` rows of
+    the global batch (split into micro-batches under accumulation); the
+    ranks of a tensor group build the same one."""
     from vla_adapter_torch.data.action_tokenizer import ActionTokenizer
     from vla_adapter_torch.data.image_processing import image_processor_for
     from vla_adapter_torch.data.rlds.oxe.materialize import (
@@ -84,12 +92,14 @@ def build_data_iter(cfg: FinetuneCLIConfig):
     )
     from vla_adapter_torch.data.transform import VLABatchTransform
     from vla_adapter_torch.parallel.sharding import (
+        group_initialized,
         per_process_seed,
         process_local_batch_size,
     )
 
     model_cfg = cfg.train.model
-    seed = per_process_seed(cfg.train.seed)
+    tensor = cfg.train.tensor_axis if group_initialized() else 1
+    seed = per_process_seed(cfg.train.seed, tensor=tensor)
     tok = load_qwen_tokenizer(cfg.data.tokenizer_dir)
     transform = VLABatchTransform(
         model_cfg, tokenize=TextToIds(tok),
@@ -101,7 +111,7 @@ def build_data_iter(cfg: FinetuneCLIConfig):
     accum = cfg.train.grad_accumulation_steps
     ds = RLDSDataset(model_cfg, transform, kwargs_list, weights,
                      batch_size=process_local_batch_size(
-                         cfg.train.batch_size), train=True,
+                         cfg.train.batch_size, tensor), train=True,
                      image_aug=cfg.data.image_aug,
                      shuffle_buffer_size=cfg.data.shuffle_buffer_size,
                      accum_steps=accum if accum > 1 else None, seed=seed)

@@ -5,8 +5,10 @@ Config -> model -> optimizer -> data -> train step -> metrics and
 checkpoints, on one card, or on one card per process under a
 ``torch.distributed`` process group (``parallel/sharding.py``): the
 mesh's "data" axis averages the gradients, its "fsdp" axis shards the
-model with FSDP2, and each process feeds its own rows
-(``process_local_batch_size`` of them, seeded by ``per_process_seed``).
+model with FSDP2, its "tensor" axis splits the projections (Megatron,
+``parallel/tensor.py``), and each ("data", "fsdp") coordinate feeds its
+own rows (``process_local_batch_size`` of them, seeded by
+``per_process_seed``; the ranks of a tensor group the same rows).
 Data comes from any iterator of model-format batches; by default
 ``data/dummy.py``'s, the swap the reference documents for smoke runs.
 
@@ -37,7 +39,6 @@ from vla_adapter_torch.models.layers import Runtime, init_random_, prepare_ste_
 from vla_adapter_torch.models.quantize import quantize_state_dict
 from vla_adapter_torch.models.vla import VLAModel
 from vla_adapter_torch.parallel.sharding import (
-    TENSOR_AXIS_ITEM,
     create_mesh,
     group_initialized,
     per_process_seed,
@@ -132,6 +133,7 @@ def finetune(
     val_batches: int = 8,
     device: str = "cuda",
     params: Optional[Mapping[str, torch.Tensor]] = None,
+    tensor_transport=None,
 ) -> TrainState:
     """Train ``cfg`` for ``max_steps`` (default ``cfg.optim.max_steps``)
     steps on ``device`` (the card; "cpu" only when asked) and write the
@@ -141,31 +143,31 @@ def finetune(
 
     Under an initialized process group the run spans its ranks on the
     mesh (``cfg.data_axis``, ``cfg.fsdp_axis``, ``cfg.tensor_axis``):
-    ``data_iter`` yields this rank's rows, the model is placed by
-    ``shard_model``, rank 0 writes the checkpoints, and a resumed run
-    reads the whole state and shards it onto the mesh."""
+    ``data_iter`` yields this rank's rows (a tensor group's ranks the same
+    ones), the model is placed by ``shard_model`` (with
+    ``tensor_transport``, its own), rank 0 writes the checkpoints, and a
+    resumed run reads the whole state and places it on the mesh."""
     device = resolve_device(device)
-    if cfg.tensor_axis != 1:
-        raise NotImplementedError(f"tensor_axis={cfg.tensor_axis}: "
-                                  f"{TENSOR_AXIS_ITEM}")
     mesh = None
     if group_initialized():
         mesh = create_mesh(data=cfg.data_axis, fsdp=cfg.fsdp_axis,
                            tensor=cfg.tensor_axis)
-    elif cfg.fsdp_axis != 1:
+    elif cfg.fsdp_axis != 1 or cfg.tensor_axis != 1:
         # (one process has one card: its "data" axis splits nothing, so
         # data_axis is moot there; the JAX package splits the batch over
         # the devices of its process, with the same numbers)
-        raise ValueError(f"fsdp_axis={cfg.fsdp_axis} needs as many "
-                         "processes: start a process group (torchrun, or "
+        raise ValueError(f"fsdp_axis={cfg.fsdp_axis}, tensor_axis="
+                         f"{cfg.tensor_axis} need as many processes: start "
+                         "a process group (torchrun, or "
                          "parallel.sharding.initialize_distributed)")
     rt = rt or build_runtime(cfg)
     max_steps = max_steps if max_steps is not None else cfg.optim.max_steps
     accum = cfg.grad_accumulation_steps
     if data_iter is None:
+        tensor = cfg.tensor_axis if mesh is not None else 1
         data_iter = iter(DummyDataset(
-            cfg.model, process_local_batch_size(cfg.batch_size),
-            seed=per_process_seed(cfg.seed),
+            cfg.model, process_local_batch_size(cfg.batch_size, tensor),
+            seed=per_process_seed(cfg.seed, tensor=tensor),
             accum_steps=accum if accum > 1 else None))
     first = next(data_iter)
 
@@ -180,10 +182,12 @@ def finetune(
         ckpt = find_resume_checkpoint(run_dir)
         if ckpt is not None:
             load_checkpoint(ckpt, state)
-    if rt.train_base_int8:
+    sharding = (shard_model(model, mesh, tensor_transport)
+                if mesh is not None else None)
+    if rt.train_base_int8:   # from the int8 base's local parts
         prepare_ste_(model)
-    if mesh is not None:
-        place_state_(state, shard_model(model, mesh))
+    if sharding is not None:
+        place_state_(state, sharding)
 
     step_fn = make_train_step(model, tx, cfg, sharding=state.sharding)
     metrics = Metrics(run_dir, window=max(accum, 8), run_id=get_run_id(cfg),
@@ -219,13 +223,14 @@ def finetune(
 
 def place_state_(state: TrainState, sharding) -> TrainState:
     """After ``shard_model``: the state's trainable tensors re-read from
-    the model (FSDP2 replaced the sharded ones by DTensors) and each
-    optimizer moment cut to its parameter's shard on this rank."""
+    the model (the tensor split replaced the split ones by their parts,
+    FSDP2 the sharded ones by DTensors) and each optimizer moment cut to
+    its parameter's part on this rank."""
     params = dict(state.model.named_parameters())
     state.trainable = {n: params[n] for n in state.trainable}
     for part in ("mu", "nu"):
         state.opt_state[part] = {
-            n: sharding.local_slice(v, state.trainable[n])
+            n: sharding.local_slice(v, state.trainable[n], n)
             for n, v in state.opt_state[part].items()}
     state.sharding = sharding
     return state

@@ -12,7 +12,9 @@ The head's training noise of each micro-batch comes from its own
 ``torch.Generator``, seeded from (seed + 1, step, micro-batch) by
 :func:`noise_generator`, the role of the JAX package's
 ``fold_in(fold_in(key(seed + 1), step), micro)``: a resumed run draws what
-an unbroken one would.
+an unbroken one would, and every rank of a process group the same draw
+(one draw for every row, as the JAX package's), so the ranks of a tensor
+group add the same noise to the same rows.
 """
 
 from __future__ import annotations
@@ -172,17 +174,21 @@ def make_train_step(model: VLAModel, tx: AdamW, cfg: TrainConfig,
     divided by the count, before one update (the JAX package's scan).
 
     Under a process group (``sharding``, ``parallel/sharding.py``) each
-    rank's batch holds its own rows: every micro-batch's gradients are the
+    ("data", "fsdp") coordinate's batch holds its own rows (the ranks of a
+    tensor group the same ones): every micro-batch's gradients are the
     global batch's mean before they enter the carry (FSDP2 reduce-scatters
-    those it shards, the rest are averaged across ranks), the optimizer
-    updates this rank's shards, the global norm sums the ranks' parts, and
-    the metrics are averaged across ranks."""
+    those it shards, the rest are averaged over the ("data", "fsdp")
+    ranks; those of whole tensors a rank uses in part are summed over the
+    tensor group), the optimizer updates this rank's parts, the global
+    norm sums the ranks' parts, and the metrics are averaged over the
+    ("data", "fsdp") ranks."""
     loss_fn = make_loss_fn(model, cfg.objective)
     accum = cfg.grad_accumulation_steps
     carry_dtype = {None: None, "float32": torch.float32,
                    "bfloat16": torch.bfloat16}[cfg.accum_dtype]
 
-    def single_grads(params: List[torch.Tensor], batch, generator):
+    def single_grads(params: List[torch.Tensor], names: List[str], batch,
+                     generator):
         loss, metrics = loss_fn(batch, generator)
         if sharding is None:
             grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -198,7 +204,8 @@ def make_train_step(model: VLAModel, tx: AdamW, cfg: TrainConfig,
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         if sharding is not None:
-            grads = [local(g) for g in sharding.reduce_gradients(grads)]
+            grads = [local(g) for g in sharding.reduce_gradients(grads,
+                                                                 names)]
         per_sample = metrics.pop("per_sample", {})
         return grads, {k: v.detach() for k, v in metrics.items()}, \
             {k: v.detach() for k, v in per_sample.items()}
@@ -213,7 +220,8 @@ def make_train_step(model: VLAModel, tx: AdamW, cfg: TrainConfig,
             for i in range(accum):
                 micro = {k: v[i] for k, v in batch.items()}
                 g, m, ps = single_grads(
-                    params, micro, noise_generator(cfg.seed, step_idx, i, dev))
+                    params, names, micro,
+                    noise_generator(cfg.seed, step_idx, i, dev))
                 if carry_dtype is not None:
                     g = [x.to(carry_dtype) for x in g]
                 carry = g if carry is None else [a + x for a, x in
@@ -230,12 +238,12 @@ def make_train_step(model: VLAModel, tx: AdamW, cfg: TrainConfig,
                           for k in rows[0]}
         else:
             grads, metrics, per_sample = single_grads(
-                params, batch, noise_generator(cfg.seed, step_idx, 0, dev))
+                params, names, batch,
+                noise_generator(cfg.seed, step_idx, 0, dev))
         norm_fn = global_norm
         if sharding is not None:
             metrics = sharding.mean_metrics(metrics)
-            sharded = [n in sharding.fsdp_dims for n in names]
-            norm_fn = lambda g: sharding.global_norm(g, sharded)  # noqa: E731
+            norm_fn = lambda g: sharding.global_norm(g, names)  # noqa: E731
         grads = dict(zip(names, grads))
         metrics["per_sample"] = per_sample
         metrics["grad_norm"] = norm_fn(list(grads.values()))
