@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--out FILE] [--profile] [--only 12,...,19]
+    python3 chip_smoke.py [--out FILE] [--profile] [--only 12,...,20]
 
 Phases, in order; any failure exits non-zero:
 
@@ -223,12 +223,15 @@ Phases, in order; any failure exits non-zero:
    the card (the group destroyed after), ``parity_check`` record then
    check from the exported directory (PASS at 0.0) and ``verify_smoke``
    in its own process (its latency line). Last, in a child process
-   (:func:`group_train_child`), the flagship recipe at batch 16 for 4
+   (:func:`group_train_child`), the flagship recipe at batch 16 for 6
    steps without a group and on a one-rank NCCL "data" mesh, and under
    FSDP2 on a one-rank "fsdp" mesh for a step, a checkpoint written
    under the group, and the rest resumed from it: losses and trained
    tensors bit for bit, B1, B1-bwd and B4 launched per step as derived,
-   s/step and peak memory. Phase 18 prints its seconds.
+   s/step and peak memory. The FSDP2 run takes the code N ranks take: a
+   group per decoder layer, the int8 base held as its parts and gathered
+   one layer and pass at a time, those gathers per step against
+   :func:`expected_int8_gathers`. Phase 18 prints its seconds.
 
 19. the "tensor" mesh axis (:func:`tensor_phase`): kernel B4's int32
    output at every split shape of the recipe at tensor 2 (a row split's
@@ -257,9 +260,29 @@ Phases, in order; any failure exits non-zero:
    for bit in it) and served through ``load_vla`` within phase 5's bound
    of the trained LoRA model. Phase 19 prints its seconds.
 
-``--only 12,...,19`` runs the build and any of phases 12-19 alone (no
-kernels or ok line; phases 16, 17 and 19 alone build no flagship; phase
-17 alone has no phase-11 figure beside its s/step).
+20. "fsdp" memory at the recipes' device counts (:func:`fsdp_memory_phase`),
+   each run in a child process under torch's fake process group (one rank
+   of N in one process; its collectives move no data, so the phase
+   checks memory, launches and gathers, no value), through
+   ``train.loop.finetune`` as a user calls it: ``siglip-224px+mx-bridge``
+   (SigLIP so400m + Vicuna-7B, 7.518 B fp32 parameters, full train) as
+   rank 1 of 8 at 32 rows (rank 1: its 90.2 GB checkpoint is larger than
+   the card machine's free disk; rank 1 makes every gather of it and
+   writes nothing), and the flagship LoRA recipe over the int8 base as
+   rank 0 of 4 at 16 rows, which then resumes from its checkpoint for one
+   step more; each at full width and depth, seeded weights, the recipe's
+   remat, FSDP_MEMORY_STEPS steps and the closing checkpoint: peak
+   memory in the steps, in the set-up (the whole model built before the
+   placement; a resumed run's checkpoint read) and in the checkpoint,
+   the memory the forward keeps, this rank's bytes of parameters,
+   gradients, Adam moments and int8 base beside the whole model's and
+   the rule's 1/N, the most decoder layers unsharded at once in the
+   forward, recompute and backward, B1, B1-bwd and B4 launches and int8
+   gathers per step against the derived counts.
+
+``--only 12,...,20`` runs the build and any of phases 12-20 alone (no
+kernels or ok line; phases 16, 17, 19 and 20 alone build no flagship;
+phase 17 alone has no phase-11 figure beside its s/step).
 
 Phases 9 and 10 took 100 s on an NVIDIA H100 80GB HBM3 at 700 W beside
 110 s for phases 1-8 (their per-phase seconds are printed; phase 9's
@@ -288,8 +311,9 @@ line
 paths of phases 12-18: "generate", "generate_w8a8", "actions",
 "token_train", "pretrain", "phi", "zoo_logits", "zoo_generate",
 "zoo_generate_w8a8", "zoo_pretrain", "finetune_rlds", "eval_libero",
-"eval_calvin", "finetune_ddp", "finetune_fsdp" and "finetune_tensor"
-(rank 0 of phase 19); each entry's ``zoo_7b`` lists its
+"eval_calvin", "finetune_ddp", "finetune_fsdp", "finetune_tensor"
+(rank 0 of phase 19), "finetune_fsdp8_full" and "finetune_fsdp4_lora"
+(phase 20's runs, per step); each entry's ``zoo_7b`` lists its
 phase-16 call sites (per call: ms, plain, bound, library). Exits non-zero without CUDA, and when
 the ``vla_adapter_torch`` package beside this script is missing.
 """
@@ -900,6 +924,37 @@ def expected_train_launches(model) -> dict:
             w8a8_matmul.KERNEL_NAME: b4}
 
 
+def expected_int8_gathers(model) -> dict:
+    """The all-gathers of the int8 base per micro-batch of the finetune
+    under "fsdp" (``parallel/fsdp_int8.py``), by pass, from the placed
+    model: each layer whose Denses hold parts of their int8 tensors
+    (``Int8Layer``) gathers its forward weights once at its forward
+    ("forward"), again where its stack ("vit", "llm") recomputes, and its
+    "weight_qt" copies once for dx ("backward") where a gradient reaches
+    the input of any of its straight-through Denses (all but the first
+    tower block's q/k/v, as in :func:`expected_train_launches`)."""
+    from vla_adapter_torch.models.layers import Dense
+
+    rt = model.rt
+    first = {id(d) for tower in model.vision_backbone.children()
+             for d in (tower.blocks[0].attn.q_proj, tower.blocks[0].attn.k_proj,
+                       tower.blocks[0].attn.v_proj)}
+    forward, backward = {}, {}
+    for name, mod in model.named_modules():
+        if not isinstance(mod, Dense) or mod.int8_parts is None:
+            continue
+        layer = id(mod.int8_parts.layer)
+        stack = ("llm" if name.startswith("language_model") else
+                 "vit" if name.startswith("vision_backbone") else None)
+        forward[layer] = 2 if stack and rt.remat_policy_of(stack) else 1
+        if mod.ste and "weight_qt" in mod.int8_parts.dims \
+                and id(mod) not in first:
+            backward[layer] = 1
+    out = {"forward": sum(forward.values()),
+           "backward": sum(backward.values())}
+    return {k: v for k, v in out.items() if v}
+
+
 def _check_train_launches(launches, per_micro, micro_batches, what):
     want = {k: v * micro_batches for k, v in per_micro.items()}
     got = {k: launches.get(k, 0) for k in want}
@@ -1081,11 +1136,17 @@ class ProfiledStep:
     (torch.profiler, CUDA activity): started at the fetch of step
     ``step``'s batch and stopped at the next fetch, each after a device
     sync, so the window holds that step's device work. ``summary`` then
-    holds the device ms by kernel group and the largest kernels."""
+    holds the device ms by kernel group and the largest kernels. With
+    ``host``, CPU activity too: the window's wall ms, the host ms inside
+    FSDP2's ranges (``FSDP::*``, by range over the groups, each
+    inclusive), inside the int8 base's gathers
+    (``parallel.fsdp_int8.Int8Layer._gather``, timed around each call)
+    and the ops of most host time of their own."""
 
-    def __init__(self, batch, step: int):
-        self.batch, self.step, self.fetches = batch, step, 0
-        self.prof, self.summary = None, None
+    def __init__(self, batch, step: int, host: bool = False):
+        self.batch, self.step, self.host = batch, step, host
+        self.fetches, self.prof, self.summary = 0, None, None
+        self.t0, self.gather_s, self.gathers = None, 0.0, 0
 
     def __iter__(self):
         return self
@@ -1097,31 +1158,70 @@ class ProfiledStep:
         fetch, self.fetches = self.fetches, self.fetches + 1
         if fetch == self.step:
             torch.cuda.synchronize()
-            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            acts = [ProfilerActivity.CUDA] + (
+                [ProfilerActivity.CPU] if self.host else [])
+            self.prof = profile(activities=acts)
             self.prof.__enter__()
+            if self.host:
+                self._time_gathers(True)
+            self.t0 = time.perf_counter()
         elif fetch == self.step + 1 and self.prof is not None:
             torch.cuda.synchronize()
+            wall = time.perf_counter() - self.t0
+            if self.host:
+                self._time_gathers(False)
             self.prof.__exit__(None, None, None)
-            self.summary = self._summarize()
+            self.summary = self._summarize(wall)
         return self.batch
 
-    def _summarize(self):
+    def _time_gathers(self, on: bool) -> None:
+        from vla_adapter_torch.parallel.fsdp_int8 import Int8Layer
+
+        if not on:
+            Int8Layer._gather = self._plain_gather
+            return
+        self._plain_gather = plain = Int8Layer._gather
+
+        def timed(layer, kind):
+            t0 = time.perf_counter()
+            try:
+                return plain(layer, kind)
+            finally:
+                self.gather_s += time.perf_counter() - t0
+                self.gathers += 1
+
+        Int8Layer._gather = timed
+
+    def _summarize(self, wall: float):
         from torch.autograd import DeviceType
 
         by_name = collections.Counter()
+        fsdp = collections.Counter()
         for e in self.prof.events():
             if e.device_type == DeviceType.CUDA:
                 by_name[e.name] += e.time_range.elapsed_us() / 1e3
+            elif e.name.startswith("FSDP::"):   # "FSDP::<range> (<fqn>)"
+                fsdp[e.name.split(" ")[0]] += e.cpu_time_total / 1e3
         groups = collections.Counter()
         for name, ms in by_name.items():
             low = name.lower()
             group = next((g for g, keys in TRAIN_PROFILE_GROUPS
                           if all(k.lower() in low for k in keys)), "other")
             groups[group] += ms
-        return {"step_index": self.step,
-                "device_busy_ms": sum(by_name.values()),
-                "kernels": len(by_name), "by_group_ms": dict(groups),
-                "top": [[n[:90], ms] for n, ms in by_name.most_common(15)]}
+        out = {"step_index": self.step, "wall_ms": 1e3 * wall,
+               "device_busy_ms": sum(by_name.values()),
+               "kernels": len(by_name), "by_group_ms": dict(groups),
+               "top": [[n[:90], ms] for n, ms in by_name.most_common(15)]}
+        if self.host:
+            own = sorted(self.prof.key_averages(),
+                         key=lambda a: -a.self_cpu_time_total)
+            out.update(
+                fsdp_host_ms=dict(fsdp.most_common()),
+                int8_gather_host_ms=1e3 * self.gather_s,
+                int8_gathers=self.gathers,
+                top_host_self_ms=[[a.key[:60], a.self_cpu_time_total / 1e3,
+                                   a.count] for a in own[:15]])
+        return out
 
 
 def _train_run(tcfg, batch, steps, root, data_iter=None, **kw):
@@ -5360,7 +5460,17 @@ def _free_port() -> int:
 # steps of each run of phase 18's training under a process group: a step's
 # seconds are read one step late, so steps 2-3 are the timed ones (of the
 # FSDP2 run, resumed at step 1, step 2)
-GROUP_TRAIN_STEPS = 4
+GROUP_TRAIN_STEPS = 6
+
+
+def _file_digest(path) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
 
 
 def group_train_child(out_path: str, seed: int, profile: bool = False
@@ -5368,10 +5478,15 @@ def group_train_child(out_path: str, seed: int, profile: bool = False
     """Phase 18 (b), in its own process: the flagship recipe at batch 16
     for GROUP_TRAIN_STEPS steps (i) without a process group and (ii)
     under a one-rank NCCL group on "data"; (iii) under FSDP2 on a
-    one-rank "fsdp" mesh the first step, a checkpoint written under the
-    group, then the rest resumed from it. (ii) and (iii) must equal (i)
-    bit for bit in losses and trained tensors, and launch B1, B1-bwd and
-    B4 per step as :func:`expected_train_launches` derives them. With
+    one-rank "fsdp" mesh (a group per decoder layer, the int8 base held
+    as its parts and gathered per layer and pass, the same code as at N
+    ranks)
+    the first step, a checkpoint written under the group, then the rest
+    resumed from it. (ii) and (iii) must equal (i) bit for bit in losses
+    and trained tensors, launch B1, B1-bwd and B4 per step as
+    :func:`expected_train_launches` derives them, and (iii) gather the
+    int8 base per step as :func:`expected_int8_gathers` derives and write
+    the checkpoint files (i) writes, byte for byte. With
     ``profile``, step 2 of each (i), (ii) and (iii) runs under
     :class:`ProfiledStep`. Writes the record as JSON to ``out_path``."""
     import shutil
@@ -5383,7 +5498,7 @@ def group_train_child(out_path: str, seed: int, profile: bool = False
     from vla_adapter_torch.data.dummy import make_dummy_batch
     from vla_adapter_torch.models.vla import VLAModel
     from vla_adapter_torch.ops import cuda_lib
-    from vla_adapter_torch.parallel import sharding
+    from vla_adapter_torch.parallel import fsdp_int8, sharding
     from vla_adapter_torch.parallel.sharding import initialize_distributed
     from vla_adapter_torch.train.loop import build_runtime
 
@@ -5400,11 +5515,16 @@ def group_train_child(out_path: str, seed: int, profile: bool = False
     def one(name, steps=GROUP_TRAIN_STEPS, profiled_fetch=None, **kw):
         # step 2 is the window's: the fetch of its batch, counted from the
         # run's first (a resumed run starts at step 1)
-        prof = (ProfiledStep(batch, profiled_fetch)
+        prof = (ProfiledStep(batch, profiled_fetch, host=True)
                 if profile and profiled_fetch is not None else None)
+        fsdp_int8.reset_gathers()
         state, launches, wall, memory = _train_run(tcfg, batch, steps,
                                                    root / name,
                                                    data_iter=prof, **kw)
+        # the checkpoint's gathers (Sharding.full) are no step's
+        gathers = {k: v for k, v in fsdp_int8.GATHERS.items()
+                   if k != "checkpoint"}
+        per_step = expected_int8_gathers(state.model)
         full = {n: (state.sharding.full(p, n) if state.sharding else p
                     ).detach().clone()
                 for n, p in state.trainable.items()}
@@ -5422,8 +5542,14 @@ def group_train_child(out_path: str, seed: int, profile: bool = False
                                     if len(step_s) > 2 else None),
                      "wall_s": wall,
                      "peak_gib": memory["max_memory_allocated_bytes"] / 2**30,
-                     "dtensor_params": dtensors, "launches": launches}
+                     "dtensor_params": dtensors, "launches": launches,
+                     "int8_gathers": gathers,
+                     "int8_gathers_per_step_derived": per_step}
         _check_train_launches(launches, per_micro, len(losses), name)
+        want = {k: v * len(losses) for k, v in per_step.items()}
+        if gathers != want:
+            raise AssertionError(f"{name}: int8 gathers {gathers}, derived "
+                                 f"{want}")
         if prof is not None:
             rec[name]["profile"] = prof.summary
         print(f"group_train {name} " + json.dumps(dict(rec[name],
@@ -5445,6 +5571,8 @@ def group_train_child(out_path: str, seed: int, profile: bool = False
         runs["fsdp"] = (first + runs["fsdp"][0], runs["fsdp"][1])
         if rec["data"]["dtensor_params"] or not rec["fsdp"]["dtensor_params"]:
             raise AssertionError("FSDP2 placed no parameter, or 'data' did")
+        if not rec["fsdp"]["int8_gathers"].get("backward"):
+            raise AssertionError("FSDP2's run gathered no int8 base")
         for name in ("data", "fsdp"):
             losses, full = runs[name]
             if losses != runs["alone"][0]:
@@ -5455,7 +5583,23 @@ def group_train_child(out_path: str, seed: int, profile: bool = False
             if differ:
                 raise AssertionError(f"{name}: trained tensors differ: "
                                      f"{differ[:5]}")
-        rec["bitwise_equal"] = ["data", "fsdp (resumed at step 1)"]
+        # the checkpoint the FSDP2 run wrote (the int8 base gathered from
+        # its parts by Sharding.full) is the one-process run's, file for
+        # file, byte for byte
+        from vla_adapter_torch.train.checkpoints import find_resume_checkpoint
+        from vla_adapter_torch.train.loop import get_run_id
+
+        dirs = [find_resume_checkpoint(root / name / get_run_id(tcfg))
+                for name in ("alone", "fsdp")]
+        files = sorted(f.name for f in dirs[0].iterdir())
+        if files != sorted(f.name for f in dirs[1].iterdir()) or any(
+                _file_digest(dirs[0] / f) != _file_digest(dirs[1] / f)
+                for f in files):
+            raise AssertionError(f"the FSDP2 checkpoint differs from one "
+                                 f"process's: {files}")
+        rec["checkpoint_equal_files"] = files
+        rec["bitwise_equal"] = ["data", "fsdp (resumed at step 1)",
+                                "fsdp checkpoint files"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     with open(out_path, "w") as f:
@@ -6409,6 +6553,419 @@ def tensor_kernel_summary(rec, launches):
                "included, and column-split dx)"}]
 
 
+
+# --- phase 20: "fsdp" memory at the recipes' device counts ---------------------
+
+# (recipe, ranks: its expected_devices, the rank run, rows a rank, resumed):
+# one rank of each under torch's fake process group, whose collectives move
+# no data. The 7B recipe's checkpoint (90.2 GB) is larger than the card
+# machine's disk (75 GB free): its run is rank 1, which makes every gather
+# of the checkpoint and writes nothing (shards are even, so a rank's device
+# memory is rank 0's; rank 0 streams each whole tensor from the host).
+FSDP_MEMORY_RUNS = (("siglip-224px+mx-bridge", 8, 1, 32, False),
+                    ("vla-adapter+libero-spatial", 4, 0, 16, True))
+FSDP_MEMORY_STEPS = 2
+FSDP_MEMORY_NOTE = ("torch's fake process group: the collectives move no "
+                    "data, so the gathered tensors hold no values; no value "
+                    "is checked and no loss is read, only memory, launches "
+                    "and gathers")
+
+
+class UnshardedLayers:
+    """How many decoder layers (``parallel.sharding.decoder_layers``) hold
+    their FSDP2 parameters unsharded at once, the most seen in each phase
+    of a step: probed at every forward of a module inside a layer
+    ("forward"; in the backward, "recompute") and as each Dense's output
+    gradient is ready ("backward"). A layer counts while any parameter
+    FSDP2 holds for it (a DTensor when the model is built, between steps)
+    is a plain tensor: FSDP2 swaps the gathered tensors in for its forward
+    and backward and the DTensors back after. Use as a context around the
+    steps; the hooks change no value and no autograd node."""
+
+    PHASES = ("forward", "recompute", "backward")
+
+    def __init__(self, model):
+        from vla_adapter_torch.models.layers import Dense
+        from vla_adapter_torch.parallel.sharding import decoder_layers
+
+        self.layers = []
+        for layer in decoder_layers(model):
+            held = [(m, leaf) for m in layer.modules()
+                    for leaf, p in m.named_parameters(recurse=False)
+                    if _is_dtensor(p)]
+            if held:
+                self.layers.append(held)
+        self.most = dict.fromkeys(self.PHASES, 0)
+        self._modules = [m for layer in decoder_layers(model)
+                         for m in layer.modules()]
+        self._dense = [m for m in self._modules if isinstance(m, Dense)]
+        self._handles = []
+
+    def unsharded(self) -> int:
+        return sum(any(not _is_dtensor(getattr(m, leaf)) for m, leaf in held)
+                   for held in self.layers)
+
+    def _probe(self, phase: str) -> None:
+        self.most[phase] = max(self.most[phase], self.unsharded())
+
+    @staticmethod
+    def _in_backward() -> bool:
+        import torch
+
+        return torch._C._current_graph_task_id() != -1
+
+    def _pre_forward(self, module, args):
+        self._probe("recompute" if self._in_backward() else "forward")
+
+    def _post_forward(self, module, args, out):
+        import torch
+
+        if torch.is_tensor(out) and out.requires_grad \
+                and not self._in_backward():
+            out.register_hook(lambda g: self._probe("backward"))
+
+    def __enter__(self):
+        self._handles = [m.register_forward_pre_hook(self._pre_forward)
+                         for m in self._modules]
+        self._handles += [m.register_forward_hook(self._post_forward)
+                          for m in self._dense]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self._handles:
+            h.remove()
+        self._handles = []
+
+
+def _is_dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
+def _placed_bytes(model, trainable, world: int) -> dict:
+    """Per category ("trainable", "frozen_float", "int8_base": weight_q
+    and its straight-through copies weight_qt, weight_qk), the bytes of
+    the whole model and those ``param_pspec`` leaves a rank: 1/world of
+    each tensor it shards on "fsdp", the rest whole (a weight_qt follows
+    its weight_q). Call on the whole model, before the placement."""
+    from vla_adapter_torch.parallel import sharding
+
+    specs = sharding.model_pspecs(model, world,
+                                  min_fsdp_size=sharding.MIN_FSDP_SIZE)
+    out = {k: {"whole": 0, "rule": 0.0}
+           for k in ("trainable", "frozen_float", "int8_base")}
+    for mod_name, module in model.named_modules():
+        prefix = f"{mod_name}." if mod_name else ""
+        for leaf, p in module.named_parameters(recurse=False):
+            name = prefix + leaf
+            kind = ("trainable" if name in trainable else "int8_base"
+                    if not p.is_floating_point() else "frozen_float")
+            share = world if sharding.FSDP_AXIS in specs[name] else 1
+            copies = 2 if leaf == "weight_q" and getattr(module, "ste",
+                                                         False) else 1
+            nbytes = p.numel() * p.element_size() * copies
+            out[kind]["whole"] += nbytes
+            out[kind]["rule"] += nbytes / share
+    return out
+
+
+def _rank_bytes(model, trainable, opt_state) -> dict:
+    """This rank's bytes as placed: trainable and frozen float parameters
+    (a DTensor's local shard), the int8 base (weight_q, weight_qt,
+    weight_qk as held) and the Adam moments."""
+    from vla_adapter_torch.parallel.sharding import local
+
+    def nbytes(t):
+        t = local(t)
+        return t.numel() * t.element_size()
+
+    out = {"trainable": 0, "frozen_float": 0, "int8_base": 0}
+    seen = set()
+    for mod_name, module in model.named_modules():
+        prefix = f"{mod_name}." if mod_name else ""
+        for leaf, p in module.named_parameters(recurse=False):
+            kind = ("trainable" if prefix + leaf in trainable else
+                    "int8_base" if not p.is_floating_point() else
+                    "frozen_float")
+            if kind == "int8_base" and leaf == "weight_q" and getattr(
+                    module, "weight_qk", None) is not None:
+                continue   # a view of weight_qk
+            out[kind] += nbytes(p)
+        for leaf in ("weight_qt", "weight_qk"):
+            t = getattr(module, leaf, None)
+            if t is not None and id(t) not in seen:
+                seen.add(id(t))
+                out["int8_base"] += nbytes(t)
+    out["adam_moments"] = sum(nbytes(v) for part in ("mu", "nu")
+                              for v in opt_state[part].values())
+    return out
+
+
+def fsdp_memory_child(out_path: str, seed: int, index: int) -> None:
+    """One run of phase 20 in its own process: one rank of the recipe
+    ``FSDP_MEMORY_RUNS[index]`` on a (1, N, 1) mesh of N = its
+    expected_devices under torch's fake process group (its collectives
+    move no data: a memory estimate), through ``train.loop.finetune`` as
+    a user calls it: seeded random weights at full width and depth, the
+    recipe's remat, FSDP_MEMORY_STEPS steps at its rows a rank, then the
+    closing checkpoint; a resumed run then reads that checkpoint back,
+    takes one step and writes it again. Records, per finetune call, the
+    set-up's peak memory (the whole model built, a resumed one's
+    checkpoint read, before the placement), the steps' peak and the
+    checkpoint's; for the first, this rank's bytes beside the whole
+    model's and the rule's 1/N, the most decoder layers unsharded at once
+    (:class:`UnshardedLayers`), launches and int8 gathers per step beside
+    the derived counts. An out-of-memory is recorded with the stage it
+    stopped at. Writes the record as JSON to ``out_path``."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from vla_adapter_torch.core.experiments import get_experiment
+    from vla_adapter_torch.models.vla import VLAModel
+    from vla_adapter_torch.ops import cuda_lib
+    from vla_adapter_torch.parallel import fsdp_int8
+    from vla_adapter_torch.parallel.sharding import decoder_layers, local
+    from vla_adapter_torch.train import loop
+    from vla_adapter_torch.train.partition import mark_trainable_
+
+    vla_id, world, rank, rows, resumed = FSDP_MEMORY_RUNS[index]
+    cuda_lib.load_libraries(SOURCES)
+    gib = 2 ** 30
+    rec = {"recipe": vla_id, "ranks": world, "rank": rank,
+           "rows_per_rank": rows, "steps": FSDP_MEMORY_STEPS,
+           "card": card_line(), "note": FSDP_MEMORY_NOTE,
+           "stage": "set-up"}
+    calls = []   # one record per finetune call
+    root = tempfile.mkdtemp(prefix="vla_fsdp_mem_")
+
+    def write():
+        with open(out_path, "w") as f:
+            json.dump(rec, f)
+
+    def synced_gib(fn):
+        torch.cuda.synchronize()
+        return fn() / gib
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    place, save = loop.place_state_, loop.save_checkpoint
+    try:
+        base = get_experiment(vla_id).to_train_config()
+        tcfg = dataclasses.replace(base, fsdp_axis=world,
+                                   batch_size=rows * world, seed=seed,
+                                   run_root_dir=root)
+        if tcfg.save_freq <= FSDP_MEMORY_STEPS:
+            raise ValueError(f"{vla_id}: save_freq {tcfg.save_freq}")
+        rec.update(lora=tcfg.lora.enabled, base_int8=tcfg.base_int8,
+                   remat_components=list(tcfg.remat_components)
+                   if tcfg.remat_llm else [])
+        meta = VLAModel(tcfg.model, loop.build_runtime(tcfg), device="meta")
+        names = set(mark_trainable_(meta, tcfg.lora.enabled))
+        rec["bytes"] = _placed_bytes(meta, names, world)
+        rec["parameters"] = sum(p.numel() for p in meta.parameters())
+        rec["decoder_layers"] = len(decoder_layers(meta))
+        per_micro = expected_train_launches(meta)
+        del meta
+
+        def placed(state, sh, tx=None):
+            call = calls[-1]
+            place(state, sh, tx)
+            call["setup_peak_gib"] = synced_gib(
+                torch.cuda.max_memory_allocated)
+            call["resident_before_steps_gib"] = synced_gib(
+                torch.cuda.memory_allocated)
+            call["rank_bytes"] = _rank_bytes(state.model, state.trainable,
+                                             state.opt_state)
+            call["moment_itemsize"] = local(next(iter(
+                state.opt_state["mu"].values()))).element_size()
+            call["int8_gathers_per_step_derived"] = expected_int8_gathers(
+                state.model)
+            update = tx.update
+
+            def recorded(g, *args, **kw):
+                call.setdefault("gradient_bytes", sum(
+                    local(v).numel() * local(v).element_size()
+                    for v in g.values()))
+                return update(g, *args, **kw)
+
+            tx.update = recorded
+
+            def at_forward_end(module, args, out):
+                # the first step's forward: what it keeps for the
+                # backward, its peak
+                call.setdefault("forward_end_allocated_gib",
+                                torch.cuda.memory_allocated() / gib)
+                call.setdefault("forward_peak_gib",
+                                torch.cuda.max_memory_allocated() / gib)
+
+            call["hooks"] = [UnshardedLayers(state.model).__enter__(),
+                             state.model.register_forward_hook(at_forward_end)]
+            torch.cuda.reset_peak_memory_stats()
+            cuda_lib.reset_launches()
+            fsdp_int8.reset_gathers()
+            rec["stage"] = f"{call['call']}: steps"
+            call["t0"] = time.perf_counter()
+            return state
+
+        def saved(run_dir, state, *args, **kw):
+            call = calls[-1]
+            torch.cuda.synchronize()
+            call["s_per_step"] = ((time.perf_counter() - call.pop("t0"))
+                                  / call["steps"])
+            call["peak_gib"] = torch.cuda.max_memory_allocated() / gib
+            probe, hook = call.pop("hooks")
+            probe.__exit__()
+            hook.remove()
+            call["most_decoder_layers_unsharded"] = probe.most
+            call["launches"] = {k: v for k, v in cuda_lib.LAUNCHES.items()
+                                if v}
+            call["int8_gathers"] = dict(fsdp_int8.GATHERS)
+            fsdp_int8.reset_gathers()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rec["stage"] = f"{call['call']}: checkpoint"
+            path = save(run_dir, state, *args, **kw)
+            torch.cuda.synchronize()
+            call["checkpoint"] = {
+                "s": time.perf_counter() - t0,
+                "peak_gib": torch.cuda.max_memory_allocated() / gib,
+                "gathers": dict(fsdp_int8.GATHERS),
+                "bytes_written": sum(f.stat().st_size
+                                     for f in path.glob("*") if f.is_file())
+                if path.exists() else 0}
+            return path
+
+        loop.place_state_, loop.save_checkpoint = placed, saved
+        runs = [("first", FSDP_MEMORY_STEPS, False)]
+        if resumed:   # one step more from the first call's checkpoint
+            runs.append(("resumed", 1, True))
+        for call, steps, resume in runs:
+            calls.append({"call": call, "steps": steps})
+            rec["stage"] = f"{call}: set-up"
+            torch.cuda.reset_peak_memory_stats()
+            end = FSDP_MEMORY_STEPS + (steps if resume else 0)
+            state = loop.finetune(tcfg, max_steps=end, device="cuda",
+                                  resume=resume)
+            if state.step != end:
+                raise AssertionError(f"{vla_id} {call}: at step {state.step}")
+            del state
+            torch.cuda.empty_cache()
+        rec["stage"] = "done"
+        for call in calls:
+            _check_train_launches(call["launches"], per_micro, call["steps"],
+                                  f"{vla_id} {call['call']}")
+            want = {k: v * call["steps"] for k, v in
+                    call["int8_gathers_per_step_derived"].items()}
+            if call["int8_gathers"] != want:
+                raise AssertionError(f"{vla_id} {call['call']}: int8 gathers "
+                                     f"{call['int8_gathers']}, derived {want}")
+        first = calls[0]
+        for kind, n in first["rank_bytes"].items():
+            rec["bytes"].setdefault(kind, {})["rank"] = n
+        # two moments per trainable fp32 element, in the moments' dtype
+        ratio = 2 * first["moment_itemsize"] / 4
+        rec["bytes"]["adam_moments"].update(
+            rule=ratio * rec["bytes"]["trainable"]["rule"],
+            whole=ratio * rec["bytes"]["trainable"]["whole"])
+        rec["bytes"]["gradients"] = {"rank": first.get("gradient_bytes"),
+                                     "rule": rec["bytes"]["trainable"]["rule"],
+                                     "whole": rec["bytes"]["trainable"]["whole"]}
+        rec.update({k: first[k] for k in (
+            "setup_peak_gib", "resident_before_steps_gib", "peak_gib",
+            "s_per_step", "forward_end_allocated_gib", "forward_peak_gib",
+            "most_decoder_layers_unsharded", "launches",
+            "int8_gathers", "int8_gathers_per_step_derived", "checkpoint")
+            if k in first})
+        rec["launches_per_step_derived"] = per_micro
+        if resumed:
+            rec["resumed"] = {k: calls[1][k] for k in (
+                "setup_peak_gib", "peak_gib", "checkpoint")}
+    except torch.cuda.OutOfMemoryError as e:
+        rec["out_of_memory"] = str(e).splitlines()[0][:300]
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / gib
+        rec["calls"] = [{k: v for k, v in c.items()
+                         if k not in ("hooks", "t0")} for c in calls]
+    finally:
+        loop.place_state_, loop.save_checkpoint = place, save
+        write()
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_fsdp_memory(card: str, seed: int) -> tuple:
+    """Phase 20: each of FSDP_MEMORY_RUNS in a child process
+    (:func:`fsdp_memory_child`), one after the other; fails if any run
+    ran out of memory or failed. Returns (records, launches by path)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="vla_fsdp_mem_")
+    recs, paths, failed = [], {}, []
+    try:
+        for i, (vla_id, world, *_) in enumerate(FSDP_MEMORY_RUNS):
+            out = os.path.join(tmp, f"run{i}.json")
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   "--fsdp-memory-child", out,
+                                   "--fsdp-memory-run", str(i),
+                                   "--seed", str(seed)], cwd=HERE,
+                                  timeout=600, stdout=subprocess.DEVNULL)
+            rec = json.load(open(out)) if os.path.exists(out) else {
+                "recipe": vla_id, "ranks": world, "stage": "no record"}
+            rec["exit_code"] = proc.returncode
+            recs.append(rec)
+            print("fsdp_memory " + json.dumps(dict(rec, card=card)),
+                  flush=True)
+            if proc.returncode != 0 or "out_of_memory" in rec:
+                failed.append(f"{vla_id} at {world} ranks: exit "
+                              f"{proc.returncode}, stage {rec.get('stage')}")
+                continue
+            tag = "finetune_fsdp%d_%s" % (world, "lora" if rec["lora"]
+                                          else "full")
+            paths[tag] = {k: v // FSDP_MEMORY_STEPS
+                          for k, v in rec["launches"].items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise AssertionError(f"phase 20: {failed}")
+    return recs, paths
+
+
+def fsdp_memory_phase(card: str, seed: int, lap) -> tuple:
+    """Phase 20, lapped: (records, launches by path)."""
+    t0 = time.perf_counter()
+    recs, paths = phase_fsdp_memory(card, seed)
+    for rec in recs:
+        b = rec["bytes"]
+        resumed = rec.get("resumed")
+        print(f"fsdp_memory {rec['recipe']} rank {rec['rank']} of "
+              f"{rec['ranks']}: peak {rec['peak_gib']:.2f} GiB in the steps "
+              f"(set-up {rec['setup_peak_gib']:.2f}, checkpoint "
+              f"{rec['checkpoint']['peak_gib']:.2f} in "
+              f"{rec['checkpoint']['s']:.1f} s"
+              + (f"; resumed: set-up {resumed['setup_peak_gib']:.2f}, step "
+                 f"{resumed['peak_gib']:.2f}, checkpoint "
+                 f"{resumed['checkpoint']['peak_gib']:.2f}"
+                 if resumed else "") + "), "
+              + ", ".join(f"{k} {b[k]['rank'] / 2**30:.3f} GiB (rule "
+                          f"{b[k]['rule'] / 2**30:.3f}, whole "
+                          f"{b[k]['whole'] / 2**30:.3f})"
+                          for k in ("trainable", "gradients", "frozen_float",
+                                    "int8_base")
+                          if b[k].get("whole"))
+              + f", Adam moments {b['adam_moments']['rank'] / 2**30:.3f} GiB"
+              f"; decoder layers unsharded at most "
+              f"{rec['most_decoder_layers_unsharded']} of "
+              f"{rec['decoder_layers']} ({card}; {FSDP_MEMORY_NOTE})",
+              flush=True)
+    print(f"phase 20 seconds: {time.perf_counter() - t0:.1f} ({card})",
+          flush=True)
+    lap("20 fsdp memory")
+    return recs, paths
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -6417,7 +6974,7 @@ def main() -> int:
                         help="also profile one B=1 request per tier, eager "
                              "and replayed (torch.profiler)")
     parser.add_argument("--only", default="",
-                        help="comma-separated phases among 12-19 to run "
+                        help="comma-separated phases among 12-20 to run "
                              "after the build, skipping phases 2-11; such a "
                              "partial run prints no kernels or ok line")
     # phase 18's training under a process group runs in a child process
@@ -6427,10 +6984,14 @@ def main() -> int:
     parser.add_argument("--tensor-child", help=argparse.SUPPRESS)
     parser.add_argument("--tensor-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--tensor-port", type=int, help=argparse.SUPPRESS)
+    # and phase 20's runs in child processes started with these two
+    parser.add_argument("--fsdp-memory-child", help=argparse.SUPPRESS)
+    parser.add_argument("--fsdp-memory-run", type=int,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     only = {int(p) for p in args.only.split(",") if p}
-    if only - {12, 13, 14, 15, 16, 17, 18, 19}:
-        parser.error(f"--only takes phases among 12-19, got {args.only}")
+    if only - set(range(12, 21)):
+        parser.error(f"--only takes phases among 12-20, got {args.only}")
 
     sys.path.insert(0, HERE)
     import torch
@@ -6452,6 +7013,10 @@ def main() -> int:
     if args.tensor_child:
         tensor_train_child(args.tensor_rank, args.tensor_port,
                            args.tensor_child, args.seed)
+        return 0
+    if args.fsdp_memory_child:
+        fsdp_memory_child(args.fsdp_memory_child, args.seed,
+                          args.fsdp_memory_run)
         return 0
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
@@ -6500,6 +7065,9 @@ def main() -> int:
 
             causal["tensor"], _ = tensor_phase(VLAConfig(), card, args.seed,
                                                lap)
+        if 20 in only:
+            causal["fsdp_memory"], _ = fsdp_memory_phase(card, args.seed,
+                                                         lap)
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"card": card, "phase_s": phase_s, **causal}, f,
@@ -6593,6 +7161,10 @@ def main() -> int:
     # B1/B1-bwd at each rank's heads, the recipe at tensor 2 on two ranks
     tensor, tensor_launches = tensor_phase(cfg, card, args.seed, lap,
                                            reference=train["main"])
+
+    # 20. "fsdp" memory: rank 0 of the 7B full-train recipe at 8 ranks and
+    # of the flagship LoRA recipe at 4, under the fake process group
+    fsdp_memory, fsdp_paths = fsdp_memory_phase(card, args.seed, lap)
     kernels = (kernel_summary(records, launches)
                + w8a8_kernel_summary(w8a8_records, w8a8_launches)
                + megalayer_kernel_summary(w8a8_records, w8a8_launches)
@@ -6602,7 +7174,7 @@ def main() -> int:
              "server": server_launches, "original_film": original_launches,
              "train": train_launches, **causal["launches_by_path"],
              **zoo_paths, "finetune_rlds": rlds_launches, **eval_paths,
-             "finetune_tensor": tensor_launches}
+             "finetune_tensor": tensor_launches, **fsdp_paths}
     for entry in kernels:
         entry["launches_by_path"] = {path: counts.get(entry["name"], 0)
                                      for path, counts in paths.items()}
@@ -6617,6 +7189,7 @@ def main() -> int:
                        "train": train, "attention_bwd_shapes": bwd_records,
                        **causal, "zoo": zoo, "finetune_rlds": rlds,
                        "eval_group": eval_group, "tensor": tensor,
+                       "fsdp_memory": fsdp_memory,
                        "kernels": kernels, "phase_s": phase_s}, f, indent=1)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

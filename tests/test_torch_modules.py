@@ -29,6 +29,7 @@ from vla_adapter_tpu.models.action_head import (
 )
 from vla_adapter_tpu.models.projector import (
     FusedProjector as JaxFusedProjector,
+    NoisyActionProjector as JaxNoisyActionProjector,
     Projector as JaxProjector,
     ProprioProjector as JaxProprioProjector,
 )
@@ -37,7 +38,10 @@ from vla_adapter_tpu.models.vit import VisionTransformer as JaxViT
 from vla_adapter_tpu.models.vla import VLAModel as JaxVLA
 from vla_adapter_tpu.ops import rope as jrope
 from vla_adapter_torch.models import layers as tlayers
-from vla_adapter_torch.models.projector import Projector
+from vla_adapter_torch.models.projector import (
+    NoisyActionProjector,
+    Projector,
+)
 from vla_adapter_torch.models.vla import VLAModel
 from vla_adapter_torch.ops import rope as trope
 from vla_adapter_torch.weights.from_jax import from_jax_params
@@ -223,6 +227,25 @@ def test_single_tower_projector_matches_jax():
     port.load_state_dict(state)
     with torch.no_grad():
         got = port(torch.from_numpy(patches))
+    _close(got, want)
+
+
+def test_noisy_action_projector_matches_jax():
+    """The diffusion path's projector, (B, T, 1) noisy action scalars ->
+    (B, T, llm), fp32, its weights carried by from_jax_params."""
+    rng = np.random.default_rng(9)
+    noisy = rng.normal(size=(2, 56, 1)).astype(np.float32)
+    module = JaxNoisyActionProjector(64, rt=jlayers.FP32_RUNTIME)
+    jp = jax.jit(module.init)(jax.random.key(2), jnp.asarray(noisy))["params"]
+    jp = jax.tree.map(lambda a: a + 0.05 * jax.random.normal(
+        jax.random.key(3), a.shape), jp)   # non-zero biases
+    want = module.apply({"params": jp}, jnp.asarray(noisy))
+    port = NoisyActionProjector(64, tlayers.FP32_RUNTIME, device="cpu")
+    port.load_state_dict(from_jax_params(jax.device_get(jp), TCFG),
+                         strict=True)
+    with torch.no_grad():
+        got = port(torch.from_numpy(noisy))
+    assert got.shape == (2, 56, 64)
     _close(got, want)
 
 

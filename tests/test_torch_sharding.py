@@ -6,8 +6,14 @@ against the JAX package's train step are test_torch_sharded_training.py's.
   tensor of the tiny VLA, float and train_base_int8 trees, mapped through
   from_jax's names and transposes;
 * per-process seeds and local batch sizes against the JAX package's;
-* one rank under "data" and under FSDP2, the head noise drawn as the
-  recipe draws it, bit for bit with no group;
+* one rank under "data" and under FSDP2 (a group per decoder layer, the
+  int8 base held and gathered as parts), the head noise drawn as the
+  recipe draws it, bit for bit with no group, weight-only and
+  straight-through;
+* 2 ranks on "fsdp": an int8 weight cut on its out dim and, where that
+  does not divide, on its in dim, bit for bit with the whole one; the
+  decoder layers held unsharded at most two at once in the forward, the
+  recompute and the backward; the int8 gathers as derived;
 * eval_calvin's chains split over 2 ranks and gathered in rank order;
 * the "tensor" axis refused, naming its ROADMAP item.
 
@@ -188,6 +194,66 @@ def test_one_rank_group_equals_no_group(tmp_path):
         assert rec[key][0] == rec["alone"][0], key
         for n, v in rec["alone"][1].items():
             assert torch.equal(rec[key][1][n], v), (key, n)
+
+
+def test_one_rank_group_equals_no_group_ste(tmp_path):
+    """As test_one_rank_group_equals_no_group, every frozen Dense on the
+    straight-through w8a8 product (act_int8_min_dim 1): under FSDP2 each
+    layer gathers its int8 weights for the forward and their transposed
+    copies for dx."""
+    (rec,) = worker.wait(*worker.start(tmp_path, "one_rank", 1, "fsdp_ste"))
+    assert rec["fsdp_dtensors"] > 200 and rec["ste"] > 30
+    assert rec["int8_gathers"]["backward"] > 0
+    for key in ("data", "fsdp"):
+        assert rec[key][0] == rec["alone"][0], key
+        for n, v in rec["alone"][1].items():
+            assert torch.equal(rec[key][1][n], v), (key, n)
+
+
+@pytest.fixture(scope="module")
+def fsdp_layers(tmp_path_factory):
+    return _spawn(tmp_path_factory.mktemp("layers"), "fsdp_layers", 2)
+
+
+@pytest.mark.parametrize("case", ["int8/7", "ste/7", "int8/8", "ste/8"])
+def test_int8_parts_on_the_rule_dim(fsdp_layers, case):
+    """A Dense's int8 weight on 2 "fsdp" ranks: (7, 32) on its in dim (7
+    does not divide), (8, 32) on its out dim, weight-only and
+    straight-through (whose transposed copy is cut on its dim 0); each
+    rank's parts are the whole tensors' slices, and the forward, dx and
+    LoRA gradients equal the whole Dense's bit for bit."""
+    n = int(case.split("/")[1])
+    ste = case.startswith("ste")
+    for rank, rec in enumerate(fsdp_layers):
+        pair = rec["dense"][case]
+        want_dims = {"fc.weight_q": 1 if n % 2 else 0}
+        if ste:
+            want_dims["fc.weight_qt"] = 0
+        assert pair["dims"] == want_dims
+        for name, dim in pair["dims"].items():
+            whole = pair["whole_int8"][name.split(".")[1]]
+            assert torch.equal(pair["parts"][name],
+                               whole.chunk(2, dim=dim)[rank]), name
+        for key, want in pair["whole"].items():
+            assert torch.equal(pair["cut"][key], want), (rank, case, key)
+
+
+def test_decoder_layer_groups_and_int8_gathers(fsdp_layers):
+    """The tiny recipe with 4 decoder layers on 2 "fsdp" ranks, every
+    frozen Dense straight-through: each layer is an FSDP2 group of its
+    own, at most two are unsharded at once in the forward, the recompute
+    and the backward (each phase probed), and the int8 gathers of the step
+    are those chip_smoke.expected_int8_gathers derives."""
+    for rec in fsdp_layers:
+        assert rec["layers"] == rec["decoder_layers"] == \
+            worker.PROBE_LAYERS
+        assert set(rec["most"]) == {"forward", "recompute", "backward"}
+        assert all(1 <= n <= 2 for n in rec["most"].values()), rec["most"]
+        gathers = {k: v for k, v in rec["gathers"].items()
+                   if k != "checkpoint"}
+        assert gathers == rec["expected"]
+        assert rec["expected"]["backward"] > 0 and rec["ste"] > 50
+        assert rec["loss"] == fsdp_layers[0]["loss"]
 
 
 def test_eval_calvin_gathers_chains_in_rank_order(tmp_path):

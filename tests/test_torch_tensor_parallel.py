@@ -33,6 +33,12 @@ CPU over gloo.
   the checkpoint loaded by one process, and each rank's parts of the
   frozen base equal to ``param_pspec``'s slices of the whole quantized
   tensors.
+* The straight-through recipe also on (1, 2, 1) and (2, 2, 1) ("fsdp"
+  and HSDP, no tensor split), held as the "_ste" tensor meshes are. On
+  every mesh with an "fsdp" dim each rank holds only its parts of the
+  int8 base on "fsdp" (``weight_q``, ``weight_qt`` and a row split's
+  ``weight_qk``; on (1, 2, 2) a column split's ``weight_q`` on its in
+  dim): test_torch_sharded_training's ``hold_int8_placement``.
 * A tensor group's ranks draw the same rows, other ("data", "fsdp")
   coordinates other rows.
 
@@ -59,12 +65,13 @@ from tests.test_torch_sharded_training import (
     TENSOR_ATOL,
     _jax_runtime,
     _reference_init,
+    hold_int8_placement,
 )
 from vla_adapter_torch.parallel import sharding as tsh
 from vla_adapter_torch.weights.from_jax import from_jax_params
 
 TENSOR_MODES = ("tp2", "tp4", "dp_tp", "fsdp_tp", "tp2_ste", "tp4_ste",
-                "dp_tp_ste", "fsdp_tp_ste")
+                "dp_tp_ste", "fsdp_tp_ste", "fsdp_ste", "hsdp_ste")
 # fp32 sums over the group in another order than the unsplit product's,
 # relative to the largest value compared: a few ulps of 2^-24 per term
 DENSE_RTOL = 1e-6
@@ -322,7 +329,7 @@ def test_tensor_mesh_training_matches_jax_and_one_process(
         assert rec["losses"] == first["losses"]
         for n, v in rec["trained"].items():
             assert torch.equal(first["trained"][n], v), (r, n)
-    assert first["tensor_dims"], "nothing was split"
+    assert bool(first["tensor_dims"]) == (shape[2] > 1), "the split"
     ste = mode in worker.ACT_INT8_MIN_DIM
     assert (first["ste"] > 0) == ste, (mode, first["ste"])
     jax_run = jax_runs[mode]
@@ -472,3 +479,21 @@ def test_tensor_axis_needs_a_process_group(tmp_path):
     cfg = worker.train_cfg(tmp_path, "t", mode="tp2")
     with pytest.raises(ValueError, match="process group"):
         finetune(cfg, device="cpu", max_steps=1)
+
+
+@pytest.mark.parametrize("mode", ["fsdp_tp", "fsdp_tp_ste", "fsdp_ste",
+                                  "hsdp_ste"])
+def test_int8_placement_is_param_pspec(reference, ranks, mode):
+    """On an "fsdp" dim each rank's int8 base is ``param_pspec``'s part
+    (after the tensor split): ``weight_q``, and under the straight-through
+    product ``weight_qt`` and a row split's ``weight_qk``; on (1, 2, 2)
+    some column split's ``weight_q`` is cut on its in dim."""
+    root, _, _ = reference
+    recs = _ranks(ranks, mode)
+    leaves = hold_int8_placement(recs, root, mode)
+    ste = mode in worker.ACT_INT8_MIN_DIM
+    assert ("weight_qt" in leaves) == ste
+    assert ("weight_qk" in leaves) == (ste and mode.startswith("fsdp_tp"))
+    if mode.startswith("fsdp_tp"):
+        assert any(n.endswith(".weight_q") and d == 1
+                   for n, (d, _) in recs[0]["int8_parts"]["tensors"].items())

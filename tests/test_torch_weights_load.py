@@ -221,6 +221,53 @@ def test_safetensors_writer_is_read_by_the_package(tmp_path, dtype):
     _assert_states_equal(got, tensors)
 
 
+def test_safetensors_streamed_writer_equals_the_whole_one(tmp_path):
+    """``write_file`` from specs and tensors made one at a time (in name
+    order, as a sharded checkpoint gathers them) writes the bytes
+    ``save_file`` writes from the whole dict, and drops each tensor before
+    it asks for the next."""
+    tensors = _tensors(torch.float32)
+    names = sorted(tensors)
+    specs = {n: (tensors[n].dtype, tuple(tensors[n].shape)) for n in names}
+    alive = []
+
+    def made():
+        import weakref
+
+        for n in names:
+            assert not any(ref() is not None for ref in alive), n
+            t = tensors[n].clone()
+            alive.append(weakref.ref(t))
+            yield t
+            del t
+
+    streamed = safetensors_io.write_file(specs, made(),
+                                         tmp_path / "s.safetensors")
+    whole = safetensors_io.save_file(tensors, tmp_path / "w.safetensors")
+    assert streamed.read_bytes() == whole.read_bytes()
+    got = safetensors_torch.load_file(streamed)
+    _assert_states_equal(got, tensors)
+
+
+@pytest.mark.parametrize("case", ["shape", "dtype", "short", "long"])
+def test_safetensors_streamed_writer_refuses_what_its_header_does_not_say(
+        tmp_path, case):
+    tensors = {"a": torch.ones(4, 3), "b": torch.zeros(5)}
+    specs = {n: (t.dtype, tuple(t.shape)) for n, t in tensors.items()}
+    made = [tensors["a"], tensors["b"]]
+    if case == "shape":
+        made[1] = torch.zeros(6)
+    elif case == "dtype":
+        made[1] = torch.zeros(5, dtype=torch.float16)
+    elif case == "short":
+        made = made[:1]
+    else:
+        made.append(torch.ones(1))
+    with pytest.raises(ValueError, match="header"):
+        safetensors_io.write_file(specs, iter(made),
+                                  tmp_path / "a.safetensors")
+
+
 def test_safetensors_reader_refuses_a_truncated_file(tmp_path):
     path = safetensors_io.save_file({"w": torch.ones(64)},
                                     tmp_path / "a.safetensors")

@@ -38,7 +38,8 @@ GLOBAL_BATCH = 8
 MODES = {"data": (-1, 1, 1), "fsdp": (1, 2, 1), "hsdp": (2, 2, 1),
          "tp2": (1, 1, 2), "tp4": (1, 1, 4), "dp_tp": (2, 1, 2),
          "fsdp_tp": (1, 2, 2), "tp2_ste": (1, 1, 2), "tp4_ste": (1, 1, 4),
-         "dp_tp_ste": (2, 1, 2), "fsdp_tp_ste": (1, 2, 2)}
+         "dp_tp_ste": (2, 1, 2), "fsdp_tp_ste": (1, 2, 2),
+         "fsdp_ste": (1, 2, 1), "hsdp_ste": (2, 2, 1)}
 # the Runtime's act_int8_min_dim of a mode's recipe where it is not the
 # default (256, above every width of the tiny model: each frozen int8
 # Dense takes the weight-only upcast): at 1 every one trains through the
@@ -192,9 +193,33 @@ def checkpoint_layout(ckpt) -> dict:
     return out
 
 
+def int8_record(state) -> dict:
+    """This rank's int8 tensors of the model as placed: {name: (the dim
+    its "fsdp" part is cut on, or None for a whole one, the tensor)} for
+    every Dense's ``weight_q`` and, under the straight-through product,
+    its ``weight_qt`` and a row split's ``weight_qk``; and the rank's
+    "fsdp" coordinate."""
+    from vla_adapter_torch.models.layers import Dense
+
+    out = {}
+    for mod_name, m in state.model.named_modules():
+        if not isinstance(m, Dense) or not m.rt.weights_int8:
+            continue
+        dims = m.int8_parts.dims if m.int8_parts is not None else {}
+        for leaf in ("weight_q", "weight_qt", "weight_qk"):
+            t = getattr(m, leaf, None)
+            if t is not None:
+                out[f"{mod_name}.{leaf}"] = (dims.get(leaf),
+                                             t.detach().clone())
+    mesh = state.sharding.mesh
+    return {"tensors": out,
+            "fsdp_rank": mesh["fsdp"].get_local_rank(),
+            "tensor_rank": mesh["tensor"].get_local_rank()}
+
+
 def train_scenario(args, init) -> dict:
     tensor = MODES[args.mode][2]
-    if tensor > 1:
+    if tensor > 1 or args.mode in ACT_INT8_MIN_DIM:
         return tensor_scenario(args, init)
     world, rank = args.world, args.rank
     root = Path(args.out) / "runs"
@@ -213,9 +238,7 @@ def train_scenario(args, init) -> dict:
     out["sharded"] = sorted(state.sharding.fsdp_dims)
     out["dtensors"] = sorted(n for n, p in state.model.named_parameters()
                              if type(p).__name__ == "DTensor")
-    int8 = [p for p in state.model.parameters() if p.dtype == torch.int8]
-    out["int8"] = (len(int8), sum(type(p).__name__ == "Parameter"
-                                  for p in int8))
+    out["int8_parts"] = int8_record(state)
     # one step, a checkpoint under the group, then a resume to step 2
     cfg_b = dataclasses.replace(cfg, run_id=f"{args.mode}-resumed")
     run(cfg_b, mine, 1, init)
@@ -230,9 +253,11 @@ def train_scenario(args, init) -> dict:
 
 
 def tensor_scenario(args, init) -> dict:
-    """A mesh with a "tensor" dim: the 2-step run over this rank's rows
-    (those of its ("data", "fsdp") coordinate) and its checkpoint's
-    layout; on "tp2" also the split Denses (:func:`split_dense_records`),
+    """A mesh with a "tensor" dim, or a straight-through recipe ("_ste"):
+    the 2-step run over this rank's rows (those of its ("data", "fsdp")
+    coordinate), its checkpoint's layout and its int8 tensors as placed
+    (:func:`int8_record`); on "tp2" also the split Denses
+    (:func:`split_dense_records`),
     each rank's parts of the frozen base, a checkpoint written under the
     group and resumed on it, and 2-way accumulation."""
     from vla_adapter_torch.utils.overwatch import process_count, process_index
@@ -257,6 +282,7 @@ def tensor_scenario(args, init) -> dict:
     out["tensor_dims"] = dict(sh.tensor_dims)
     out["partial"] = sorted(sh.tensor_partial)
     out["fsdp_dims"] = dict(sh.fsdp_dims)
+    out["int8_parts"] = int8_record(state)
     if args.mode != "tp2":
         return out
     local = {n: p.detach().clone() for n, p in
@@ -375,27 +401,159 @@ def split_dense_records(m: int = 6, k: int = 32, n: int = 40,
     return out
 
 
+# the "fsdp_layers" scenario's decoder depth: more layers than FSDP2 may
+# hold unsharded at once
+PROBE_LAYERS = 4
+
+
+def int8_dense_records(m: int = 6, k: int = 32, seed: int = 11) -> dict:
+    """The int8 weight of a Dense (with LoRA and bias) cut over the world
+    ("fsdp", the ranks of the group) on the dim the rule picks: (7, k),
+    whose out dim 7 does not divide, on its in dim; (8, k) on its out
+    dim; each weight-only and straight-through (act_int8_min_dim 1),
+    beside the whole Dense of the same weights: the forward, dx and the
+    LoRA gradients, the dims the parts took and this rank's parts."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from vla_adapter_torch.models.layers import (
+        FP32_RUNTIME,
+        Dense,
+        prepare_ste_,
+    )
+    from vla_adapter_torch.models.quantize import quantize_weight
+    from vla_adapter_torch.parallel import sharding
+
+    world = dist.get_world_size()
+    mesh = DeviceMesh("cpu", list(range(world)), mesh_dim_names=("fsdp",))
+    rng = np.random.default_rng(seed)
+    out = {}
+    for n in (7, 8):
+        weight = torch.from_numpy(
+            rng.normal(size=(n, k)).astype(np.float32) / np.sqrt(k))
+        tensors = dict(zip(("weight_q", "weight_scale"),
+                           quantize_weight(weight)))
+        tensors.update(
+            bias=torch.from_numpy(rng.normal(size=n).astype(np.float32)),
+            lora_a=torch.from_numpy(rng.normal(size=(k, 4))
+                                    .astype(np.float32)),
+            lora_b=torch.from_numpy(rng.normal(size=(4, n))
+                                    .astype(np.float32)))
+        x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+        g = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
+        for branch in ("int8", "ste"):
+            rt = dataclasses.replace(
+                FP32_RUNTIME, lora_rank=4, lora_scale=2.0, weights_int8=True,
+                act_int8=branch == "ste", act_int8_min_dim=1,
+                train_base_int8=branch == "ste")
+            pair = {}
+            for cut in (False, True):
+                holder = torch.nn.Module()
+                holder.fc = dense = Dense(k, n, rt=rt)
+                with torch.no_grad():
+                    for name, t in tensors.items():
+                        getattr(dense, name).copy_(t)
+                for name in ("bias", "lora_a", "lora_b"):
+                    getattr(dense, name).requires_grad_(True)
+                prepare_ste_(holder)
+                if cut:
+                    spec = sharding.param_pspec(
+                        "fc.weight_q", (n, k), world, min_fsdp_size=1,
+                        layout="transposed")
+                    pair["dims"] = sharding.shard_int8_(
+                        holder, {"fc.weight_q": spec.index("fsdp")}, mesh)
+                    pair["parts"] = {
+                        name: getattr(dense, name.split(".")[1]).detach()
+                        .clone() for name in pair["dims"]}
+                xin = x.clone().requires_grad_(True)
+                y = dense(xin)
+                (y * g).sum().backward()
+                pair["cut" if cut else "whole"] = {
+                    "y": y.detach(), "dx": xin.grad.detach(),
+                    **{name: getattr(dense, name).grad.clone()
+                       for name in ("bias", "lora_a", "lora_b")}}
+            pair["whole_int8"] = {"weight_q": tensors["weight_q"],
+                                  "weight_qt": tensors["weight_q"].t()}
+            out[f"{branch}/{n}"] = pair
+    return out
+
+
+def fsdp_layers_scenario(args) -> dict:
+    """2 ranks on "fsdp": :func:`int8_dense_records`, then one step of the
+    tiny recipe with PROBE_LAYERS decoder layers, every frozen Dense
+    straight-through (act_int8_min_dim 1), its decoder layers watched by
+    ``chip_smoke.UnshardedLayers`` and its int8 gathers counted
+    beside those ``chip_smoke.expected_int8_gathers`` derives."""
+    import chip_smoke
+    from vla_adapter_torch.parallel import fsdp_int8, sharding
+    from vla_adapter_torch.train import loop
+
+    out = {"dense": int8_dense_records()}
+    cfg = train_cfg(Path(args.out) / "runs", "layers", "fsdp", steps=1)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, llm=dataclasses.replace(cfg.model.llm,
+                                           num_layers=PROBE_LAYERS)))
+    seen = {}
+    place = loop.place_state_
+
+    def watched(state, sh, tx=None):
+        place(state, sh, tx)
+        seen["probe"] = chip_smoke.UnshardedLayers(state.model).__enter__()
+        seen["expected"] = chip_smoke.expected_int8_gathers(state.model)
+        fsdp_int8.reset_gathers()
+        return state
+
+    loop.place_state_ = watched
+    try:
+        state = loop.finetune(
+            cfg, data_iter=itertools.repeat(rows(global_batch(cfg, 1),
+                                                 args.rank, args.world, 1)),
+            max_steps=1, device="cpu", rt=dataclasses.replace(
+                loop.build_runtime(cfg), dtype=torch.float32,
+                act_int8_min_dim=STE_MIN_DIM))
+    finally:
+        loop.place_state_ = place
+        if "probe" in seen:
+            seen["probe"].__exit__()
+    probe = seen["probe"]
+    out.update(most=probe.most, layers=len(probe.layers),
+               decoder_layers=len(sharding.decoder_layers(state.model)),
+               gathers=dict(fsdp_int8.GATHERS), expected=seen["expected"],
+               ste=sum(getattr(m, "ste", False)
+                       for m in state.model.modules()),
+               loss=state.history[0]["loss"])
+    return out
+
+
 def one_rank_runs(args, init) -> dict:
     """One process, the head noise drawn as the recipe draws it: 2 steps
     without a group, then under a one-rank group on "data" and under
-    FSDP2 on a one-rank "fsdp" mesh (its collectives run on one rank)."""
+    FSDP2 on a one-rank "fsdp" mesh (its collectives run on one rank;
+    the int8 gathers counted), at the mode's act_int8_min_dim."""
     from vla_adapter_torch.parallel import sharding
     from vla_adapter_torch.parallel.sharding import initialize_distributed
+
+    from vla_adapter_torch.parallel import fsdp_int8
 
     root = Path(args.out) / "runs"
     cfg = train_cfg(root, "alone")
     batch = global_batch(cfg, 1)
-    out = {"alone": run(cfg, batch, 2, init)[:2]}
+    min_dim = ACT_INT8_MIN_DIM.get(args.mode)
+    out = {"alone": run(cfg, batch, 2, init, min_dim=min_dim)[:2]}
     initialize_distributed(f"tcp://localhost:{args.port}", 1, 0,
                            device="cpu")
     out["data"] = run(dataclasses.replace(cfg, run_id="data"), batch, 2,
-                      init)[:2]
+                      init, min_dim=min_dim)[:2]
     sharding.MIN_FSDP_RANKS = 1
+    fsdp_int8.reset_gathers()
     losses, trained, state = run(dataclasses.replace(cfg, run_id="fsdp"),
-                                 batch, 2, init)
+                                 batch, 2, init, min_dim=min_dim)
     out["fsdp"] = (losses, trained)
     out["fsdp_dtensors"] = sum(type(p).__name__ == "DTensor"
                                for p in state.model.parameters())
+    out["int8_gathers"] = dict(fsdp_int8.GATHERS)
+    out["ste"] = sum(getattr(m, "ste", False)
+                     for m in state.model.modules())
     return out
 
 
@@ -408,6 +566,7 @@ def single_process_runs(root, init, min_dim=None) -> dict:
         cfg, global_batch(cfg, 1), 2, init, min_dim=min_dim)
     out["first_grads"] = state.first_grads
     out["checkpoint"] = checkpoint_layout(Path(root) / "single" / "latest")
+    out["checkpoint_dir"] = Path(root) / "single" / "latest"
     cfg_a = train_cfg(root, "single-accum", accum=2, steps=1)
     out["accum_losses"], out["accum_trained"], _ = run(
         cfg_a, global_batch(cfg_a, 2), 1, init, min_dim=min_dim)
@@ -499,7 +658,7 @@ def calvin_scenario(args) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--scenario", choices=("train", "calvin",
-                                               "one_rank"))
+                                               "one_rank", "fsdp_layers"))
     parser.add_argument("--mode", choices=tuple(MODES), default="data")
     parser.add_argument("--world", type=int)
     parser.add_argument("--rank", type=int)
@@ -528,6 +687,8 @@ def main() -> None:
             vla.head_noise = fixed_head_noise(
                 np.load(Path(args.ref) / "noise.npy"))
             result = train_scenario(args, init)
+        elif args.scenario == "fsdp_layers":
+            result = fsdp_layers_scenario(args)
         else:
             result = calvin_scenario(args)
     torch.save(result, Path(args.out) / f"rank{args.rank}.pt")

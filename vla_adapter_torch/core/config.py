@@ -310,14 +310,16 @@ class TrainConfig:
     batch_size: int = 16          # global batch
     grad_accumulation_steps: int = 1
     seed: int = 42
-    # The JAX package's mesh axes; the port trains on one device and
-    # refuses any other layout (train/loop.py).
+    # The JAX package's mesh axes (data, fsdp, tensor): one process per
+    # card under a process group (parallel/sharding.py); in one process
+    # only fsdp_axis = tensor_axis = 1 (train/loop.py).
     data_axis: int = -1
     fsdp_axis: int = 1
     tensor_axis: int = 1
     remat_llm: bool = True        # recompute each layer in the backward
-    # "nothing" (recompute the whole layer) or "attn_only" (the attention
-    # half only); "dots", "dots_no_batch" and "mlp_saved" are not ported.
+    # "nothing" (recompute the whole layer), "attn_only" (the attention
+    # half only), or "dots", "dots_no_batch", "mlp_saved" (keep some of
+    # the layer's products: models/layers.py:remat).
     remat_policy: str = "nothing"
     # Per-component overrides, ((component, policy), ...).
     remat_policy_overrides: Tuple[Tuple[str, str], ...] = ()

@@ -4,8 +4,9 @@ the reference's prismatic/conf/vla.py).
 Named recipes binding a vision and an LLM backbone (ids resolved by
 ``models/registry.py``), a data mixture and the training
 hyperparameters. ``expected_devices`` is the device count a recipe was
-tuned for (the reference's ``expected_world_size``); the port trains on
-one device and takes the recipe's global batch from the caller.
+tuned for (the reference's ``expected_world_size``): the port trains on
+any number of cards, one process each (``parallel/sharding.py``), and
+warns when the count differs; the global batch is the caller's.
 """
 
 from __future__ import annotations

@@ -45,6 +45,7 @@ from vla_adapter_torch.ops.w8a8_matmul import (
     w8a8_linear,
     w8a8_linear_reference,
 )
+from vla_adapter_torch.parallel.fsdp_int8 import Int8Parts, take_part
 from vla_adapter_torch.parallel.tensor import (
     TensorGroup,
     all_max_,
@@ -302,6 +303,39 @@ def _w8a8_ste(x, weight_q, weight_scale, kernels: str) -> torch.Tensor:
 _OPS.impl("w8a8_ste", _w8a8_ste, "CompositeExplicitAutograd")
 
 
+def _ste_dx(dy, weight_q, weight_scale, weight_qt, kernels):
+    """:class:`W8A8STE`'s dx: ``dys = dy.f32 * weight_scale``, quantized
+    per row, against the ``(in, out)`` int8 ``weight_qt`` (``weight_q.t()``
+    where there is none, on the CPU) with unit column scales."""
+    lead, n = dy.shape[:-1], dy.shape[-1]
+    dys = dy.reshape(-1, n).float() * weight_scale.float()
+    k = weight_q.shape[1] if weight_qt is None else weight_qt.shape[0]
+    ones = torch.ones(k, dtype=torch.float32, device=dy.device)
+    if kernels == "plain" or dy.device.type == "cpu":
+        w = weight_q.t() if weight_qt is None else weight_qt
+        dx = w8a8_linear_reference(dys, w, ones, out_dtype=dy.dtype)
+    else:
+        if weight_qt is None:
+            raise ValueError("W8A8STE: no transposed int8 weight on the "
+                             "card (models.layers.prepare_ste_)")
+        dx = w8a8_linear(dys, weight_qt, ones, out_dtype=dy.dtype)
+    return dx.reshape(*lead, k)
+
+
+def _saved_int8(ctx, dense, *tensors):
+    """Save the int8 operands for the backward, or, for a Dense that holds
+    parts of them (``dense``), nothing of them: its backward gathers what
+    it reads again."""
+    ctx.dense = dense
+    ctx.save_for_backward(*(None if dense is not None and t is not None
+                            and not t.is_floating_point() else t
+                            for t in tensors))
+
+
+def _backward_qt(ctx, weight_qt):
+    return weight_qt if ctx.dense is None else ctx.dense.int8("weight_qt")
+
+
 class W8A8STE(torch.autograd.Function):
     """The w8a8 product with a straight-through backward, the training twin
     of the serving path for a frozen int8 base (the JAX package's
@@ -318,31 +352,27 @@ class W8A8STE(torch.autograd.Function):
     copy of the weight that B4 reads as its (N, K) operand
     (:func:`prepare_ste_`), with unit column scales: x 1.0 is exact, so the
     result is the JAX function's bit for bit. The weight and its scale get
-    no gradient."""
+    no gradient. ``dense``: the Dense whose int8 tensors this rank holds in
+    part on "fsdp" (``parallel/fsdp_int8.py``): ``weight_q`` is gathered
+    for the forward and ``weight_qt`` for the backward (the arguments are
+    its parts), and neither whole tensor outlives its product."""
 
     @staticmethod
-    def forward(ctx, x, weight_q, weight_scale, weight_qt, kernels):
-        ctx.save_for_backward(weight_q, weight_scale, weight_qt)
+    def forward(ctx, x, weight_q, weight_scale, weight_qt, kernels,
+                dense=None):
+        _saved_int8(ctx, dense, weight_q, weight_scale, weight_qt)
         ctx.kernels = kernels
+        if dense is not None:
+            weight_q = dense.int8("weight_q")
         return torch.ops.vla_adapter_torch.w8a8_ste(x, weight_q, weight_scale,
                                                     kernels)
 
     @staticmethod
     def backward(ctx, dy):
         weight_q, weight_scale, weight_qt = ctx.saved_tensors
-        lead, n = dy.shape[:-1], dy.shape[-1]
-        dys = dy.reshape(-1, n).float() * weight_scale.float()
-        ones = torch.ones(weight_q.shape[1], dtype=torch.float32,
-                          device=dy.device)
-        if ctx.kernels == "plain" or dy.device.type == "cpu":
-            dx = w8a8_linear_reference(dys, weight_q.t(), ones,
-                                       out_dtype=dy.dtype)
-        else:
-            if weight_qt is None:
-                raise ValueError("W8A8STE: no transposed int8 weight on the "
-                                 "card (models.layers.prepare_ste_)")
-            dx = w8a8_linear(dys, weight_qt, ones, out_dtype=dy.dtype)
-        return dx.reshape(*lead, weight_q.shape[1]), None, None, None, None
+        dx = _ste_dx(dy, weight_q, weight_scale, _backward_qt(ctx, weight_qt),
+                     ctx.kernels)
+        return dx, None, None, None, None, None
 
 
 class RowW8A8STE(torch.autograd.Function):
@@ -354,13 +384,17 @@ class RowW8A8STE(torch.autograd.Function):
     int32 product summed over the group (kernel B4's int32 output on the
     card), then the dequant once: the unsplit product bit for bit.
     Backward: dy is whole, so dx (this rank's columns) is the unsplit
-    backward's against this rank's ``weight_qt``, with no collective."""
+    backward's against this rank's ``weight_qt``, with no collective.
+    ``dense``: as :class:`W8A8STE`'s (``weight_qk`` gathered for the
+    forward)."""
 
     @staticmethod
     def forward(ctx, x, weight_q, weight_scale, weight_qt, weight_qk,
-                kernels, tg):
-        ctx.save_for_backward(weight_q, weight_scale, weight_qt)
+                kernels, tg, dense=None):
+        _saved_int8(ctx, dense, weight_q, weight_scale, weight_qt)
         ctx.kernels = kernels
+        if dense is not None:
+            weight_qk = dense.int8("weight_qk")
         lead, k = x.shape[:-1], x.shape[-1]
         xf = x.reshape(-1, k)
         rs = row_scale(all_max_(xf.float().abs().amax(-1, keepdim=True), tg))
@@ -368,11 +402,11 @@ class RowW8A8STE(torch.autograd.Function):
                            weight_qk, tg, kernels)
         # the unsplit product's dequant (B4's, w8a8_matmul_reference's)
         y = (acc.float() * rs * weight_scale.float()).to(x.dtype)
-        return y.reshape(*lead, weight_q.shape[0])
+        return y.reshape(*lead, weight_qk.shape[0])
 
     @staticmethod
     def backward(ctx, dy):
-        return W8A8STE.backward(ctx, dy)[:5] + (None, None)
+        return W8A8STE.backward(ctx, dy)[:5] + (None, None, None)
 
 
 class ColW8A8STE(torch.autograd.Function):
@@ -384,18 +418,22 @@ class ColW8A8STE(torch.autograd.Function):
     quantized against it, multiplied against this rank's ``weight_qt``
     rows (zero-padded to a K of 16s) in int32 and summed over the group,
     and dequantized once: the whole dx, bit for bit with the unsplit
-    backward, on every rank."""
+    backward, on every rank. ``dense``: as :class:`W8A8STE`'s."""
 
     @staticmethod
-    def forward(ctx, x, weight_q, weight_scale, weight_qt, kernels, tg):
-        ctx.save_for_backward(weight_scale, weight_qt)
+    def forward(ctx, x, weight_q, weight_scale, weight_qt, kernels, tg,
+                dense=None):
+        _saved_int8(ctx, dense, weight_scale, weight_qt)
         ctx.kernels, ctx.tg = kernels, tg
+        if dense is not None:
+            weight_q = dense.int8("weight_q")
         return torch.ops.vla_adapter_torch.w8a8_ste(x, weight_q, weight_scale,
                                                     kernels)
 
     @staticmethod
     def backward(ctx, dy):
         weight_scale, weight_qt = ctx.saved_tensors
+        weight_qt = _backward_qt(ctx, weight_qt)
         lead, n = dy.shape[:-1], dy.shape[-1]
         dys = dy.reshape(-1, n).float() * weight_scale.float()
         rs = row_scale(all_max_(dys.abs().amax(-1, keepdim=True), ctx.tg))
@@ -403,7 +441,7 @@ class ColW8A8STE(torch.autograd.Function):
                            weight_qt, ctx.tg, ctx.kernels)
         dx = (acc.float() * rs).to(dy.dtype)
         return dx.reshape(*lead, weight_qt.shape[0]), None, None, None, \
-            None, None
+            None, None, None
 
 
 @torch.no_grad()
@@ -411,15 +449,19 @@ def prepare_ste_(model: nn.Module) -> int:
     """Give every Dense that trains through :class:`W8A8STE` its
     ``weight_qt``, the ``(in, out)`` copy of its int8 weight that kernel B4
     reads for dx (made from ``weight_q`` as it stands: call after loading
-    or quantizing the frozen base, and after ``shard_model``, which
-    splits it). Under a "tensor" split the int8 operands of a split K are
-    zero-padded to a K of 16s (:func:`ops.w8a8_matmul.pad_k`): a column
-    split's ``weight_qt`` and a row split's ``weight_qk`` (the forward's
-    weight, of which ``weight_q`` becomes the view of its first K
-    columns: one copy). Returns the bytes the copies take."""
+    or quantizing the frozen base; ``parallel.sharding.shard_model`` calls
+    it between the "tensor" split and the "fsdp" one, so that the copies
+    are made from each rank's tensor part and then split on "fsdp"). A
+    Dense that has its copy already keeps it. Under a "tensor" split the
+    int8 operands of a split K are zero-padded to a K of 16s
+    (:func:`ops.w8a8_matmul.pad_k`): a column split's ``weight_qt`` and a
+    row split's ``weight_qk`` (the forward's weight, of which ``weight_q``
+    becomes the view of its first K columns: one copy). Returns the bytes
+    the copies made here take."""
     total = 0
     for module in model.modules():
-        if isinstance(module, Dense) and module.ste:
+        if isinstance(module, Dense) and module.ste \
+                and module.weight_qt is None:
             qt = module.weight_q.detach().t()
             if module.tp_mode == "col":
                 module.weight_qt = pad_k(qt)
@@ -435,6 +477,17 @@ def prepare_ste_(model: nn.Module) -> int:
                         requires_grad=w.requires_grad)
                     total += module.weight_qk.numel() - w.numel()
     return total
+
+
+def layer_input(x: torch.Tensor) -> torch.Tensor:
+    """A decoder layer's input through one autograd node of its own (a
+    view) when it takes a gradient. The layer reads it twice (its residual
+    and its norm) and the hidden-state stack once more; FSDP2 puts a node
+    on the input of each layer group (``parallel.sharding._groups``), at
+    which the layer's two gradients are summed before the stack's is
+    added. This node sums them in that order without a group too, so the
+    two runs stay equal bit for bit."""
+    return x.view_as(x) if x.requires_grad else x
 
 
 def w8a8_product(x: torch.Tensor, weight_q: torch.Tensor,
@@ -510,6 +563,7 @@ class Dense(nn.Module):
         self.tp: TensorGroup = None
         self.tp_mode = None     # None (whole), "col" or "row"
         self.tp_range = None    # [lo, hi) of the split axis
+        self.int8_parts: Int8Parts = None   # the "fsdp" parts, if any
 
     @torch.no_grad()
     def split_(self, mode: str, tg: TensorGroup) -> None:
@@ -533,6 +587,45 @@ class Dense(nn.Module):
             setattr(self, name, nn.Parameter(part.clone(),
                                              requires_grad=p.requires_grad))
         self.tp, self.tp_mode, self.tp_range = tg, mode, (lo, hi)
+
+    @torch.no_grad()
+    def shard_int8_(self, parts: Int8Parts) -> None:
+        """Keep this rank's part of each int8 tensor of ``parts.dims``
+        ("weight_q", "weight_qt", "weight_qk") on the "fsdp" group (after
+        :meth:`split_` and :func:`prepare_ste_`). Every product gathers
+        them again (:meth:`int8`), with the rest of its layer's
+        (``parallel.fsdp_int8.Int8Layer``)."""
+        dims = parts.dims
+        if "weight_qk" in dims and dims["weight_qk"] != dims.get("weight_q"):
+            raise ValueError("weight_qk splits on weight_q's dim")
+        forward = "weight_qk" if "weight_qk" in dims else "weight_q"
+        for name in (forward, "weight_qt"):
+            if name in dims:
+                self.hold_int8_(name, take_part(getattr(self, name),
+                                                dims[name], parts.rank,
+                                                parts.size))
+        self.int8_parts = parts
+
+    def hold_int8_(self, name: str, t: torch.Tensor) -> None:
+        """Hold ``t`` as the int8 tensor ``name``; a row split's
+        ``weight_q`` is the view of its ``weight_qk``'s first K
+        columns."""
+        if name == "weight_qk":
+            k = self.weight_q.shape[1]
+            self.weight_qk = t
+            t, name = t[:, :k], "weight_q"
+        if name == "weight_q":
+            self.weight_q = nn.Parameter(t, requires_grad=False)
+        else:
+            setattr(self, name, t)
+
+    def int8(self, name: str) -> torch.Tensor:
+        """The whole int8 tensor ``name`` ("weight_q", "weight_qt" or
+        "weight_qk"): gathered over "fsdp" where this rank holds a part of
+        it (:meth:`shard_int8_`), else the Dense's own."""
+        if self.int8_parts is None:
+            return getattr(self, name)
+        return self.int8_parts.whole(self, name)
 
     def tensor_partial(self):
         """The whole parameters of which a split Dense uses only a part, so
@@ -575,15 +668,20 @@ class Dense(nn.Module):
             return self._lora(x, y)
         if self.ste:
             y = W8A8STE.apply(x.to(dt), self.weight_q, self.weight_scale,
-                              self.weight_qt, rt.kernels)
+                              self.weight_qt, rt.kernels, self._parts())
         elif rt.w8a8(self.in_features, self.features):
-            y = w8a8_product(x, self.weight_q, self.weight_scale, rt)
+            y = w8a8_product(x, self.int8("weight_q"), self.weight_scale, rt)
         else:  # weight-only: int8 upcast, per-channel scale on the output
-            y = F.linear(x.to(dt), self.weight_q.to(dt)) \
+            y = F.linear(x.to(dt), self.int8("weight_q").to(dt)) \
                 * self.weight_scale.to(dt)
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return self._lora(x, y)
+
+    def _parts(self):
+        """The Dense itself when it holds parts of its int8 tensors (the
+        straight-through Functions gather them), else None."""
+        return None if self.int8_parts is None else self
 
     def _lora(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         if self.rt.lora_rank == 0:
@@ -612,13 +710,14 @@ class Dense(nn.Module):
             if col:
                 y = ColW8A8STE.apply(x.to(dt), self.weight_q,
                                      self.weight_scale, self.weight_qt,
-                                     rt.kernels, tg)
+                                     rt.kernels, tg, self._parts())
             else:
                 y = RowW8A8STE.apply(x.to(dt), self.weight_q,
                                      self.weight_scale, self.weight_qt,
-                                     self.weight_qk, rt.kernels, tg)
+                                     self.weight_qk, rt.kernels, tg,
+                                     self._parts())
         elif rt.weights_int8:
-            y = F.linear(xs.to(dt), self.weight_q.to(dt))
+            y = F.linear(xs.to(dt), self.int8("weight_q").to(dt))
             if col:
                 y = y * self.weight_scale.to(dt)
         elif col:   # the bias inside the product, as unsplit
@@ -708,7 +807,11 @@ class BatchedDense(nn.Module):
     (the JAX layout), bias (L, out); x (B, L, S, in) -> (B, L, S, out).
     Under rt.weights_int8 it holds weight_q (L, out, in) int8 and
     weight_scale (L, out); w8a8 runs every layer in one launch of kernel
-    B5 (the quantization inside), row block l of x against layer l."""
+    B5 (the quantization inside), row block l of x against layer l. The
+    float and weight-only products run as one (L, B*S, in) batched
+    product: a broadcast ``matmul`` of (B, L, S, in) by (L, in, out) would
+    copy the stack once per row of the batch (5.25 GiB a stack at the
+    7B recipe's 32 rows, kept for the backward)."""
 
     def __init__(self, in_features: int, features: int, num_layers: int,
                  use_bias: bool = True, *, rt: Runtime, device=None):
@@ -756,15 +859,24 @@ class BatchedDense(nn.Module):
             y = y + self.bias[index].to(dt)
         return y
 
+    @staticmethod
+    def _per_layer(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """x (B, L, S, in) @ w (L, in, out), row block l against layer l,
+        as one (L, B*S, in) batched product."""
+        b, num_l, s, k = x.shape
+        y = torch.bmm(x.transpose(0, 1).reshape(num_l, b * s, k), w)
+        return y.reshape(num_l, b, s, -1).transpose(0, 1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rt = self.rt
         dt = rt.dtype
         if not rt.weights_int8:
-            y = torch.matmul(x.to(dt), self.kernel.to(dt))
+            y = self._per_layer(x.to(dt), self.kernel.to(dt))
         elif rt.w8a8(self.in_features, self.features):
             y = self._w8a8(x)
         else:
-            y = torch.matmul(x.to(dt), self.weight_q.to(dt).transpose(-1, -2)) \
+            y = self._per_layer(x.to(dt),
+                                self.weight_q.to(dt).transpose(-1, -2)) \
                 * self.weight_scale.to(dt)[None, :, None, :]
         if self.bias is not None:
             y = y + self.bias.to(dt)[None, :, None, :]

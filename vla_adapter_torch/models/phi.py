@@ -30,6 +30,7 @@ from vla_adapter_torch.models.layers import (
     Runtime,
     remat,
     gelu,
+    layer_input,
     normal_init_,
 )
 from vla_adapter_torch.ops.attention import dot_product_attention
@@ -134,7 +135,7 @@ class PhiModel(nn.Module):
         layer_inputs = []
         for layer in self.layers:
             layer_inputs.append(x)
-            x = layer(x, cos, sin, valid, causal)
+            x = layer(layer_input(x), cos, sin, valid, causal)
         final = self.final_layernorm(x)
         out = {"last_hidden_state": final}
         if output_hidden_states:

@@ -4,6 +4,9 @@
   erf-GELUs between.
 * :class:`Projector` — single tower: vision -> llm -> llm, one GELU.
 * :class:`ProprioProjector` — proprio -> llm: fc1 -> GELU -> fc2.
+* :class:`NoisyActionProjector` — each noisy action scalar -> llm: fc1 ->
+  GELU -> fc2 (the diffusion path's projector; the released configs
+  leave it off).
 
 Under the fused w8a8 backend, when every width clears act_int8_min_dim,
 fc1 -> GELU -> fc2 of the first two is one launch of kernel B3.
@@ -62,4 +65,19 @@ class ProprioProjector(nn.Module):
 
     def forward(self, proprio: torch.Tensor) -> torch.Tensor:
         x = gelu(self.fc1(proprio.to(self.rt.dtype)), approximate=False)
+        return self.fc2(x)
+
+
+class NoisyActionProjector(nn.Module):
+    """noisy action scalars (B, T, 1) -> (B, T, llm_dim): fc1 -> exact
+    GELU -> fc2."""
+
+    def __init__(self, llm_dim: int, rt: Runtime, device=None):
+        super().__init__()
+        self.rt = rt
+        self.fc1 = Dense(1, llm_dim, rt=rt, device=device)
+        self.fc2 = Dense(llm_dim, llm_dim, rt=rt, device=device)
+
+    def forward(self, noisy_actions: torch.Tensor) -> torch.Tensor:
+        x = gelu(self.fc1(noisy_actions.to(self.rt.dtype)), approximate=False)
         return self.fc2(x)

@@ -41,6 +41,7 @@ from vla_adapter_torch.models.layers import (
     checkpoint_name,
     fused_mlp,
     head_plan,
+    layer_input,
     normal_init_,
     remat,
     take_cols,
@@ -268,7 +269,7 @@ class Qwen2Model(nn.Module):
                 ks.append(k)
                 vs.append(v)
             else:
-                x = layer(x, cos, sin, valid, causal)
+                x = layer(layer_input(x), cos, sin, valid, causal)
         final = self.norm(x)
         out = {"last_hidden_state": final}
         if output_hidden_states:

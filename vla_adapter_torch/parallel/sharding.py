@@ -10,16 +10,18 @@ mesh with the axes ("data", "fsdp", "tensor"); the port runs them on
   each micro-batch's trainable gradients are averaged across ranks before
   they enter the accumulation carry, as the JAX step's gradients are the
   global batch's mean before its carry rounds them.
-* "fsdp" (mesh (1, N, 1)): FSDP2 ``fully_shard`` on each vision tower
-  and the action head, then on the rest of the model; each parameter
-  that :func:`param_pspec` shards is split on the dim the JAX rule picks
-  (``shard_placement_fn``), all-gathered per group for its forward and
-  again for its backward, its gradient reduce-scattered (averaged).
-  Parameters the rule leaves whole, and the int8 weights, stay out of
-  FSDP (``ignored_params``); the trainable ones are averaged as under
-  "data". So the int8 base is whole on every rank: "fsdp" shards the
-  float tensors, their gradients and the optimizer state, not the int8
-  weights (``ROADMAP.md``).
+* "fsdp" (mesh (1, N, 1)): FSDP2 ``fully_shard`` on each vision tower,
+  the action head and each decoder layer, then on the rest of the model
+  (the embedding, the final norm, the projector); each floating-point
+  parameter that :func:`param_pspec` shards is split on the dim the JAX
+  rule picks (``shard_placement_fn``), all-gathered per group for its
+  forward and again for its backward (and its recompute), its gradient
+  reduce-scattered (averaged) as the group's backward ends. The int8
+  weights the rule shards are split on its dim outside FSDP2
+  (``parallel/fsdp_int8.py``: FSDP2 refuses integer parameters) and
+  gathered one layer and pass at a time. Parameters the rule leaves
+  whole stay out of FSDP (``ignored_params``); the trainable ones are
+  averaged as under "data".
 * both (mesh (R, S, 1)): HSDP, sharded within "fsdp", replicated across
   "data".
 * "tensor" (mesh (., ., T)): Megatron splits on plain local tensors
@@ -124,10 +126,14 @@ def initialize_distributed(address: Optional[str] = None,
                             rank=rank)
 
 
-def create_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1):
+def create_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1,
+                device=None):
     """A ``DeviceMesh`` with the dims ("data", "fsdp", "tensor") over the
     process group's ranks (one card each); data=-1: the ranks left. Needs
-    an initialized process group."""
+    an initialized process group. The mesh is on the card under NCCL and
+    on the CPU under gloo; under another backend (torch's "fake" group,
+    whose collectives move nothing: a memory estimate) on ``device``'s
+    type (default "cuda")."""
     if not group_initialized():
         raise RuntimeError("create_mesh needs a process group "
                            "(initialize_distributed)")
@@ -140,7 +146,8 @@ def create_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1):
     need = data * fsdp * tensor
     assert need <= n, (data, fsdp, tensor, n)
     ranks = torch.arange(need).reshape(data, fsdp, tensor)
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    device_type = {"nccl": "cuda", "gloo": "cpu"}.get(
+        dist.get_backend(), torch.device(device or "cuda").type)
     return DeviceMesh(device_type, ranks, mesh_dim_names=MESH_AXES)
 
 
@@ -328,7 +335,9 @@ def local(t: torch.Tensor) -> torch.Tensor:
 @dataclass
 class Sharding:
     """How :func:`shard_model` placed a model: the mesh, the FSDP-managed
-    parameters (name -> dim), the tensor-split ones (name -> dim of the
+    parameters (name -> dim), the int8 ones held in part on "fsdp"
+    outside FSDP2 (name -> dim of the tensor-split part; their buffers'
+    dims are the Denses' own), the tensor-split ones (name -> dim of the
     whole tensor), the whole parameters a rank uses in part (their
     gradients summed over the tensor group), the tensor group and the group
     of the ("data", "fsdp") ranks that share this rank's tensor coordinate
@@ -336,6 +345,7 @@ class Sharding:
 
     mesh: object
     fsdp_dims: Dict[str, int] = field(default_factory=dict)
+    int8_dims: Dict[str, int] = field(default_factory=dict)
     tensor_dims: Dict[str, int] = field(default_factory=dict)
     tensor_partial: Sequence[str] = ()
     tp: object = None
@@ -409,9 +419,26 @@ class Sharding:
 
     def full(self, t: torch.Tensor, name: str) -> torch.Tensor:
         """The whole tensor of the parameter ``name`` (or its gradient) on
-        every rank: a collective for a DTensor or a tensor-split one."""
-        t = t.full_tensor() if _is_dtensor(t) else t
+        every rank: a collective for a DTensor, an int8 part on "fsdp" or
+        a tensor-split one."""
+        from vla_adapter_torch.parallel.fsdp_int8 import gather_parts
+
+        if _is_dtensor(t):
+            t = t.full_tensor()
+        elif name in self.int8_dims:
+            t = gather_parts(t, self.int8_dims[name], self._fsdp_group(),
+                             self.mesh[FSDP_AXIS].size(), "checkpoint")
         return self._tensor_gather(t, name)
+
+    def full_shape(self, t: torch.Tensor, name: str) -> Tuple[int, ...]:
+        """The shape :meth:`full` gives ``t`` (or :meth:`full_like` a
+        tensor placed as ``t``), with no collective."""
+        shape = list(t.shape)   # a DTensor's is whole on its mesh already
+        if name in self.int8_dims and not _is_dtensor(t):
+            shape[self.int8_dims[name]] *= self.mesh[FSDP_AXIS].size()
+        if name in self.tensor_dims:
+            shape[self.tensor_dims[name]] *= self.tp.size
+        return tuple(shape)
 
     def _tensor_gather(self, t: torch.Tensor, name) -> torch.Tensor:
         if name not in self.tensor_dims:
@@ -478,17 +505,32 @@ def _with_local(t: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
 
 def _groups(model: nn.Module) -> List[nn.Module]:
     """The modules FSDP2 gathers and frees as one group each, before the
-    rest of the model: each vision tower and the action head. Not the
-    decoder: the VLA reads its token embedding outside its forward, and a
-    group per decoder layer would change the order in which each layer
-    input's gradient is summed (the hidden-state stack reads the input
-    too, and FSDP2 adds a node on a group's inputs), so the run would no
-    longer equal the unsharded one bit for bit."""
+    rest of the model: each vision tower, the action head and each decoder
+    layer (Qwen2's, which also serves the Llama-2, Vicuna and Mistral
+    backbones, and Phi's). The decoder's embedding and final norm stay in
+    the root group: the VLA reads the embedding outside the decoder's
+    forward. FSDP2 adds an autograd node on a group's inputs, where the
+    gradients of a layer's two reads of its input (its residual and its
+    norm) are summed before the hidden-state stack's is added; the
+    decoders give each layer its input through one node of their own
+    (``models.layers.layer_input``), so that a run without groups sums in
+    that order too and the two stay equal bit for bit."""
     from vla_adapter_torch.models.action_head import L1RegressionActionHead
     from vla_adapter_torch.models.vit import VisionTransformer
 
     return [m for m in model.modules()
-            if isinstance(m, (VisionTransformer, L1RegressionActionHead))]
+            if isinstance(m, (VisionTransformer, L1RegressionActionHead))
+            ] + decoder_layers(model)
+
+
+def decoder_layers(model: nn.Module) -> List[nn.Module]:
+    """The model's decoder layers, each an FSDP2 group of its own under
+    "fsdp"."""
+    from vla_adapter_torch.models.phi import PhiDecoderLayer
+    from vla_adapter_torch.models.qwen2 import Qwen2DecoderLayer
+
+    return [m for m in model.modules()
+            if isinstance(m, (Qwen2DecoderLayer, PhiDecoderLayer))]
 
 
 def _dp_group(mesh):
@@ -557,25 +599,79 @@ def split_tensor_(model: nn.Module, mesh, transport=None
     return split, partial, tg
 
 
+def shard_int8_(model: nn.Module, dims: Dict[str, int], fsdp_mesh
+                ) -> Dict[str, int]:
+    """Cut each Dense's int8 weight named in ``dims`` (name -> the rule's
+    dim of its ``weight_q``) to this rank's part on the one-dim
+    ``fsdp_mesh`` (``Dense.shard_int8_``): ``weight_q`` on that dim, its
+    ``weight_qt`` on dim 0 (dim 1 where dim 0 does not divide), a row
+    split's ``weight_qk`` on ``weight_q``'s dim; then pack each layer's
+    parts to be gathered together (``fsdp_int8.Int8Layer``). Returns the
+    dims of every tensor cut, buffers included, by name."""
+    from vla_adapter_torch.models.layers import Dense
+    from vla_adapter_torch.parallel.fsdp_int8 import Int8Layer, Int8Parts
+
+    group, size = fsdp_mesh.get_group(), fsdp_mesh.size()
+    rank = fsdp_mesh.get_local_rank()
+    out, done = {}, set()
+    layers: Dict[str, List[nn.Module]] = {}
+    for mod_name, module in model.named_modules():
+        prefix = f"{mod_name}." if mod_name else ""
+        if prefix + "weight_q" not in dims:
+            continue
+        if not isinstance(module, Dense):
+            raise ValueError(f"{prefix}weight_q: the rule shards an int8 "
+                             "tensor no Dense holds")
+        own = {"weight_q": dims[prefix + "weight_q"]}
+        qt = module.weight_qt if module.ste else None
+        if qt is not None:
+            fits = [d for d in (0, 1) if qt.shape[d] % size == 0]
+            if fits:
+                own["weight_qt"] = fits[0]
+        if module.ste and module.weight_qk is not None:
+            own["weight_qk"] = own["weight_q"]
+        module.shard_int8_(Int8Parts(group, rank, size, own))
+        layers.setdefault(_layer_of(mod_name), []).append(module)
+        out.update({prefix + k: d for k, d in own.items()})
+        done.add(prefix + "weight_q")
+    missed = sorted(set(dims) - done)
+    if missed:
+        raise ValueError(f"int8 tensors {missed[:4]} are held by no Dense")
+    for denses in layers.values():
+        Int8Layer(denses)
+    return out
+
+
+def _layer_of(module_name: str) -> str:
+    """The layer whose Denses gather their int8 parts together: the module
+    path up to its first index (an entry of a module list: a decoder
+    layer, a tower block), else the Dense's own path."""
+    parts = module_name.split(".")
+    for i, part in enumerate(parts):
+        if part.isdigit():
+            return ".".join(parts[:i + 1])
+    return module_name
+
+
 def shard_model(model: nn.Module, mesh, tensor_transport=None) -> Sharding:
     """Place ``model`` (its whole state on this rank's device) on
     ``mesh``. On a "tensor" dim above 1, first the Megatron splits
-    (:func:`split_tensor_`; the int8 base is split before
-    ``models.layers.prepare_ste_`` builds its transposed copies from the
-    local parts). On an "fsdp" dim below :data:`MIN_FSDP_RANKS` nothing
-    more moves: the step averages the gradients ("data"). Otherwise FSDP2
-    ``fully_shard`` takes every floating-point parameter the rule shards
-    (:data:`MIN_FSDP_SIZE`), on its dim (after the tensor dim), frozen ones
-    included: one group per vision tower and one for the action head (each
+    (:func:`split_tensor_`); then ``models.layers.prepare_ste_`` builds the
+    int8 base's transposed copies from the local parts. On an "fsdp" dim
+    below :data:`MIN_FSDP_RANKS` nothing more moves: the step averages the
+    gradients ("data"). Otherwise every tensor the rule shards
+    (:data:`MIN_FSDP_SIZE`) is split on its dim (after the tensor dim),
+    frozen ones included: the int8 weights outside FSDP2
+    (:func:`shard_int8_`: FSDP2 in torch 2.11 makes each sharded parameter
+    with ``requires_grad=True``, which an integer tensor refuses; each
+    layer gathers its weights for a pass in one all-gather), the
+    floating-point ones by FSDP2 ``fully_shard``, in one group per vision
+    tower, one for the action head and one per decoder layer (each
     gathered for its forward, freed after it and gathered again for its
-    backward, also around a recompute), and one for the rest, the
-    decoder's layers included (gathered for the whole step); HSDP over
-    ("data", "fsdp") when "data" is above 1. Parameters the rule leaves
-    whole stay whole (``ignored_params``), and so do the int8 weights
-    (``weight_q``): FSDP2 in torch 2.11 makes each sharded parameter with
-    ``requires_grad=True``, which an integer tensor refuses; their float
-    scales are sharded. Re-read the model's parameters afterwards: FSDP2
-    replaces them with DTensors, and the tensor split with their parts.
+    backward, which also covers its recompute), and one for the rest; HSDP over ("data", "fsdp") when
+    "data" is above 1. Parameters the rule leaves whole stay whole
+    (``ignored_params``). Re-read the model's parameters afterwards: FSDP2
+    replaces them with DTensors, and the splits with their parts.
     ``tensor_transport``: :func:`split_tensor_`'s ``transport``."""
     if mesh.size() != process_count():
         raise ValueError(f"a mesh of {mesh.size()} ranks in a group of "
@@ -588,13 +684,21 @@ def shard_model(model: nn.Module, mesh, tensor_transport=None) -> Sharding:
     if tensor > 1:
         (sharding.tensor_dims, sharding.tensor_partial,
          sharding.tp) = split_tensor_(model, mesh, tensor_transport)
+    from vla_adapter_torch.models.layers import prepare_ste_
+
+    prepare_ste_(model)
     if fsdp_size < MIN_FSDP_RANKS:
         return sharding
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
+    floating = {n for n, p in model.named_parameters()
+                if p.is_floating_point()}
+    int8 = {n: d for n, d in dims.items() if n not in floating}
+    shard_int8_(model, int8, mesh[FSDP_AXIS])
+    sharding.int8_dims = int8
     params = dict(model.named_parameters())
-    dims = {n: d for n, d in dims.items() if params[n].is_floating_point()}
+    dims = {n: d for n, d in dims.items() if n in floating}
     by_id = {id(params[n]): d for n, d in dims.items()}
     dp_mesh = (mesh[(DATA_AXIS, FSDP_AXIS)] if mesh[DATA_AXIS].size() > 1
                else mesh[FSDP_AXIS])

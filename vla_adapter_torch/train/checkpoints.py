@@ -8,13 +8,18 @@ when every checkpoint is kept) holds ``trainable``, ``frozen`` and
 ``latest.tmp`` and swapped in at the end, so a run cut during the write
 keeps its previous checkpoint. Each part is one safetensors file written
 with the port's own writer (``weights/safetensors_io.py``). Under a
-process group (``state.sharding``) every rank gathers the whole state
-(FSDP2's shards through ``full_tensor``, the "tensor" axis's parts through
-an all-gather over the tensor group) and rank 0 writes the same files a
-single process writes, between barriers where the JAX package syncs its
-processes; ``load_checkpoint`` reads the whole state, which the loop then
-places on the mesh (a checkpoint written at any mesh loads at any other,
-and in one process).
+process group (``state.sharding``) the whole state is gathered one tensor
+at a time, in the same order on every rank (FSDP2's shards through
+``full_tensor``, the int8 base's "fsdp" parts through an all-gather over
+the "fsdp" group, the "tensor" axis's parts through an all-gather over the
+tensor group: ``Sharding.full``), and rank 0 streams each to its file
+(``safetensors_io.write_file``) before the next is gathered: a rank holds
+its parts and one whole tensor, never the whole state. Rank 0 writes the
+same files a single process writes, between barriers where the JAX
+package syncs its processes. ``load_checkpoint`` reads the whole state,
+which the loop then places on the mesh (a checkpoint written at any mesh
+loads at any other, and in one process); the optimizer's moments stay on
+the host until the placement cuts them to each rank's parts.
 """
 
 from __future__ import annotations
@@ -26,7 +31,11 @@ from typing import Dict, Optional
 
 import torch
 
-from vla_adapter_torch.weights.safetensors_io import load_file, save_file
+from vla_adapter_torch.weights.safetensors_io import (
+    load_file,
+    save_file,
+    write_file,
+)
 
 LATEST = "latest"
 
@@ -59,19 +68,50 @@ def _barrier(state) -> None:
         dist.barrier()
 
 
-def _whole_state(state):
-    """(trainable, frozen, optimizer state) as whole tensors; under a
-    process group every rank gathers them, in the same order."""
+def _whole_parts(state):
+    """The checkpoint's files by name, each as (tensor name -> (dtype,
+    whole shape), a function making the whole tensor of a name): the
+    state's own tensors in one process; under a process group a gather
+    that every rank makes, in the same order (``Sharding.full``)."""
     sh = state.sharding
-    if sh is None:
-        return state.trainable, state.frozen(), state.opt_state
-    trainable = {n: sh.full(p, n) for n, p in state.trainable.items()}
-    frozen = {n: sh.full(v, n) for n, v in state.frozen().items()}
-    opt = dict(state.opt_state)
-    for part in ("mu", "nu"):
-        opt[part] = {n: sh.full_like(v, state.trainable[n], n)
-                     for n, v in state.opt_state[part].items()}
-    return trainable, frozen, opt
+    trainable, frozen = state.trainable, state.frozen()
+    opt = flatten_opt_state(state.opt_state)
+    # a moment ("mu/<name>", "nu/<name>") is placed as its parameter
+    moment_of = {k: k.split("/", 1)[1] for k in opt if "/" in k}
+
+    def shape(t, name):
+        return tuple(t.shape) if sh is None else sh.full_shape(t, name)
+
+    def whole(t, name):
+        return t if sh is None else sh.full(t, name)
+
+    def whole_opt(k):
+        if sh is None or k not in moment_of:
+            return opt[k]
+        return sh.full_like(opt[k], trainable[moment_of[k]], moment_of[k])
+
+    opt_specs = {k: (v.dtype, shape(trainable[moment_of[k]], moment_of[k])
+                     if k in moment_of else tuple(v.shape))
+                 for k, v in opt.items()}
+    return {
+        "trainable": ({n: (p.dtype, shape(p, n)) for n, p in
+                       trainable.items()},
+                      lambda n: whole(trainable[n], n)),
+        "frozen": ({n: (v.dtype, shape(v, n)) for n, v in frozen.items()},
+                   lambda n: whole(frozen[n], n)),
+        "opt_state": (opt_specs, whole_opt)}
+
+
+def _write(path, specs, gather, writer: bool) -> None:
+    """Every tensor of ``specs`` made by ``gather`` in name order (a
+    collective under a process group: every rank drains it), streamed to
+    ``path`` by the ``writer``."""
+    tensors = (gather(n) for n in sorted(specs))
+    if writer:
+        write_file(specs, tensors, path)
+    else:
+        for t in tensors:
+            del t   # gathered, then dropped before the next is
 
 
 def save_checkpoint(run_dir, state, dataset_statistics: Optional[Dict] = None,
@@ -88,12 +128,10 @@ def save_checkpoint(run_dir, state, dataset_statistics: Optional[Dict] = None,
             shutil.rmtree(out)
         out.mkdir(parents=True)
     _barrier(state)  # the directory is ready
-    trainable, frozen, opt_state = _whole_state(state)
+    for part, (specs, gather) in _whole_parts(state).items():
+        if specs or part != "frozen":
+            _write(out / f"{part}.safetensors", specs, gather, writer)
     if writer:
-        save_file(trainable, out / "trainable.safetensors")
-        if frozen:
-            save_file(frozen, out / "frozen.safetensors")
-        save_file(flatten_opt_state(opt_state), out / "opt_state.safetensors")
         if dataset_statistics is not None:
             (out / "dataset_statistics.json").write_text(
                 json.dumps(dataset_statistics, indent=2))
@@ -110,9 +148,11 @@ def save_checkpoint(run_dir, state, dataset_statistics: Optional[Dict] = None,
 def load_checkpoint(path, state):
     """Restore ``state`` in place from a checkpoint directory: the
     trainable and frozen tensors are copied into the model's, the
-    optimizer state is moved to each moment's device. Returns ``state``.
-    The state is whole here (before ``shard_model``): every rank reads
-    the files."""
+    optimizer state replaces the state's (or its None) and stays on the
+    host, whole: the caller moves it to the parameters' device, or cuts it
+    to a rank's parts there (``train.loop.place_state_``). Returns
+    ``state``. The state is whole here (before ``shard_model``): every
+    rank reads the files."""
     path = Path(path)
     meta = json.loads((path / "meta.json").read_text())
     trainable = load_file(path / "trainable.safetensors")
@@ -128,11 +168,8 @@ def load_checkpoint(path, state):
                 raise ValueError(f"{path}: frozen {name!r} is not a frozen "
                                  "tensor of the model")
             own[name].copy_(val)
-    opt = unflatten_opt_state(load_file(path / "opt_state.safetensors"))
-    for part in ("mu", "nu"):
-        opt[part] = {k: v.to(state.opt_state[part][k].device)
-                     for k, v in opt[part].items()}
-    state.opt_state = opt
+    state.opt_state = unflatten_opt_state(
+        load_file(path / "opt_state.safetensors"))
     state.step = int(meta["step"])
     return state
 

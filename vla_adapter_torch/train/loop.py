@@ -41,6 +41,7 @@ from vla_adapter_torch.models.vla import VLAModel
 from vla_adapter_torch.parallel.sharding import (
     create_mesh,
     group_initialized,
+    local,
     per_process_seed,
     process_local_batch_size,
     shard_model,
@@ -151,7 +152,7 @@ def finetune(
     mesh = None
     if group_initialized():
         mesh = create_mesh(data=cfg.data_axis, fsdp=cfg.fsdp_axis,
-                           tensor=cfg.tensor_axis)
+                           tensor=cfg.tensor_axis, device=device)
     elif cfg.fsdp_axis != 1 or cfg.tensor_axis != 1:
         # (one process has one card: its "data" axis splits nothing, so
         # data_axis is moot there; the JAX package splits the batch over
@@ -175,19 +176,26 @@ def finetune(
     model.load_state_dict(initial_state(cfg, rt, device, params),
                           strict=True, assign=True)
     tx = make_optimizer(cfg.optim)
-    state = init_train_state(model, tx, cfg.lora.enabled)
+    # the optimizer's moments are made after the placement, as this rank's
+    # parts (whole ones of a 7B model would not fit beside the model)
+    state = init_train_state(model, tx, cfg.lora.enabled,
+                             optimizer_state=False)
 
     run_dir = Path(cfg.run_root_dir) / get_run_id(cfg)
     if resume:
         ckpt = find_resume_checkpoint(run_dir)
         if ckpt is not None:
             load_checkpoint(ckpt, state)
-    sharding = (shard_model(model, mesh, tensor_transport)
-                if mesh is not None else None)
-    if rt.train_base_int8:   # from the int8 base's local parts
+    if mesh is not None:
+        # the int8 base's transposed copies are made inside, from each
+        # rank's "tensor" parts, before the "fsdp" split
+        place_state_(state, shard_model(model, mesh, tensor_transport), tx)
+    else:
         prepare_ste_(model)
-    if sharding is not None:
-        place_state_(state, sharding)
+        if state.opt_state is None:
+            state.opt_state = tx.init(state.trainable)
+        else:
+            _place_moments(state, lambda v, n: v)
 
     step_fn = make_train_step(model, tx, cfg, sharding=state.sharding)
     metrics = Metrics(run_dir, window=max(accum, 8), run_id=get_run_id(cfg),
@@ -221,19 +229,33 @@ def finetune(
     return state
 
 
-def place_state_(state: TrainState, sharding) -> TrainState:
+def place_state_(state: TrainState, sharding, tx=None) -> TrainState:
     """After ``shard_model``: the state's trainable tensors re-read from
     the model (the tensor split replaced the split ones by their parts,
-    FSDP2 the sharded ones by DTensors) and each optimizer moment cut to
-    its parameter's part on this rank."""
+    FSDP2 the sharded ones by DTensors) and each optimizer moment (whole,
+    on the host: ``load_checkpoint``) cut to its parameter's part on this
+    rank and moved to its device, or, without an optimizer state (not
+    resumed), the optimizer ``tx`` started over those parts."""
     params = dict(state.model.named_parameters())
     state.trainable = {n: params[n] for n in state.trainable}
-    for part in ("mu", "nu"):
-        state.opt_state[part] = {
-            n: sharding.local_slice(v, state.trainable[n], n)
-            for n, v in state.opt_state[part].items()}
+    if state.opt_state is None:
+        state.opt_state = tx.init({n: local(p) for n, p in
+                                   state.trainable.items()})
+    else:
+        _place_moments(state, lambda v, n: sharding.local_slice(
+            v, state.trainable[n], n))
     state.sharding = sharding
     return state
+
+
+def _place_moments(state: TrainState, part) -> None:
+    """Each optimizer moment as ``part(moment, name)`` on its parameter's
+    device, one at a time (a resumed 7B model's whole moments would not
+    fit beside it on the card)."""
+    for kind in ("mu", "nu"):
+        state.opt_state[kind] = {
+            n: part(v, n).to(local(state.trainable[n]).device)
+            for n, v in state.opt_state[kind].items()}
 
 
 def _train(cfg, state, step_fn, metrics, data_iter, batch, start_step,

@@ -181,7 +181,9 @@ def make_train_step(model: VLAModel, tx: AdamW, cfg: TrainConfig,
     ranks; those of whole tensors a rank uses in part are summed over the
     tensor group), the optimizer updates this rank's parts, the global
     norm sums the ranks' parts, and the metrics are averaged over the
-    ("data", "fsdp") ranks."""
+    ("data", "fsdp") ranks. The frozen int8 base, held in parts on
+    "fsdp", gets no gradient: each layer gathers it for a pass
+    (``parallel/fsdp_int8.py``)."""
     loss_fn = make_loss_fn(model, cfg.objective)
     accum = cfg.grad_accumulation_steps
     carry_dtype = {None: None, "float32": torch.float32,
@@ -270,12 +272,15 @@ def make_eval_step(model: VLAModel, objective: str = "l1"):
     return step
 
 
-def init_train_state(model: VLAModel, tx: AdamW,
-                     lora_enabled: bool) -> TrainState:
+def init_train_state(model: VLAModel, tx: AdamW, lora_enabled: bool,
+                     optimizer_state: bool = True) -> TrainState:
     """Mark the model's trainable tensors (the rest frozen) and start the
-    optimizer over them at step 0."""
+    optimizer over them at step 0; ``optimizer_state=False`` leaves the
+    optimizer state None, for the caller to start over the tensors as they
+    are placed (``train.loop.place_state_``)."""
     names = mark_trainable_(model, lora_enabled)
     params = dict(model.named_parameters())
     trainable = {n: params[n] for n in names}
     return TrainState(step=0, model=model, trainable=trainable,
-                      opt_state=tx.init(trainable))
+                      opt_state=tx.init(trainable) if optimizer_state
+                      else None)

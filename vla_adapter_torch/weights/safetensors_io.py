@@ -17,7 +17,7 @@ import json
 import mmap
 import struct
 from pathlib import Path
-from typing import Dict, Mapping, Optional
+from typing import Dict, Iterable, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -65,17 +65,36 @@ def save_file(tensors: Mapping[str, torch.Tensor], path,
               metadata: Optional[Mapping[str, str]] = None) -> Path:
     """Write ``tensors`` (any device; stored contiguous, in name order) as
     one safetensors file."""
+    names = sorted(tensors)
+    return write_file({n: (tensors[n].dtype, tuple(tensors[n].shape))
+                       for n in names}, (tensors[n] for n in names), path,
+                      metadata)
+
+
+def write_file(specs: Mapping[str, Tuple[torch.dtype, Sequence[int]]],
+               tensors: Iterable[torch.Tensor], path,
+               metadata: Optional[Mapping[str, str]] = None) -> Path:
+    """Write one safetensors file whose header is ``specs`` (name ->
+    (dtype, shape)) and whose tensors ``tensors`` yields one at a time, in
+    name order, each of its spec's dtype and shape: each is copied to the
+    host, written and dropped before the next is asked for, so a state
+    made tensor by tensor (a checkpoint gathered from its shards) is never
+    whole in memory."""
     header: Dict[str, object] = {}
     if metadata:
         header["__metadata__"] = dict(metadata)
+    names = sorted(specs)
     offset = 0
-    for name in sorted(tensors):
-        t = tensors[name]
-        if t.dtype not in _NAMES:
-            raise ValueError(f"{name}: dtype {t.dtype} is not one of "
+    for name in names:
+        dtype, shape = specs[name]
+        if dtype not in _NAMES:
+            raise ValueError(f"{name}: dtype {dtype} is not one of "
                              f"{sorted(DTYPES)}")
-        nbytes = t.numel() * t.element_size()
-        header[name] = {"dtype": _NAMES[t.dtype], "shape": list(t.shape),
+        numel = 1
+        for dim in shape:
+            numel *= dim
+        nbytes = numel * dtype.itemsize
+        header[name] = {"dtype": _NAMES[dtype], "shape": list(shape),
                         "data_offsets": [offset, offset + nbytes]}
         offset += nbytes
     text = json.dumps(header, separators=(",", ":")).encode()
@@ -84,8 +103,18 @@ def save_file(tensors: Mapping[str, torch.Tensor], path,
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(text)))
         f.write(text)
-        for name in sorted(tensors):
-            t = tensors[name].detach().contiguous().cpu()
+        made = iter(tensors)
+        for name in names:
+            t = next(made, None)
+            got = None if t is None else (t.dtype, tuple(t.shape))
+            if got != (specs[name][0], tuple(specs[name][1])):
+                raise ValueError(f"{path}: {name} is {got}, its header "
+                                 f"says {specs[name]}")
+            t = t.detach().contiguous().cpu()
             if t.numel():
                 f.write(t.reshape(-1).view(torch.uint8).numpy().data)
+            del t
+        if next(made, None) is not None:
+            raise ValueError(f"{path}: more tensors than the header's "
+                             f"{len(names)}")
     return path
