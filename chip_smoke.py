@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--out FILE] [--profile] [--only 12,...,20]
+    python3 chip_smoke.py [--out FILE] [--profile] [--only 11,...,21]
 
 Phases, in order; any failure exits non-zero:
 
@@ -10,9 +10,12 @@ Phases, in order; any failure exits non-zero:
    lines.
 2. attention kernel vs plain: at the shapes one serving forward gives it
    (Qwen2 14/2 heads, S=640, D=64, key padding, and causal; DINOv2 16
-   heads, S=261, D=64; so400m 16 heads, S=256, D=72; for B=1 and B=2),
-   print the kernel's plan (branch, warps and CTAs, CTAs per SM, waves;
-   every serving shape must take the one-pass branch), hold the kernel
+   heads, S=261, D=64; so400m 16 heads, S=256, D=72; for B=1 and B=2;
+   and, on no serving path, the 7B full-train recipe's LLM attention:
+   Vicuna-7B's 32/32 heads of D=128, non-causal, over 384 tokens with its
+   key padding, at 32 rows), print the kernel's plan (branch, warps and
+   CTAs, CTAs per SM, waves; every serving shape must take the one-pass
+   branch), hold the kernel
    against its plain PyTorch version and time the kernel, the plain
    version and ``scaled_dot_product_attention`` (a yardstick only: the
    port never calls it).
@@ -89,22 +92,27 @@ Phases, in order; any failure exits non-zero:
 11. the finetune path (:func:`phase_train`): the attention backward
    kernel (B1-bwd) against its plain version at the training shapes of
    micro-batch 16 (LLM with the dummy batch's key padding, DINOv2,
-   so400m; a causal case, a GQA case at S = 37 with empty rows, and
-   S = 4000): its plan, dq/dk/dv within ``ATTENTION_BWD_RTOL``, a rerun bit
-   for bit, and its time (and each of its three kernels' alone) beside the
-   plain version's, SDPA's backward (the yardstick) and the bound, and
+   so400m; a causal case, a GQA case at S = 37 with empty rows, S = 4000,
+   and the 7B full-train recipe's LLM shape of phase 2): its plan,
+   dq/dk/dv within ``ATTENTION_BWD_RTOL``, a rerun bit for bit, and its
+   time (and each of its three kernels' alone) beside the plain
+   version's, SDPA's backward (the yardstick) and the bound, and
    B1's forward with and without its lse output; the straight-through
    w8a8 product (forward and dx) bit
    for bit with its plain version at every frozen-base shape; then
    ``train.loop.finetune`` of the flagship recipe ("vla-adapter+libero-
    spatial": LoRA r=64 over the int8 base, remat of the towers and the
-   decoder) at batch 16 for 10 steps over one repeated dummy batch with a
+   decoder) at batch 16 for 8 steps over one repeated dummy batch with a
    checkpoint every 5, the main path: falling finite losses, frozen
-   tensors unchanged and trainable ones moved bit for bit, the launches
-   of B1, B1-bwd and B4 per step as :func:`expected_train_launches`
-   derives them, s/step, samples/s and peak memory; one step through the
+   tensors unchanged bit for bit, the launches of B1, B1-bwd and B4 per
+   step as :func:`expected_train_launches` derives them, s/step,
+   samples/s and peak memory; each trainable tensor's gradient norm as
+   the optimizer got it, at step 0 (a LoRA ``lora_a``, zero there, at
+   step 1), against the plain path's own one-ulp spread
+   (:func:`grads_vs_plain`, phase 21's check); one step through the
    kernels against the plain versions (:func:`kernel_vs_plain_step`);
-   accumulation over 2 micro-batches with a bf16 carry and bf16 moments;
+   a step accumulated over 2 micro-batches with a bf16 carry and bf16
+   moments;
    a resume from the main run's step-6 checkpoint whose losses equal the
    unbroken run's bit for bit; and a float-base run merged
    (``weights.merge.merge_checkpoint``), exported, loaded with
@@ -116,11 +124,11 @@ Phases, in order; any failure exits non-zero:
    quantized on the card): first B1 at the causal prefill (B=1, 4; S=128)
    and B2/B4 at a decode step's rows (M=1, 2, 4; bit for bit with their
    plain versions); "mega" must refuse to decode. Then, for bf16 and w8a8
-   at B=1 and 4, ``greedy_generate_cached`` of 16 tokens after prompts of
+   at B=1 and 4, ``greedy_generate_cached`` of 8 tokens after prompts of
    128 seeded ids, the main path, through the captured decode step, with
    the launches of exactly that call against
    :func:`expected_generate_launches`; the same call eagerly (the same
-   tokens) and 16 graphed steps against 16 eager steps from one prefill,
+   tokens) and 8 graphed steps against 8 eager steps from one prefill,
    every state tensor bit for bit; the kernel path against the plain path
    and the cached loop against the full recompute (``greedy_generate``'s
    logits), each teacher-forced on the generated tokens, by
@@ -166,13 +174,13 @@ Phases, in order; any failure exits non-zero:
    multimodal logits of images through the entry's ``ImageProcessor`` and
    prompts of 64-127 ids through its prompt builder, kernel vs plain, and
    its w8a8 "fused" twin (quantized on the card) against plain and against
-   bf16 (:data:`ZOO_W8A8_VS_BF16_SHARE`); ``greedy_generate_cached`` of 16
+   bf16 (:data:`ZOO_W8A8_VS_BF16_SHARE`); ``greedy_generate_cached`` of 8
    tokens at B=1 and 4 in bf16 and w8a8 as phase 12 checks it
    (:func:`generate_run`), ms per token against the step's bound. Then
    ``mistral-instruct-v0.1+7b`` (CLIP-L @ 336 with letterbox, the gelu-mlp
    projector, Mistral 7B): letterboxed non-square images through its
    logits, kernel vs plain; ``pretrain`` in "align" (fp32 weights) at
-   batch 8 for 3 steps under each remat policy over the towers and the LLM
+   batch 8 for 2 steps under each remat policy over the towers and the LLM
    and without remat: s/step (``utils.profiling.StepTimer``), peak memory,
    B1 and B1-bwd launches per step against
    :func:`expected_remat_pretrain_launches`, and every run's losses and
@@ -191,7 +199,7 @@ Phases, in order; any failure exits non-zero:
    spawn workers that see no CUDA device; every batch has the dummy
    batch's keys, shapes and dtypes and actions in [-1, 1]. The pipeline's
    host frames/s in this process and with the workers; then
-   ``train.loop.finetune`` trains the full-width flagship 6 steps at
+   ``train.loop.finetune`` trains the full-width flagship 4 steps at
    batch 16 on it as phase 11 sets it up, B1, B1-bwd and B4 launched per
    step as :func:`expected_train_launches` says; s/step and samples/s
    beside phase 11's dummy-data figure, the seconds the loop waits in
@@ -223,7 +231,7 @@ Phases, in order; any failure exits non-zero:
    the card (the group destroyed after), ``parity_check`` record then
    check from the exported directory (PASS at 0.0) and ``verify_smoke``
    in its own process (its latency line). Last, in a child process
-   (:func:`group_train_child`), the flagship recipe at batch 16 for 6
+   (:func:`group_train_child`), the flagship recipe at batch 16 for 4
    steps without a group and on a one-rank NCCL "data" mesh, and under
    FSDP2 on a one-rank "fsdp" mesh for a step, a checkpoint written
    under the group, and the rest resumed from it: losses and trained
@@ -280,9 +288,27 @@ Phases, in order; any failure exits non-zero:
    forward, recompute and backward, B1, B1-bwd and B4 launches and int8
    gathers per step against the derived counts.
 
-``--only 12,...,20`` runs the build and any of phases 12-20 alone (no
-kernels or ok line; phases 16, 17, 19 and 20 alone build no flagship;
-phase 17 alone has no phase-11 figure beside its s/step).
+21. the full-train recipe (:func:`full_train_phase`):
+   ``prism-qwen25-dinosiglip-224px+0_5b+mx-oxe-magic-soup`` ("vla-train":
+   no LoRA, a float base, every one of the 1.39 B parameters trained) at
+   full width and depth, seeded weights, at one rank of its 8: 32 rows a
+   step as 2 micro-batches of 16 (dummy batches), through
+   ``train.loop.finetune`` in one process for 6 steps with the closing
+   checkpoint. First B1 and B1-bwd at its LLM shape (its dummy batch's
+   key padding) against their plain versions, timed beside SDPA and the
+   bound. Then: falling finite losses; B1 and B1-bwd launched per step as
+   :func:`expected_train_launches` derives them and no B4 (the base is
+   float); s/step (median of steps 3-6), samples/s, peak memory; the
+   checkpoint (every tensor and both Adam moments) read back with
+   ``load_checkpoint`` bit for bit, write and read timed; the step-0 loss
+   and every trainable tensor's step-0 gradient norm against the plain
+   path (``build_runtime(kernels="plain")``, the same init, batch and
+   noise) within GRAD_SPREAD_MARGIN times its one-ulp spread
+   (:func:`grads_vs_plain`).
+
+``--only 11,...,21`` runs the build and any of phases 11-21 alone (no
+kernels or ok line; phases 11, 16, 17, 19, 20 and 21 alone build no
+flagship; phase 17 alone has no phase-11 figure beside its s/step).
 
 Phases 9 and 10 took 100 s on an NVIDIA H100 80GB HBM3 at 700 W beside
 110 s for phases 1-8 (their per-phase seconds are printed; phase 9's
@@ -293,7 +319,14 @@ server for bf16 only. To make room for phase 19 in the 1200 s the whole
 run may take, depth was cut, not checks: phase 9 measures 2 s
 windows (were 4), phase 11 accumulates over 2 steps (were 3), phases 12
 and 16 generate 16 tokens (were 32), and phase 17 trains 6 steps (were
-10).
+10). To make room for phase 21 and phase 11's gradient check, again
+depth: phase 9 measures 1.5 s windows after 0.5 s warm-ups (were 2 and
+1), phase 11's main run takes 8 steps (were 10; its resume 2, were 4),
+its accumulation run 1 (were 2) and its float-base run for the merge 2
+(were 3), phases 12 and 16 generate 8 tokens (were 16), phase 17 trains
+4 steps, phase 16's pretraining runs 2 (were 3), phase 18's group runs
+4 (were 6), phase 19's tensor run 3 steps and 1 resumed (were 4 and 2),
+phase 20 1 step (were 2).
 
 With ``--profile`` phase 7 also profiles one B=1 request per tier, eager
 and replayed, and checks that the eager w8a8 tiers launch at least 3,000
@@ -313,9 +346,10 @@ paths of phases 12-18: "generate", "generate_w8a8", "actions",
 "zoo_generate_w8a8", "zoo_pretrain", "finetune_rlds", "eval_libero",
 "eval_calvin", "finetune_ddp", "finetune_fsdp", "finetune_tensor"
 (rank 0 of phase 19), "finetune_fsdp8_full" and "finetune_fsdp4_lora"
-(phase 20's runs, per step); each entry's ``zoo_7b`` lists its
-phase-16 call sites (per call: ms, plain, bound, library). Exits non-zero without CUDA, and when
-the ``vla_adapter_torch`` package beside this script is missing.
+(phase 20's runs, per step) and "finetune_full" (phase 21, per step);
+each entry's ``zoo_7b`` lists its phase-16 call sites (per call: ms,
+plain, bound, library). Exits non-zero without CUDA, and when the
+``vla_adapter_torch`` package beside this script is missing.
 """
 
 from __future__ import annotations
@@ -687,6 +721,33 @@ def attention_bwd_shapes(cfg, batch: int, seed: int):
     ]
 
 
+# the LLM attention of the 7B full-train recipe "siglip-224px+mx-bridge"
+# (Vicuna-7B: 32/32 heads of D = 128, non-causal) at phase 20's rows a rank
+SEVEN_B_RECIPE = "siglip-224px+mx-bridge"
+SEVEN_B_ROWS = 32
+
+
+def seven_b_attention_shape(seed: int) -> tuple:
+    """SEVEN_B_RECIPE's LLM attention over its num_patches + max_text_tokens
+    (384) tokens with its dummy batch's key padding, at SEVEN_B_ROWS rows:
+    as a (phase 2 shape, phase 11 backward shape) pair, on no serving or
+    micro-batch path of the flagship (0 calls)."""
+    from vla_adapter_torch.core.experiments import get_experiment
+    from vla_adapter_torch.data.dummy import make_dummy_batch
+
+    cfg, rows = get_experiment(SEVEN_B_RECIPE).to_train_config().model, \
+        SEVEN_B_ROWS
+    tv = make_dummy_batch(cfg, rows, np.random.default_rng(seed))[
+        "text_valid"]
+    valid = np.concatenate([tv[:, :1], np.ones((rows, cfg.num_patches),
+                                               np.int32), tv[:, 1:]], 1)
+    llm, s = cfg.llm, valid.shape[1]
+    return (("llm_7b_full_train", rows, rows, llm.num_heads,
+             llm.num_kv_heads, s, llm.head_dim, valid, False, 0),
+            ("llm_7b_full_train", rows, llm.num_heads, llm.num_kv_heads, s,
+             llm.head_dim, valid, False, 0))
+
+
 def attention_bwd_bound_ms(b, h, hkv, s, d, valid, causal):
     """Least time for one backward: five products of 2 h d operations per
     (query, valid key) pair (the recomputed q.k, dv, dp, dq, dk) at the
@@ -988,15 +1049,20 @@ HEAD_GRAD_COSINE_MARGIN = 0.1
 PIXEL_PERTURBATION = 1.0 + 2.0 ** -8
 
 
+# the flagship finetune's main run: steps, and the float-base run's
+TRAIN_STEPS = 8
+MERGE_TRAIN_STEPS = 2
+
+
 def train_config(seed: int):
-    """The flagship recipe's TrainConfig at micro-batch 16, 10 steps,
-    a checkpoint every 5."""
+    """The flagship recipe's TrainConfig at micro-batch 16, TRAIN_STEPS
+    steps, a checkpoint every 5."""
     from vla_adapter_torch.core.experiments import get_experiment
 
     tcfg = get_experiment("vla-adapter+libero-spatial").to_train_config()
     return dataclasses.replace(
         tcfg, batch_size=16, save_freq=5, log_freq=100, seed=seed,
-        optim=dataclasses.replace(tcfg.optim, max_steps=10))
+        optim=dataclasses.replace(tcfg.optim, max_steps=TRAIN_STEPS))
 
 
 # the extended Qwen tokenizer's length (+256 action tokens): the token
@@ -1290,9 +1356,11 @@ def phase_train(cfg, card: str, seed: int, profile: bool = False):
         now = time.perf_counter()
         rec["seconds"][name], t_last[0] = now - t_last[0], now
 
-    # 1. B1-bwd against plain at the training shapes
+    # 1. B1-bwd against plain at the training shapes, and at the 7B
+    # full-train recipe's LLM shape
     bwd_records = phase_attention_bwd(
-        attention_bwd_shapes(cfg, batch_size, seed), card)
+        attention_bwd_shapes(cfg, batch_size, seed)
+        + [seven_b_attention_shape(seed)[1]], card)
     # 2. the STE product
     lap("1 attention_bwd")
     rec["ste"] = phase_ste(ste_shapes(cfg, batch_size), card)
@@ -1311,7 +1379,8 @@ def phase_train(cfg, card: str, seed: int, profile: bool = False):
         kept = dataclasses.replace(tcfg, save_latest_checkpoint_only=False)
         with first_grad_squares() as main_grads:
             state, launches, wall, memory = _train_run(
-                kept, batch, 10, root / "main", data_iter=profiled, rt=rt)
+                kept, batch, TRAIN_STEPS, root / "main", data_iter=profiled,
+                rt=rt)
         if profiled is not None:
             if profiled.summary is None:
                 raise AssertionError("the profiled finetune step never ran")
@@ -1320,19 +1389,16 @@ def phase_train(cfg, card: str, seed: int, profile: bool = False):
         losses = [h["loss"] for h in state.history]
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
             raise AssertionError(f"finetune losses {losses}")
-        _check_train_launches(launches, per_micro, 10, "finetune")
+        _check_train_launches(launches, per_micro, TRAIN_STEPS, "finetune")
         final = state.model.state_dict()
         changed = [k for k, v in init.items()
                    if k not in trainable_names and not torch.equal(final[k], v)]
-        still = [k for k in trainable_names if torch.equal(final[k], init[k])]
-        if changed or still:
-            raise AssertionError(f"frozen tensors changed: {changed[:5]}; "
-                                 f"trainable tensors that did not move: "
-                                 f"{still[:5]}")
+        if changed:
+            raise AssertionError(f"frozen tensors changed: {changed[:5]}")
         ste_bytes = sum(m.weight_qt.numel() for m in state.model.modules()
                         if getattr(m, "ste", False))
         step_s = statistics.median(h["step_time"] for h in state.history[2:])
-        main = {"losses": losses, "median_s_per_step_3_10": step_s,
+        main = {"losses": losses, "median_s_per_step_from_3": step_s,
                 "samples_per_s": batch_size / step_s, "wall_s": wall,
                 **memory,
                 "launches": launches, "launches_per_step_derived": per_micro,
@@ -1340,17 +1406,31 @@ def phase_train(cfg, card: str, seed: int, profile: bool = False):
                 "trainable_params": sum(init[k].numel()
                                         for k in trainable_names),
                 "transposed_int8_copy_bytes": ste_bytes,
-                "frozen_unchanged": True, "trainable_moved": True}
+                "frozen_unchanged": True}
         print("train_main " + json.dumps(dict(main, card=card)), flush=True)
         # phase 19's unperturbed one-process reference
-        main["grad_norms"] = {n: v ** 0.5
-                              for n, v in main_grads.host().items()}
+        main["grad_norms"] = main_grads.norms()
         rec["main"] = main
         main_losses = losses
         del state, final
         torch.cuda.empty_cache()
 
         lap("3 finetune")
+
+        # 3b. each trainable tensor's gradient against the plain path's
+        # one-ulp spread: at step 0, a lora_a (zero there: its lora_b
+        # starts at 0) at step 1 (phase 21's check, ``grads_vs_plain``)
+        runs, starts = plain_spread(tcfg, batch, 2)
+        later = kernel_updates_from(tcfg, batch, starts)
+        del starts
+        rec["grads_vs_plain"] = grads_vs_plain(
+            {"losses": losses,
+             "grad_norms_by_update": [main["grad_norms"], *later]}, runs)
+        print("train_grads_vs_plain " + json.dumps(dict(
+            rec["grads_vs_plain"], card=card)), flush=True)
+        check_grads_vs_plain(rec["grads_vs_plain"], "finetune")
+        del runs
+        lap("3b grads_vs_plain")
 
         # 4. kernel against plain, one step's loss and named grads
         step4 = kernel_vs_plain_step(tcfg, init, batch, dev)
@@ -1366,12 +1446,12 @@ def phase_train(cfg, card: str, seed: int, profile: bool = False):
             optim=dataclasses.replace(tcfg.optim, moments_dtype="bfloat16"))
         abatch = make_dummy_batch(cfg, batch_size,
                                   np.random.default_rng(seed), accum_steps=2)
-        state, launches, wall, _ = _train_run(acfg, abatch, 2,
+        state, launches, wall, _ = _train_run(acfg, abatch, 1,
                                               root / "accum")
         alosses = [h["loss"] for h in state.history]
         if not np.isfinite(alosses).all():
             raise AssertionError(f"accumulation losses {alosses}")
-        _check_train_launches(launches, per_micro, 4, "accumulation")
+        _check_train_launches(launches, per_micro, 2, "accumulation")
         mu = next(iter(state.opt_state["mu"].values()))
         if mu.dtype != torch.bfloat16:
             raise AssertionError(f"moments stored in {mu.dtype}")
@@ -1385,15 +1465,16 @@ def phase_train(cfg, card: str, seed: int, profile: bool = False):
 
         lap("5 accumulation")
 
-        # 6. resume: on to 10 from the main run's step-6 checkpoint
+        # 6. resume: on to the end from the main run's step-6 checkpoint
         run_dir = root / "main" / tcfg.run_id
-        shutil.rmtree(run_dir / "step-000010")
+        shutil.rmtree(run_dir / f"step-{TRAIN_STEPS:06d}")
         ckpt = find_resume_checkpoint(run_dir)
         meta = json.loads((ckpt / "meta.json").read_text())
-        state = _train_run(kept, batch, 10, root / "main", resume=True)[0]
+        state = _train_run(kept, batch, TRAIN_STEPS, root / "main",
+                           resume=True)[0]
         steps = [h["step"] for h in state.history]
         rlosses = [h["loss"] for h in state.history]
-        if meta != {"step": 6} or steps != list(range(6, 10)):
+        if meta != {"step": 6} or steps != list(range(6, TRAIN_STEPS)):
             raise AssertionError(f"resume: checkpoint {meta}, steps {steps}")
         if rlosses != main_losses[6:]:
             raise AssertionError(f"resumed losses {rlosses} != the unbroken "
@@ -1410,7 +1491,7 @@ def phase_train(cfg, card: str, seed: int, profile: bool = False):
 
         # 7. train -> merge -> export -> load_vla -> Predictor, float base
         fcfg = dataclasses.replace(tcfg, base_int8=False)
-        state = _train_run(fcfg, batch, 3, root / "float")[0]
+        state = _train_run(fcfg, batch, MERGE_TRAIN_STEPS, root / "float")[0]
         trained = {k: v.detach().clone() for k, v in
                    state.model.state_dict().items()}
         del state
@@ -2581,8 +2662,8 @@ def phase_checkpoint(bf16_pred, rng, card: str):
 SERVER_CLIENTS = (1, 4, 16)
 # the buckets that only the server runs: no earlier phase forwards them
 SERVER_ONLY_BATCHES = (8, 16)
-SERVER_WINDOW_S = 2.0
-SERVER_WARMUP_S = 1.0
+SERVER_WINDOW_S = 1.5
+SERVER_WARMUP_S = 0.5
 
 
 def _server_request(cfg, seed):
@@ -3111,7 +3192,7 @@ def megalayer_kernel_summary(records, launches):
 
 DEVICE = "cuda"       # where phases 14-15 build their models
 GEN_PROMPT = 128      # seeded prompt ids per sequence
-GEN_NEW = 16          # generated tokens per sequence
+GEN_NEW = 8           # generated tokens per sequence
 GEN_BATCHES = (1, 4)
 DECODE_ROWS = (1, 2, 4)  # B2/B4 checked bit for bit at these decode rows
 # kernel path vs plain path, bf16 logits of the flagship's language model
@@ -4016,9 +4097,9 @@ ZOO_PRETRAIN = "mistral-instruct-v0.1+7b"
 ZOO_13B = "llama2-13b-pure"   # B2's widest MLP, checked as a kernel only
 ZOO_TEXT = (64, 127)          # text ids per prompt, drawn in this range
 ZOO_GEN_TEXT = 96             # the cached generation's uniform prompt
-ZOO_NEW = 16                  # generated tokens per sequence
+ZOO_NEW = 8                   # generated tokens per sequence
 ZOO_BATCHES = (1, 4)
-ZOO_PRETRAIN_BATCH, ZOO_PRETRAIN_STEPS = 8, 3
+ZOO_PRETRAIN_BATCH, ZOO_PRETRAIN_STEPS = 8, 2
 # the pretrain runs: each remat policy over the towers and the LLM, then
 # no remat (last: where it does not fit, nothing runs after its failure)
 ZOO_POLICIES = ("nothing", "attn_only", "dots", "dots_no_batch",
@@ -4737,7 +4818,7 @@ def rlds_mixture_shares(sources: dict, cfg, seed: int) -> dict:
 
 
 # steps of phase 17's finetune on RLDS batches
-RLDS_TRAIN_STEPS = 6
+RLDS_TRAIN_STEPS = 4
 
 
 def phase_finetune_rlds(card: str, seed: int,
@@ -4882,7 +4963,7 @@ def phase_finetune_rlds(card: str, seed: int,
                               if k.startswith(name + "/")})
         if f"{name}/loss" not in per_dataset:
             raise AssertionError(f"no per-dataset loss in {lines[:1]}")
-        main = {"losses": losses, "median_s_per_step_3_10": step_s,
+        main = {"losses": losses, "median_s_per_step_from_3": step_s,
                 "samples_per_s": tcfg.batch_size / step_s,
                 "dummy_data_s_per_step_phase_11": dummy_s_per_step,
                 "data_wait_s_per_step": wait.get("mean_s"),
@@ -5457,9 +5538,10 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-# steps of each run of phase 18's training under a process group: a step's
-# seconds are read one step late, so steps 2-3 are the timed ones (of the
-# FSDP2 run, resumed at step 1, step 2)
+# steps of each run of phase 18's training under a process group: of a
+# run's step times (read one step late) the first holds the set-up and
+# the last only the final read, so 4 are timed (3 of the FSDP2 run,
+# resumed at step 1)
 GROUP_TRAIN_STEPS = 6
 
 
@@ -5718,8 +5800,8 @@ def rlds_phase(card: str, seed: int, lap, dummy_s_per_step=None) -> tuple:
 TENSOR = 2
 # the flagship recipe at tensor 2: steps of the first run (a checkpoint at
 # its end), then the steps resumed from that checkpoint
-TENSOR_TRAIN_STEPS = 4
-TENSOR_RESUMED_STEPS = 2
+TENSOR_TRAIN_STEPS = 3
+TENSOR_RESUMED_STEPS = 1
 # rows of B4's narrow design (M <= 32) at the split shapes
 TENSOR_NARROW_ROWS = 20
 # tensor 2 against one process. The base's split products are exact
@@ -5775,6 +5857,10 @@ class first_grad_squares:
         values = torch.stack([self.sq[n] for n in names]).cpu().tolist()
         return dict(zip(names, values))
 
+    def norms(self) -> dict:
+        """{name: gradient norm} (waits for the card)."""
+        return {n: v ** 0.5 for n, v in self.host().items()}
+
 
 def perturbed_pixels(pixels: np.ndarray, seed: int) -> np.ndarray:
     """Each pixel scaled by 1 + 2^-8 or 1 - 2^-8 (one bf16 ulp), the signs
@@ -5793,30 +5879,12 @@ def one_process_spread(tcfg, batch, steps: int, reference=None) -> list:
     started afresh, the steps counted from 0: the same head noise). Per
     run its losses and the step-0 norm of each trainable tensor's
     gradient. The model is built as ``finetune`` builds it, once."""
-    import math
-
     import torch
 
-    from vla_adapter_torch.models.layers import prepare_ste_
-    from vla_adapter_torch.models.vla import VLAModel
-    from vla_adapter_torch.train.loop import build_runtime, initial_state
-    from vla_adapter_torch.train.optim import make_optimizer
-    from vla_adapter_torch.train.step import (
-        init_train_state,
-        make_train_step,
-        to_device,
-    )
+    from vla_adapter_torch.train.step import to_device
 
-    rt = build_runtime(tcfg)
-    model = VLAModel(tcfg.model, rt, device="meta")
-    model.load_state_dict(initial_state(tcfg, rt, "cuda"), strict=True,
-                          assign=True)
-    tx = make_optimizer(tcfg.optim)
-    state = init_train_state(model, tx, tcfg.lora.enabled)
-    prepare_ste_(model)
-    step_fn = make_train_step(model, tx, tcfg)
-    start = {n: p.detach().clone() for n, p in state.trainable.items()}
-    model.train()
+    state, step_fn = _train_model(tcfg, "kernel", "cuda")
+    start = _snapshot(state)
     runs, seeds = [], (None,) + TENSOR_SPREAD_SEEDS
     if reference is not None:
         runs.append({"seed": None, "losses": reference["losses"][:steps],
@@ -5827,19 +5895,60 @@ def one_process_spread(tcfg, batch, steps: int, reference=None) -> list:
         b = dict(batch)
         if seed is not None:
             b["pixel_values"] = perturbed_pixels(b["pixel_values"], seed)
-        with torch.no_grad():
-            for n, p in state.trainable.items():
-                p.copy_(start[n])
-        state.opt_state, state.step = tx.init(state.trainable), 0
+        _restore(state, start, 0)
         dev = to_device(b, "cuda")
         with first_grad_squares() as grads:
             losses = [step_fn(state, dev, i)["loss"] for i in range(steps)]
         runs.append({"seed": seed, "losses": [float(x) for x in losses],
-                     "grad_norms": {n: math.sqrt(v) for n, v in
-                                    grads.host().items()}})
-    del state, model, start
+                     "grad_norms": grads.norms()})
+    del state, start
     torch.cuda.empty_cache()
     return runs
+
+
+def _train_model(tcfg, kernels: str, dev):
+    """(a training state at step 0 over the seeded init, its train step)
+    on the ``kernels`` path, built as ``finetune`` builds it."""
+    from vla_adapter_torch.models.layers import prepare_ste_
+    from vla_adapter_torch.models.vla import VLAModel
+    from vla_adapter_torch.train.loop import build_runtime, initial_state
+    from vla_adapter_torch.train.optim import make_optimizer
+    from vla_adapter_torch.train.step import init_train_state, make_train_step
+
+    rt = build_runtime(tcfg, kernels)
+    model = VLAModel(tcfg.model, rt, device="meta")
+    model.load_state_dict(initial_state(tcfg, rt, dev), strict=True,
+                          assign=True)
+    tx = make_optimizer(tcfg.optim)
+    state = init_train_state(model, tx, tcfg.lora.enabled)
+    prepare_ste_(model)
+    model.train()
+    return state, make_train_step(model, tx, tcfg)
+
+
+def _copy_opt(opt_state: dict) -> dict:
+    return {k: v.clone() if k == "count" else
+            {n: t.clone() for n, t in v.items()}
+            for k, v in opt_state.items()}
+
+
+def _snapshot(state) -> dict:
+    """The trainable tensors and the optimizer state, copied."""
+    return {"trainable": {n: p.detach().clone()
+                          for n, p in state.trainable.items()},
+            "opt_state": _copy_opt(state.opt_state)}
+
+
+def _restore(state, snap: dict, step: int) -> None:
+    """``state`` set to ``snap`` at ``step`` (the moments copied again: an
+    update works on them in place)."""
+    import torch
+
+    with torch.no_grad():
+        for n, p in state.trainable.items():
+            p.copy_(snap["trainable"][n])
+    state.opt_state = _copy_opt(snap["opt_state"])
+    state.step = step
 
 
 def stacked_norms(norms: dict) -> dict:
@@ -5858,7 +5967,8 @@ def stacked_norms(norms: dict) -> dict:
 def spread_check(got, ref, perturbed, what: str) -> dict:
     """``got`` (a list or dict of numbers) against ``ref`` within
     TENSOR_SPREAD_MARGIN times the largest |perturbed - ref| of each entry
-    over the perturbed runs; the readings, worst first."""
+    over the perturbed runs; the readings, worst first. ``what`` names the
+    entries in the error."""
     keys = sorted(ref) if isinstance(ref, dict) else range(len(ref))
     rows = []
     for k in keys:
@@ -5873,7 +5983,7 @@ def spread_check(got, ref, perturbed, what: str) -> dict:
            * r["spread"]]
     if bad:
         raise AssertionError(
-            f"tensor {TENSOR} {what}: {len(bad)} of {len(rows)} beyond "
+            f"{what}: {len(bad)} of {len(rows)} beyond "
             f"{TENSOR_SPREAD_MARGIN} x the one-ulp spread: {bad[:5]}")
     return {"entries": len(rows), "worst_ratio_to_spread": rows[0]["ratio"],
             "worst": rows[:5],
@@ -6409,9 +6519,9 @@ def phase_tensor_train(cfg, card: str, seed: int, reference=None
             "perturbed_grad_norms": norms[2:]}), flush=True)
         losses = spread_check(r0["losses"], ref,
                               [p["losses"] for p in perturbed],
-                              "loss at step")
+                              f"tensor {TENSOR} loss at step")
         grads = spread_check(norms[0], norms[1], norms[2:],
-                             "step-0 gradient norm of")
+                             f"tensor {TENSOR} step-0 gradient norm of")
         rec.update(losses=r0["losses"], one_process_losses=ref,
                    perturbed_losses=[p["losses"] for p in perturbed],
                    spread_seeds=list(TENSOR_SPREAD_SEEDS),
@@ -6564,7 +6674,7 @@ def tensor_kernel_summary(rec, launches):
 # memory is rank 0's; rank 0 streams each whole tensor from the host).
 FSDP_MEMORY_RUNS = (("siglip-224px+mx-bridge", 8, 1, 32, False),
                     ("vla-adapter+libero-spatial", 4, 0, 16, True))
-FSDP_MEMORY_STEPS = 2
+FSDP_MEMORY_STEPS = 1
 FSDP_MEMORY_NOTE = ("torch's fake process group: the collectives move no "
                     "data, so the gathered tensors hold no values; no value "
                     "is checked and no loss is read, only memory, launches "
@@ -6966,6 +7076,448 @@ def fsdp_memory_phase(card: str, seed: int, lap) -> tuple:
     lap("20 fsdp memory")
     return recs, paths
 
+
+# --- phase 21: the full-train recipe ---------------------------------------
+
+FULL_TRAIN_RECIPE = "prism-qwen25-dinosiglip-224px+0_5b+mx-oxe-magic-soup"
+FULL_TRAIN_STEPS = 6
+FULL_TRAIN_MICRO = 16        # rows a micro-batch: a rank's 32 as 2 of 16
+# The kernel path against the plain path (phases 11 and 21), from the
+# same seeded init, batch and head noise: the step-0 loss and each
+# trainable tensor's gradient norm as the optimizer got it (over every
+# micro-batch) at its first nonzero update, against the plain path's own
+# one-ulp spread (:func:`plain_spread`): the largest distance from the
+# plain run of a plain run with the pixels scaled by 1 +- 2^-8 (one bf16
+# ulp) and one ulp put on every element the attention puts out, forward
+# and backward (signs drawn from each of TENSOR_SPREAD_SEEDS), each run
+# taking an update from where the plain run stood before it. The pixels
+# alone, phase 19's yardstick, were too narrow here: the kernels differ
+# from the plain versions by up to an ulp at every attention call, which
+# reaches the early tower layers through every layer above them (a first
+# card run read 5 of phase 11's 922 tensors at 3.3-4.7 times the
+# pixels' spread). The margin: a lost gradient moves its norm by all of
+# it, a halved one by half, while the spreads read a small share of a
+# norm (the record counts the share of tensors where a halving would
+# exceed GRAD_SPREAD_MARGIN times the spread); phase 19's 3x the largest
+# of 3 runs failed 2 of 1,418 tensors (3.0x, 3.5x) and 7 of 589 (up to
+# 6.4x) on the card: were the kernel's rounding one more draw of the
+# spread's size, one tensor beyond 3x the largest of 3 would be a ~3%
+# event, beyond 10x one under 1e-3; and the kernel's reads smaller (on
+# an H100 with 4 seeds the ratios' median was 0.39-0.41, their 99th
+# percentile 1.71-1.72, the largest 2.84-2.91, over 1,253 and 1,279
+# tensors). Some norms are set by rounding: the towers' key biases,
+# whose gradient vanishes in exact arithmetic (the softmax ignores a
+# shift shared by all of a query's scores), and any tensor whose one-ulp
+# spread exceeds GRAD_NOISE_SHARE of its norm (on the card the head's
+# lora_a at step 1, 1e-14 to 1e-8 behind gates that start at 0, their
+# spreads 22-89% of them, the kernel path 0.7-2.2 times them away): those
+# are held below the margin times the largest norm the plain runs read
+# and, but for the key biases, above the smallest over the margin (on an
+# H100 the least kernel reading was 0.48 of the smallest in phase 11,
+# 0.76 in phase 21, against 0.038 of the largest: a gating factor's
+# scalar norm); so a lost gradient fails everywhere but on a key bias.
+# ``tests/test_torch_full_train.py`` and ``tests/test_torch_train.py``
+# plant a lost and a halved gradient on the CPU.
+GRAD_SPREAD_MARGIN = 10.0
+GRAD_NOISE_SHARE = 0.1
+
+
+def rounding_gradient(name: str) -> bool:
+    """A tower's key bias: its gradient is zero in exact arithmetic."""
+    return name.startswith("vision_backbone.") and name.endswith(
+        ".attn.k_proj.bias")
+
+
+def one_ulp(t, gen):
+    """``t`` with each nonzero finite element moved one ulp of its dtype up
+    or down in magnitude, a sign per element drawn from ``gen``."""
+    import torch
+
+    bits = {2: torch.int16, 4: torch.int32}[t.element_size()]
+    step = torch.randint(0, 2, t.shape, generator=gen, device=t.device,
+                         dtype=bits) * 2 - 1
+    moved = (t.contiguous().view(bits) + step).view(t.dtype)
+    return torch.where((t != 0) & torch.isfinite(t), moved, t)
+
+
+class attention_ulp_noise:
+    """Within the block the plain path's attention
+    (``ops.attention.plain_attention``, the forward, and
+    ``ops.attention.attention_bwd_reference``, the backward) has each
+    element of its output and of its dq, dk, dv moved by one ulp
+    (:func:`one_ulp`), the signs drawn from ``seed``: the rounding the
+    kernels are held to beside it (B1 within 0.0039, one bf16 ulp at 1),
+    put on the plain path at every call."""
+
+    def __init__(self, seed: int, dev):
+        self.seed, self.dev = seed, dev
+
+    def __enter__(self):
+        import torch
+
+        from vla_adapter_torch.ops import attention
+
+        gen = torch.Generator(device=self.dev).manual_seed(self.seed)
+        fwd = self._fwd = attention.plain_attention
+        bwd = self._bwd = attention.attention_bwd_reference
+        attention.plain_attention = lambda *a, **kw: one_ulp(fwd(*a, **kw),
+                                                             gen)
+        attention.attention_bwd_reference = lambda *a, **kw: tuple(
+            one_ulp(g, gen) for g in bwd(*a, **kw))
+        return self
+
+    def __exit__(self, *exc):
+        from vla_adapter_torch.ops import attention
+
+        attention.plain_attention = self._fwd
+        attention.attention_bwd_reference = self._bwd
+
+
+def plain_spread(tcfg, batch, updates: int, dev: str = "cuda") -> tuple:
+    """The plain path's runs that :func:`grads_vs_plain` holds a kernel
+    run against, from the seeded init: the batch as it is, and each of
+    TENSOR_SPREAD_SEEDS' pixels scaled by 1 +- 2^-8 with one ulp on every
+    output of the attention (:class:`attention_ulp_noise`), ``updates``
+    updates each, every run taking update u from the state (weights,
+    moments) the unperturbed run reached before it: a spread of that
+    update alone, not of the runs' drift. Returns (runs, each update's
+    starting state) for :func:`kernel_updates_from`."""
+    import contextlib
+
+    from vla_adapter_torch.train.step import to_device
+
+    state, step_fn = _train_model(tcfg, "plain", dev)
+    seeds = (None,) + TENSOR_SPREAD_SEEDS
+    runs = [{"seed": s, "losses": [], "grad_norms_by_update": []}
+            for s in seeds]
+    batches = {}
+    for s in seeds:
+        b = dict(batch)
+        if s is not None:
+            b["pixel_values"] = perturbed_pixels(b["pixel_values"], s)
+        batches[s] = to_device(b, dev)
+    starts, start = [], _snapshot(state)
+    for u in range(updates):
+        starts.append(start)
+        for run in runs:
+            _restore(state, start, u)
+            noise = (attention_ulp_noise(run["seed"], dev)
+                     if run["seed"] is not None
+                     else contextlib.nullcontext())
+            with first_grad_squares() as grads, noise:
+                loss = step_fn(state, batches[run["seed"]], u)["loss"]
+            run["losses"].append(float(loss))
+            run["grad_norms_by_update"].append(grads.norms())
+            if run["seed"] is None and u + 1 < updates:
+                after = _snapshot(state)
+        if u + 1 < updates:
+            start = after
+    del state
+    if dev == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()
+    return runs, starts
+
+
+def kernel_updates_from(tcfg, batch, starts: list, dev: str = "cuda"
+                        ) -> list:
+    """The kernel path's gradient norms at each update u >= 1 taken from
+    ``starts[u]`` (:func:`plain_spread`'s: where the plain run stood)."""
+    from vla_adapter_torch.train.step import to_device
+
+    if len(starts) < 2:
+        return []
+    state, step_fn = _train_model(tcfg, "kernel", dev)
+    device_batch, out = to_device(batch, dev), []
+    for u in range(1, len(starts)):
+        _restore(state, starts[u], u)
+        with first_grad_squares() as grads:
+            step_fn(state, device_batch, u)
+        out.append(grads.norms())
+    del state
+    return out
+
+
+def grads_vs_plain(kernel: dict, plain_runs: list) -> dict:
+    """The kernel path's first updates (``kernel``: {"losses",
+    "grad_norms_by_update"}, as :class:`first_grad_squares` reads them)
+    against the plain path's runs (:func:`plain_spread`, the unperturbed
+    run first): the step-0 loss, and each trainable tensor's gradient
+    norm at the first recorded update where the plain path's is not zero
+    (a LoRA ``lora_a`` at step 1: its ``lora_b`` starts at 0), each
+    reading with its spread (the largest distance of a perturbed plain
+    run from the plain run) and its ratio to it. A tensor whose plain
+    gradient is zero at every recorded update must read zero there; one
+    set by rounding (:func:`rounding_gradient`, or a spread beyond
+    GRAD_NOISE_SHARE of its norm) at most GRAD_SPREAD_MARGIN times the
+    largest norm the plain runs read and, unless a key bias's, at least
+    the smallest over GRAD_SPREAD_MARGIN. Returns the readings, worst
+    first, and the failures (:func:`check_grads_vs_plain`)."""
+    plain, *perturbed = plain_runs
+    ref, got = plain["grad_norms_by_update"], kernel["grad_norms_by_update"]
+    if len(got) < len(ref) or set(got[0]) != set(ref[0]):
+        return {"failures": [f"the kernel run recorded {len(got)} updates "
+                             f"of {len(got[0])} tensors, the plain run "
+                             f"{len(ref)} of {len(ref[0])}"]}
+    failures, rows, zero, rounding = [], [], [], {}
+
+    def reading(what, k, r, ps):
+        spread = max(abs(p - r) for p in ps)
+        diff = abs(k - r)
+        row = {"entry": what, "got": k, "ref": r, "diff": diff,
+               "spread": spread, "ratio": diff / spread if spread > 0 else (
+                   0.0 if diff == 0 else float("inf"))}
+        if not diff <= GRAD_SPREAD_MARGIN * spread:
+            failures.append(f"{what}: {row}")
+        return row
+
+    loss = reading("step-0 loss", kernel["losses"][0], plain["losses"][0],
+                   [p["losses"][0] for p in perturbed])
+    for n in sorted(ref[0]):
+        u = next((i for i, g in enumerate(ref) if g[n] > 0), None)
+        if u is None:
+            zero.append(n)
+            if any(g[n] != 0 for g in got[:len(ref)]):
+                failures.append(f"gradient of {n} is zero on the plain path, "
+                                f"not on the kernel path")
+            continue
+        spread = max(abs(r["grad_norms_by_update"][u][n] - ref[u][n])
+                     for r in perturbed)
+        # a key bias's norm, zero in exact arithmetic, may be zero in fp32
+        # too; any other gradient the plain path reads must arrive
+        if not (got[u][n] > 0 or rounding_gradient(n)):
+            failures.append(f"step-{u} gradient of {n} is zero on the "
+                            f"kernel path, {ref[u][n]} on the plain path")
+        if rounding_gradient(n) or spread > GRAD_NOISE_SHARE * ref[u][n]:
+            norms = [r["grad_norms_by_update"][u][n] for r in plain_runs]
+            rounding[n] = {"step": u, "got": got[u][n],
+                           "plain_min": min(norms), "plain_max": max(norms),
+                           "spread_share": spread / ref[u][n]}
+            if not (got[u][n] <= GRAD_SPREAD_MARGIN * max(norms) and (
+                    rounding_gradient(n)
+                    or got[u][n] >= min(norms) / GRAD_SPREAD_MARGIN)):
+                failures.append(f"rounding gradient of {n}: {rounding[n]}")
+            continue
+        rows.append(dict(reading(
+            f"step-{u} gradient norm of {n}", got[u][n], ref[u][n],
+            [p["grad_norms_by_update"][u][n] for p in perturbed]), step=u))
+    rows.sort(key=lambda r: -r["ratio"])
+    ratios = [r["ratio"] for r in rows]
+    # a halved gradient moves a norm by half of it: caught where that is
+    # beyond the margin times the spread
+    halving = [r["spread"] * GRAD_SPREAD_MARGIN < r["ref"] / 2 for r in rows]
+    return {"loss": loss, "tensors_held": len(rows),
+            "tensors_held_by_step": dict(collections.Counter(
+                r["step"] for r in rows)),
+            "worst": rows[:8], "worst_ratio_to_spread": ratios[0],
+            "ratio_quantiles": {q: ratios[int(len(ratios) * (1 - q))]
+                                for q in (0.5, 0.9, 0.99)},
+            "ratios_above": {m: sum(x > m for x in ratios)
+                             for m in (1, 3, GRAD_SPREAD_MARGIN)},
+            "halving_caught_share": sum(halving) / len(halving),
+            "zero_gradient_tensors": zero, "rounding_gradients": rounding,
+            "spread_seeds": [r["seed"] for r in perturbed],
+            "spread_margin": GRAD_SPREAD_MARGIN, "failures": failures}
+
+
+def check_grads_vs_plain(rec: dict, what: str) -> None:
+    if rec["failures"]:
+        raise AssertionError(f"{what}: {len(rec['failures'])} readings "
+                             f"beyond the plain path's one-ulp spread: "
+                             f"{rec['failures'][:5]}")
+
+
+def full_train_config(seed: int):
+    """``FULL_TRAIN_RECIPE``'s TrainConfig at one rank of its
+    expected_devices (its rows a rank as micro-batches of
+    FULL_TRAIN_MICRO), FULL_TRAIN_STEPS steps, the closing checkpoint
+    the only one."""
+    from vla_adapter_torch.core.experiments import get_experiment
+
+    exp = get_experiment(FULL_TRAIN_RECIPE)
+    tcfg = exp.to_train_config()
+    rows = exp.global_batch_size // exp.expected_devices
+    return dataclasses.replace(
+        tcfg, batch_size=rows,
+        grad_accumulation_steps=rows // FULL_TRAIN_MICRO,
+        seed=seed, log_freq=100, save_freq=10 * FULL_TRAIN_STEPS,
+        optim=dataclasses.replace(tcfg.optim, max_steps=FULL_TRAIN_STEPS))
+
+
+def phase_full_train(card: str, seed: int) -> tuple:
+    """Phase 21 (see the module docstring). Returns (record, launches of
+    the main run)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from vla_adapter_torch.data.dummy import make_dummy_batch
+    from vla_adapter_torch.models.vla import VLAModel
+    from vla_adapter_torch.ops import w8a8_matmul
+    from vla_adapter_torch.train import loop
+    from vla_adapter_torch.train.checkpoints import (
+        find_resume_checkpoint,
+        load_checkpoint,
+    )
+    from vla_adapter_torch.train.partition import mark_trainable_
+
+    dev = DEVICE
+    tcfg = full_train_config(seed)
+    cfg, accum = tcfg.model, tcfg.grad_accumulation_steps
+    if tcfg.lora.enabled or tcfg.base_int8 or not tcfg.remat_llm:
+        raise AssertionError(f"{FULL_TRAIN_RECIPE} is not a full-train "
+                             f"recipe over a float base with remat")
+    rec = {"card": card, "recipe": FULL_TRAIN_RECIPE,
+           "rows_per_rank": tcfg.batch_size, "micro_batches": accum,
+           "steps": FULL_TRAIN_STEPS, "seconds": {}}
+    t_last = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        rec["seconds"][name], t_last[0] = now - t_last[0], now
+
+    batch = make_dummy_batch(cfg, tcfg.batch_size,
+                             np.random.default_rng(seed), accum_steps=accum)
+    # B1 and B1-bwd at this recipe's LLM shape (its dummy batch's padding;
+    # the towers' shapes are phase 11's)
+    tv = batch["text_valid"][0]
+    valid = np.concatenate([tv[:, :1], np.ones((FULL_TRAIN_MICRO,
+                                                cfg.num_patches), np.int32),
+                            tv[:, 1:]], 1)
+    llm = cfg.llm
+    rec["b1"] = phase_kernel_vs_plain([(
+        "llm_full_train", FULL_TRAIN_MICRO, FULL_TRAIN_MICRO, llm.num_heads,
+        llm.num_kv_heads, valid.shape[1], llm.head_dim, valid, False, 0)])
+    rec["b1_bwd"] = phase_attention_bwd([(
+        "llm_full_train", FULL_TRAIN_MICRO, llm.num_heads, llm.num_kv_heads,
+        valid.shape[1], llm.head_dim, valid, False, 0)], card)
+    lap("1 attention")
+
+    meta = VLAModel(cfg, loop.build_runtime(tcfg), device="meta")
+    names = mark_trainable_(meta, tcfg.lora.enabled)
+    per_micro = expected_train_launches(meta)
+    if per_micro[w8a8_matmul.KERNEL_NAME] != 0 or len(names) != len(
+            list(meta.parameters())):
+        raise AssertionError(f"full train: {len(names)} trainable tensors "
+                             f"of {len(list(meta.parameters()))}, B4 "
+                             f"launches derived {per_micro}")
+    per_micro = {k: v for k, v in per_micro.items() if v}
+    rec["parameters"] = sum(p.numel() for p in meta.parameters())
+    del meta
+
+    root = Path(tempfile.mkdtemp(prefix="vla_full_train_"))
+    save, timed = loop.save_checkpoint, {}
+
+    def timed_save(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save(*args, **kw)
+        timed["write_s"] = time.perf_counter() - t0
+        return out
+
+    try:
+        # 1. the main path: finetune over every tensor, with the closing
+        # checkpoint
+        loop.save_checkpoint = timed_save
+        try:
+            with first_grad_squares() as grads:
+                state, launches, wall, memory = _train_run(
+                    tcfg, batch, FULL_TRAIN_STEPS, root / "main")
+        finally:
+            loop.save_checkpoint = save
+        losses = [h["loss"] for h in state.history]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"full train losses {losses}")
+        _check_train_launches(launches, per_micro, accum * FULL_TRAIN_STEPS,
+                              "full train")
+        step_s = statistics.median(h["step_time"]
+                                   for h in state.history[2:])
+        main = {"losses": losses, "median_s_per_step_3_6": step_s,
+                "samples_per_s": tcfg.batch_size / step_s, "wall_s": wall,
+                **memory, "launches": launches,
+                "launches_per_micro_batch_derived": per_micro,
+                "trainable_tensors": len(state.trainable),
+                "trainable_params": rec["parameters"],
+                "checkpoint_write_s": timed.get("write_s")}
+        print("full_train_main " + json.dumps(dict(main, card=card)),
+              flush=True)
+        rec["main"] = main
+        kernel = {"losses": losses, "grad_norms_by_update": [grads.norms()]}
+        lap("2 finetune")
+
+        # 2. the checkpoint read back by load_checkpoint: every tensor and
+        # both moments bit for bit with the state that wrote it
+        ckpt = find_resume_checkpoint(root / "main" / tcfg.run_id)
+        files = sorted(p.name for p in ckpt.iterdir())
+        written = {n: p.detach().clone() for n, p in state.trainable.items()}
+        moments = state.opt_state
+        t0 = time.perf_counter()
+        load_checkpoint(ckpt, state)
+        read_s = time.perf_counter() - t0
+        bad = [n for n, p in state.trainable.items()
+               if not torch.equal(p, written[n])]
+        for part in ("mu", "nu"):
+            if set(state.opt_state[part]) != set(written):
+                raise AssertionError(f"checkpoint: {part} misses tensors")
+            bad += [f"{part}/{n}" for n, v in state.opt_state[part].items()
+                    if not torch.equal(v.to(dev), moments[part][n])]
+        if bad or state.step != FULL_TRAIN_STEPS or \
+                "frozen.safetensors" in files or \
+                int(state.opt_state["count"]) != int(moments["count"]):
+            raise AssertionError(f"full-train checkpoint: {len(bad)} tensors "
+                                 f"differ ({bad[:5]}), step {state.step}, "
+                                 f"files {files}")
+        rec["checkpoint"] = {
+            "files": files, "bytes": sum(p.stat().st_size
+                                         for p in ckpt.iterdir()),
+            "write_s": timed.get("write_s"), "read_s": read_s,
+            "tensors_and_moments_bitwise": True}
+        print("full_train_checkpoint " + json.dumps(dict(rec["checkpoint"],
+                                                        card=card)),
+              flush=True)
+        del state, written, moments
+        shutil.rmtree(root)
+        torch.cuda.empty_cache()
+        lap("3 checkpoint")
+
+        # 3. the kernel path against the plain path's one-ulp spread
+        runs = plain_spread(tcfg, batch, 1, dev)[0]
+        rec["vs_plain"] = grads_vs_plain(kernel, runs)
+        print("full_train_vs_plain " + json.dumps(dict(
+            rec["vs_plain"], plain_losses=[r["losses"] for r in runs],
+            card=card)), flush=True)
+        check_grads_vs_plain(rec["vs_plain"], "full train")
+        lap("4 vs plain")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("full_train_seconds " + json.dumps(rec["seconds"]), flush=True)
+    return rec, launches
+
+
+def full_train_phase(card: str, seed: int, lap) -> tuple:
+    """Phase 21, lapped: (record, launches per step)."""
+    t0 = time.perf_counter()
+    rec, launches = phase_full_train(card, seed)
+    m, ckpt = rec["main"], rec["checkpoint"]
+    worst = rec["vs_plain"]["worst_ratio_to_spread"]
+    print(f"full_train {FULL_TRAIN_RECIPE}: {rec['parameters'] / 1e9:.3f} B "
+          f"parameters, all trained, {rec['rows_per_rank']} rows a step as "
+          f"{rec['micro_batches']} x {FULL_TRAIN_MICRO}: "
+          f"{m['median_s_per_step_3_6']:.3f} s/step (median of steps 3-6), "
+          f"{m['samples_per_s']:.1f} samples/s, peak "
+          f"{m['max_memory_allocated_bytes'] / 2**30:.2f} GiB; checkpoint "
+          f"{ckpt['bytes'] / 1e9:.2f} GB written in {ckpt['write_s']:.1f} s, "
+          f"read in {ckpt['read_s']:.1f} s; kernel vs plain worst "
+          f"{worst:.2f} x the spread ({card})", flush=True)
+    print(f"phase 21 seconds: {time.perf_counter() - t0:.1f} ({card})",
+          flush=True)
+    lap("21 full train")
+    return rec, {k: v // FULL_TRAIN_STEPS for k, v in launches.items()}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -6974,8 +7526,8 @@ def main() -> int:
                         help="also profile one B=1 request per tier, eager "
                              "and replayed (torch.profiler)")
     parser.add_argument("--only", default="",
-                        help="comma-separated phases among 12-20 to run "
-                             "after the build, skipping phases 2-11; such a "
+                        help="comma-separated phases among 11-21 to run "
+                             "after the build, skipping phases 2-10; such a "
                              "partial run prints no kernels or ok line")
     # phase 18's training under a process group runs in a child process
     # started with this flag (the file its record goes to), and phase 19's
@@ -6990,8 +7542,8 @@ def main() -> int:
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
     only = {int(p) for p in args.only.split(",") if p}
-    if only - set(range(12, 21)):
-        parser.error(f"--only takes phases among 12-20, got {args.only}")
+    if only - set(range(11, 22)):
+        parser.error(f"--only takes phases among 11-21, got {args.only}")
 
     sys.path.insert(0, HERE)
     import torch
@@ -7043,6 +7595,12 @@ def main() -> int:
 
     if only:
         causal = {}
+        if 11 in only:
+            from vla_adapter_torch.core.config import VLAConfig
+
+            causal["train"] = phase_train(VLAConfig(), card, args.seed,
+                                          profile=args.profile)[0]
+            lap("11 train")
         if only & {12, 13, 14, 15}:
             cfg, predictor, n_params, _ = build_flagship(args.seed)
             causal = causal_language_path(predictor, cfg, card, args.seed,
@@ -7068,6 +7626,8 @@ def main() -> int:
         if 20 in only:
             causal["fsdp_memory"], _ = fsdp_memory_phase(card, args.seed,
                                                          lap)
+        if 21 in only:
+            causal["full_train"], _ = full_train_phase(card, args.seed, lap)
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"card": card, "phase_s": phase_s, **causal}, f,
@@ -7080,7 +7640,8 @@ def main() -> int:
     # 2. attention kernel vs plain at the main path's shapes
     cfg, predictor, n_params, rng = build_flagship(args.seed)
     print(f"flagship: {n_params / 1e9:.3f} B parameters in bf16", flush=True)
-    records = phase_kernel_vs_plain(attention_shapes(cfg, predictor.tokenize))
+    records = phase_kernel_vs_plain(attention_shapes(cfg, predictor.tokenize)
+                                    + [seven_b_attention_shape(args.seed)[0]])
     lap("2 attention")
 
     # 3. the w8a8 kernels vs plain at the w8a8 main path's shapes
@@ -7147,7 +7708,7 @@ def main() -> int:
     # 17. finetuning on demonstrations through the RLDS pipeline
     rlds, rlds_launches = rlds_phase(
         card, args.seed, lap,
-        dummy_s_per_step=train["main"]["median_s_per_step_3_10"])
+        dummy_s_per_step=train["main"]["median_s_per_step_from_3"])
 
     # 18. closed-loop evaluation and training under a process group, on
     # the flagship built again (phase 16 freed it)
@@ -7165,6 +7726,9 @@ def main() -> int:
     # 20. "fsdp" memory: rank 0 of the 7B full-train recipe at 8 ranks and
     # of the flagship LoRA recipe at 4, under the fake process group
     fsdp_memory, fsdp_paths = fsdp_memory_phase(card, args.seed, lap)
+
+    # 21. the full-train recipe: every tensor trained over a float base
+    full_train, full_train_launches = full_train_phase(card, args.seed, lap)
     kernels = (kernel_summary(records, launches)
                + w8a8_kernel_summary(w8a8_records, w8a8_launches)
                + megalayer_kernel_summary(w8a8_records, w8a8_launches)
@@ -7174,7 +7738,8 @@ def main() -> int:
              "server": server_launches, "original_film": original_launches,
              "train": train_launches, **causal["launches_by_path"],
              **zoo_paths, "finetune_rlds": rlds_launches, **eval_paths,
-             "finetune_tensor": tensor_launches, **fsdp_paths}
+             "finetune_tensor": tensor_launches, **fsdp_paths,
+             "finetune_full": full_train_launches}
     for entry in kernels:
         entry["launches_by_path"] = {path: counts.get(entry["name"], 0)
                                      for path, counts in paths.items()}
@@ -7189,7 +7754,7 @@ def main() -> int:
                        "train": train, "attention_bwd_shapes": bwd_records,
                        **causal, "zoo": zoo, "finetune_rlds": rlds,
                        "eval_group": eval_group, "tensor": tensor,
-                       "fsdp_memory": fsdp_memory,
+                       "fsdp_memory": fsdp_memory, "full_train": full_train,
                        "kernels": kernels, "phase_s": phase_s}, f, indent=1)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

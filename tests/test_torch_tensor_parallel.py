@@ -1,7 +1,10 @@
 """The "tensor" mesh axis of the port (parallel/tensor.py, the split
 Dense, attention and head, and the train step's reductions) against the
 unsplit Dense, one process and the JAX package's GSPMD train step, on the
-CPU over gloo.
+CPU over gloo: the weight-only modes. Their straight-through twins are in
+``test_torch_tensor_parallel_ste.py``, the straight-through recipe on
+"fsdp" and HSDP in ``test_torch_tensor_parallel_fsdp_ste.py``; the runs
+all three share, and their tolerances, in ``tests/torch_tensor_modes.py``.
 
 * The split Dense at tensor 2, each branch (float, weight-only int8, the
   straight-through w8a8 product) in both modes ("col", "row"), with LoRA
@@ -19,26 +22,16 @@ CPU over gloo.
   on the meshes (1, 1, 2), (1, 1, 4) (Qwen2's 4/2 and SigLIP's 2 heads are
   not head-aligned there: gathered), (2, 1, 2) and (1, 2, 2), 2 steps each,
   every frozen Dense on the weight-only upcast (the default
-  act_int8_min_dim, above the tiny widths), and again ("_ste") every one
-  on the straight-through w8a8 product (act_int8_min_dim 1: the split
-  products' int32 sums, the column splits' dx under recompute, inside
-  whole train steps), against the JAX package's
+  act_int8_min_dim, above the tiny widths), against the JAX package's
   train step on a JAX mesh of the same shape and against the port in one
-  process at the same act_int8_min_dim: the weight-only runs at
-  test_torch_sharded_training's RESULT_ATOL in the losses and TENSOR_ATOL
-  in the trained tensors, the straight-through ones at step 0, at
-  RESULT_ATOL in the loss and STE_GRAD_RTOL in the gradients (int8
-  rounding flips: see there); on (1, 1, 2) also 2-way
+  process: test_torch_sharded_training's RESULT_ATOL in the losses and
+  TENSOR_ATOL in the trained tensors; on (1, 1, 2) also 2-way
   accumulation against one process, a checkpoint resumed bit for bit,
   the checkpoint loaded by one process, and each rank's parts of the
   frozen base equal to ``param_pspec``'s slices of the whole quantized
-  tensors.
-* The straight-through recipe also on (1, 2, 1) and (2, 2, 1) ("fsdp"
-  and HSDP, no tensor split), held as the "_ste" tensor meshes are. On
-  every mesh with an "fsdp" dim each rank holds only its parts of the
-  int8 base on "fsdp" (``weight_q``, ``weight_qt`` and a row split's
-  ``weight_qk``; on (1, 2, 2) a column split's ``weight_q`` on its in
-  dim): test_torch_sharded_training's ``hold_int8_placement``.
+  tensors. On (1, 2, 2) each rank holds only its parts of the int8 base
+  on "fsdp" (``weight_q``; a column split's on its in dim):
+  test_torch_sharded_training's ``hold_int8_placement``.
 * A tensor group's ranks draw the same rows, other ("data", "fsdp")
   coordinates other rows.
 
@@ -46,213 +39,33 @@ The JAX package's steps compile beside the gloo groups, which start as
 soon as the init is written; each group runs under one deadline.
 """
 
-import concurrent.futures
-import dataclasses
-import types
-
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import vla_adapter_tpu.core.config as jc
-import vla_adapter_tpu.core.constants as jk
 from tests import torch_dist_worker as worker
-from tests.test_torch_sharded_training import (
-    RESULT_ATOL,
-    TCFG,
-    TENSOR_ATOL,
-    _jax_runtime,
-    _reference_init,
-    hold_int8_placement,
-)
+from tests import torch_tensor_modes as tm
+from tests.test_torch_sharded_training import TCFG
+from tests.torch_tensor_modes import DENSE_RTOL, _hold, _one_process, _ranks
 from vla_adapter_torch.parallel import sharding as tsh
-from vla_adapter_torch.weights.from_jax import from_jax_params
-
-TENSOR_MODES = ("tp2", "tp4", "dp_tp", "fsdp_tp", "tp2_ste", "tp4_ste",
-                "dp_tp_ste", "fsdp_tp_ste", "fsdp_ste", "hsdp_ste")
-# fp32 sums over the group in another order than the unsplit product's,
-# relative to the largest value compared: a few ulps of 2^-24 per term
-DENSE_RTOL = 1e-6
-# The straight-through recipe (every frozen Dense requantizing its input
-# in the forward and its output gradient in the backward) turns those
-# ulps into int8 rounding flips: a value within an ulp of a half level
-# rounds one way in one run and the other way in another, which moves it
-# by a whole level, 1/127 of its row's largest. On this recipe the port in
-# one process and the JAX package read the step-0 loss 1.2e-7 apart but
-# their step-0 gradients up to 9.7e-3 of a tensor's largest apart (2.0e-3
-# for the split port against one process), and Adam's near-sign first
-# update carries a flipped gradient sign into a trained tensor as 2 lr,
-# and into the next loss (8.8e-5 apart on (2, 1, 2)): so these runs are
-# held at step 0, the loss at RESULT_ATOL and each gradient within
-# STE_GRAD_RTOL (two int8 levels) of its tensor's largest value; a sum
-# over the group at the wrong scale, or one made twice, moves a gradient
-# by its own size.
-STE_GRAD_RTOL = 2 / 127
-
-
-def _jax_train(params, unit, root) -> dict:
-    """The JAX package's train step from the float tree ``params`` (its
-    frozen base quantized as its finetune quantizes it), 2 steps on a JAX
-    mesh of each tensor mode's shape (state and batch placed by its
-    ``shard_params``/``shard_batch``); the head's noise is
-    ``train_noise_std`` times ``unit``. (Accumulation: the port's one
-    process, held against the JAX package's step in
-    test_torch_sharded_training, is the reference.)"""
-    from vla_adapter_tpu.models import action_head as jah
-    from vla_adapter_tpu.models.quantize import quantize_params_jax
-    from vla_adapter_tpu.models.vla import VLAModel as JaxVLA
-    from vla_adapter_tpu.parallel.sharding import (
-        create_mesh,
-        shard_batch,
-        shard_params,
-    )
-    from vla_adapter_tpu.train import optim as joptim
-    from vla_adapter_tpu.train import partition as jpart
-    from vla_adapter_tpu.train import step as jstep
-
-    fixed = types.SimpleNamespace(random=types.SimpleNamespace(
-        normal=lambda key, shape, dtype: jnp.asarray(unit, dtype)))
-    trainable, frozen = jpart.split_trainable(params, True)
-    frozen = jax.jit(quantize_params_jax)(frozen)
-    runs = []   # (tag, lowered step, state, batch)
-    cfg = worker.train_cfg(root, "jax", C=jc, K=jk)
-    tx = joptim.make_optimizer(cfg.optim)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jah, "jax", fixed)
-        for tag in TENSOR_MODES:
-            rt = _jax_runtime(cfg)
-            if tag in worker.ACT_INT8_MIN_DIM:
-                rt = dataclasses.replace(
-                    rt, act_int8_min_dim=worker.ACT_INT8_MIN_DIM[tag])
-            step_fn = jax.jit(jstep.make_train_step(JaxVLA(cfg.model, rt),
-                                                    tx, cfg))
-            mesh = create_mesh(*worker.MODES[tag])
-            state = jstep.TrainState(
-                step=jnp.zeros((), jnp.int32),
-                trainable=shard_params(trainable, mesh),
-                frozen=shard_params(frozen, mesh),
-                opt_state=jax.tree.map(
-                    lambda x: shard_params(x, mesh)
-                    if isinstance(x, dict) else x, tx.init(trainable),
-                    is_leaf=lambda x: isinstance(x, dict)))
-            # every leaf on the mesh (the step count replicated), as the
-            # compiled step takes it
-            state = jax.device_put(state, jax.tree.map(
-                lambda x: x.sharding if isinstance(
-                    x.sharding, jax.sharding.NamedSharding)
-                else jax.sharding.NamedSharding(
-                    mesh, jax.sharding.PartitionSpec()), state))
-            batch = shard_batch(jax.tree.map(
-                jnp.asarray, worker.global_batch(cfg, 1)), mesh)
-            lowered = step_fn.lower(state, batch,
-                                    jax.random.key(cfg.seed + 1))
-            # the step-0 gradients, as the step takes them, of the
-            # straight-through recipes
-            grad = None
-            if tag in worker.ACT_INT8_MIN_DIM:
-                loss_fn = jstep.make_loss_fn(JaxVLA(cfg.model, rt))
-                grad = jax.jit(jax.grad(lambda tr, fr, b, r: loss_fn(
-                    tr, fr, b, r)[0])).lower(
-                        state.trainable, state.frozen, batch,
-                        jax.random.fold_in(jax.random.key(cfg.seed + 1), 0))
-            runs.append((tag, lowered, grad, state, batch))
-    with concurrent.futures.ThreadPoolExecutor(2 * len(runs)) as pool:
-        compiled = list(pool.map(lambda lo: lo and lo.compile(),
-                                 [lo for r in runs for lo in r[1:3]]))
-    out = {}
-    for i, (tag, _, _, state, batch) in enumerate(runs):
-        step, grad = compiled[2 * i:2 * i + 2]
-        rng, losses = jax.random.key(cfg.seed + 1), []
-        out[tag] = {}
-        if grad is not None:
-            out[tag]["first_grads"] = from_jax_params(jax.device_get(grad(
-                state.trainable, state.frozen, batch,
-                jax.random.fold_in(rng, 0))), TCFG)
-        placed = jax.tree.map(lambda x: x.sharding, state)
-        for i in range(cfg.optim.max_steps):
-            state, m = step(jax.device_put(state, placed), batch,
-                            jax.random.fold_in(rng, i))
-            losses.append(float(m["loss"]))
-        out[tag].update(losses=losses, trained=from_jax_params(
-            jax.device_get(state.trainable), TCFG))
-    return out
 
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """(the init's directory and float state, the started gloo groups by
-    mode, the JAX package's runs)."""
-    root = tmp_path_factory.mktemp("ref")
-    params, unit = _reference_init(root)
-    groups = {mode: worker.start(tmp_path_factory.mktemp(mode), "train",
-                                 int(np.prod([abs(d) for d in
-                                              worker.MODES[mode]])),
-                                 mode, root)
-              for mode in TENSOR_MODES}
-    try:
-        yield root, groups, _jax_train(params, unit, root)
-    finally:
-        for _, procs, _ in groups.values():
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+    """(the init's directory and float state, the started gloo groups of
+    WEIGHT_ONLY_MODES, the JAX package's runs of them)."""
+    yield from tm.start_reference(tmp_path_factory, tm.WEIGHT_ONLY_MODES)
 
 
 @pytest.fixture(scope="module")
 def one_process_runs(tmp_path_factory, reference):
-    """The port's runs in one process, the head noise as the workers', by
-    act_int8_min_dim (None: the default)."""
-    from vla_adapter_torch.models import vla
-
-    root, _, _ = reference
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(vla, "head_noise",
-                   worker.fixed_head_noise(np.load(root / "noise.npy")))
-        return {d: worker.single_process_runs(
-            tmp_path_factory.mktemp("single"),
-            torch.load(root / "params.pt"), min_dim=d)
-            for d in (None, worker.STE_MIN_DIM)}
-
-
-def _one_process(one_process_runs, mode):
-    return one_process_runs[worker.ACT_INT8_MIN_DIM.get(mode)]
+    return tm.one_process_runs(tmp_path_factory, reference,
+                               tm.WEIGHT_ONLY_MODES)
 
 
 @pytest.fixture(scope="module")
 def ranks(reference):
-    """Each mode's rank records (its group waited for once)."""
-    _, groups, _ = reference
-    return {}, groups
-
-
-def _ranks(ranks, mode):
-    cache, groups = ranks
-    if mode not in cache:
-        cache[mode] = worker.wait(*groups[mode])
-    return cache[mode]
-
-
-def _hold_grads(got, want, what):
-    """Each gradient within STE_GRAD_RTOL of its tensor's largest value."""
-    assert set(got) == set(want)
-    for n, v in want.items():
-        v = np.asarray(v)
-        err = float(np.abs(np.asarray(got[n]) - v).max())
-        bound = STE_GRAD_RTOL * float(np.abs(v).max())
-        assert err <= bound, (what, n, err, bound)
-
-
-def _hold(got_losses, got_trained, want_losses, want_trained, what):
-    np.testing.assert_allclose(got_losses, want_losses, rtol=0,
-                               atol=RESULT_ATOL, err_msg=f"{what} losses")
-    assert set(got_trained) == set(want_trained)
-    for n, v in want_trained.items():
-        np.testing.assert_allclose(
-            np.asarray(got_trained[n]), np.asarray(v), rtol=0,
-            atol=TENSOR_ATOL, err_msg=f"{what} {n}")
+    return tm.ranks_of(reference)
 
 
 # --- the split Dense -----------------------------------------------------------
@@ -309,7 +122,7 @@ def test_split_dense_matches_unsplit(ranks, branch, mode):
 
 # --- the finetune on a tensor mesh -----------------------------------------------
 
-@pytest.mark.parametrize("mode", TENSOR_MODES)
+@pytest.mark.parametrize("mode", tm.WEIGHT_ONLY_MODES)
 def test_tensor_mesh_training_matches_jax_and_one_process(
         reference, one_process_runs, ranks, mode):
     """2 steps on the mesh against the JAX package's train step on a JAX
@@ -317,43 +130,7 @@ def test_tensor_mesh_training_matches_jax_and_one_process(
     act_int8_min_dim (every frozen Dense straight-through, or every one
     weight-only); every rank reads the same losses and holds the same
     whole trained tensors; rank 0 wrote the files one process writes."""
-    _, _, jax_runs = reference
-    one_process = _one_process(one_process_runs, mode)
-    recs = _ranks(ranks, mode)
-    shape = worker.MODES[mode]
-    world = int(np.prod(shape))
-    first = recs[0]
-    for r, rec in enumerate(recs):
-        assert (rec["rank"], rec["world"]) == (r, world)
-        assert rec["mesh"] == dict(zip(tsh.MESH_AXES, shape))
-        assert rec["losses"] == first["losses"]
-        for n, v in rec["trained"].items():
-            assert torch.equal(first["trained"][n], v), (r, n)
-    assert bool(first["tensor_dims"]) == (shape[2] > 1), "the split"
-    ste = mode in worker.ACT_INT8_MIN_DIM
-    assert (first["ste"] > 0) == ste, (mode, first["ste"])
-    jax_run = jax_runs[mode]
-    if ste:   # see STE_GRAD_RTOL
-        for want in (one_process, jax_run):
-            np.testing.assert_allclose(first["losses"][0],
-                                       want["losses"][0], rtol=0,
-                                       atol=RESULT_ATOL)
-        for r, rec in enumerate(recs):
-            _hold_grads(rec["first_grads"], one_process["first_grads"],
-                        f"{mode} rank {r} vs one process")
-        _hold_grads(first["first_grads"], jax_run["first_grads"],
-                    f"{mode} vs JAX")
-    else:
-        _hold(first["losses"], first["trained"], one_process["losses"],
-              one_process["trained"], f"{mode} vs one process")
-        _hold(first["losses"], first["trained"], jax_run["losses"],
-              jax_run["trained"], f"{mode} vs JAX")
-    assert first["checkpoint"] == one_process["checkpoint"]
-    if mode.startswith("fsdp_tp"):
-        # FSDP2 on the local parts, on the dim after the tensor dim
-        assert first["fsdp_dims"]
-        assert not set(first["fsdp_dims"].items()) & \
-            set(first["tensor_dims"].items())
+    tm.hold_mesh_training(reference, one_process_runs, ranks, mode)
 
 
 def test_tensor_accumulation_and_resume(one_process_runs, ranks):
@@ -481,19 +258,10 @@ def test_tensor_axis_needs_a_process_group(tmp_path):
         finetune(cfg, device="cpu", max_steps=1)
 
 
-@pytest.mark.parametrize("mode", ["fsdp_tp", "fsdp_tp_ste", "fsdp_ste",
-                                  "hsdp_ste"])
+@pytest.mark.parametrize("mode", ['fsdp_tp'])
 def test_int8_placement_is_param_pspec(reference, ranks, mode):
     """On an "fsdp" dim each rank's int8 base is ``param_pspec``'s part
     (after the tensor split): ``weight_q``, and under the straight-through
     product ``weight_qt`` and a row split's ``weight_qk``; on (1, 2, 2)
     some column split's ``weight_q`` is cut on its in dim."""
-    root, _, _ = reference
-    recs = _ranks(ranks, mode)
-    leaves = hold_int8_placement(recs, root, mode)
-    ste = mode in worker.ACT_INT8_MIN_DIM
-    assert ("weight_qt" in leaves) == ste
-    assert ("weight_qk" in leaves) == (ste and mode.startswith("fsdp_tp"))
-    if mode.startswith("fsdp_tp"):
-        assert any(n.endswith(".weight_q") and d == 1
-                   for n, (d, _) in recs[0]["int8_parts"]["tensors"].items())
+    tm.hold_int8_mode(reference, ranks, mode)

@@ -34,6 +34,7 @@ import vla_adapter_torch.core.constants as tk
 import vla_adapter_tpu.core.config as jc
 import vla_adapter_tpu.core.constants as jk
 from tests.test_torch_predict import _images, _stats
+from tests.test_torch_full_train import one_torch_thread  # noqa: F401
 from tests.torch_tiny import tiny_cfg
 from vla_adapter_tpu.core import experiments as jexp
 from vla_adapter_tpu.data import dummy as jdummy
@@ -780,3 +781,80 @@ def test_chip_smoke_kernel_vs_plain_check_catches_a_planted_fault(
     else:
         with pytest.raises(AssertionError, match="upstream"):
             chip_smoke.check_kernel_vs_plain(rec)
+
+
+@pytest.fixture(scope="module")
+def lora_spread(one_torch_thread):
+    """The tiny VLA under phase 11's recipe config (LoRA over the int8
+    base, rank 4), a batch, and the plain path's runs of two updates and
+    where each update started (``plain_spread``)."""
+    import chip_smoke
+
+    tcfg = dataclasses.replace(
+        chip_smoke.train_config(0), model=tiny_cfg(tc, tk), batch_size=2,
+        lora=tc.LoRAConfig(rank=RANK, alpha=RANK * SCALE))
+    assert tcfg.base_int8 and tcfg.lora.enabled
+    batch = tdummy.make_dummy_batch(tcfg.model, 2, np.random.default_rng(0))
+    runs, starts = chip_smoke.plain_spread(tcfg, batch, 2, dev="cpu")
+    return tcfg, batch, runs, starts
+
+
+# a head's lora_a whose step-1 norm the plain runs' one-ulp spread
+# dominates (26% of it): held within 10x of the plain runs' norms
+NOISY_LORA_A = "action_head.blocks.0.v_self.lora_a"
+
+
+@pytest.mark.parametrize(
+    "fault", [None, ("language_model.layers.0.self_attn.q_proj.lora_a", 0.0),
+              ("language_model.layers.0.self_attn.q_proj.lora_b", 0.5),
+              (NOISY_LORA_A, 0.0), (NOISY_LORA_A, 0.05)],
+    ids=["as_is", "lora_a_zeroed", "lora_b_halved", "noisy_lora_a_zeroed",
+         "noisy_lora_a_scaled"])
+def test_chip_smoke_grads_vs_plain_check_catches_a_planted_fault(
+        one_torch_thread, lora_spread, fault, tmp_path):
+    """chip_smoke.py's phase 11 check of each trainable tensor's gradient
+    (``grads_vs_plain``: the main run's first update, and the kernel
+    path's second from where the plain run stood, against the plain
+    path's one-ulp spread), on the tiny VLA's LoRA recipe over the int8
+    base through ``finetune`` on the CPU (the kernel path's wrappers on
+    their plain versions): it passes as it is, every lora_a held at step
+    1 (its gradient is zero at step 0, lora_b starting at 0) and
+    everything else at step 0, and fails once the kernel path's backward
+    zeroes a lora_a's gradient or halves a lora_b's
+    (``tests/torch_faults.py:scaled_gradient``), and where the spread
+    dominates the norm (NOISY_LORA_A, held as rounding) once its gradient
+    is zeroed or scaled by 0.05."""
+    import contextlib
+
+    import chip_smoke
+    from tests.torch_faults import scaled_gradient
+
+    tcfg, batch, runs, starts = lora_spread
+    tcfg = dataclasses.replace(tcfg, run_root_dir=str(tmp_path))
+    name = fault[0] if fault else None
+    with (scaled_gradient(name, fault[1]) if fault
+          else contextlib.nullcontext()):
+        with chip_smoke.first_grad_squares() as grads:
+            state = tloop.finetune(tcfg, data_iter=itertools.repeat(batch),
+                                   max_steps=1, device="cpu")
+        later = chip_smoke.kernel_updates_from(tcfg, batch, starts, "cpu")
+    kernel = {"losses": [h["loss"] for h in state.history],
+              "grad_norms_by_update": [grads.norms(), *later]}
+    rec = chip_smoke.grads_vs_plain(kernel, runs)
+    if fault is None:
+        chip_smoke.check_grads_vs_plain(rec, "finetune")
+        lora_a = [n for n in state.trainable if n.endswith("lora_a")]
+        assert lora_a and all(kernel["grad_norms_by_update"][0][n] == 0
+                              for n in lora_a)
+        held = {n.split(" of ")[1]: r["step"] for r in rec["worst"]
+                for n in [r["entry"]]}
+        assert rec["tensors_held"] + len(rec["rounding_gradients"]) + len(
+            rec["zero_gradient_tensors"]) == len(state.trainable)
+        assert all(step == n.endswith("lora_a") for n, step in held.items())
+        assert rec["tensors_held_by_step"][1] + sum(
+            n in rec["rounding_gradients"] for n in lora_a) == len(lora_a)
+        assert rec["rounding_gradients"][NOISY_LORA_A]["step"] == 1
+    else:
+        assert any(name in f for f in rec["failures"])
+        with pytest.raises(AssertionError, match=name):
+            chip_smoke.check_grads_vs_plain(rec, "finetune")

@@ -655,10 +655,36 @@ def calvin_scenario(args) -> dict:
             "gathered": gathered["all"], "direct_local": local}
 
 
+# rank 0's time inside ``local_zero_first``: long enough that another
+# rank which did not wait for it would enter before it left
+ZERO_FIRST_HOLD_S = 0.5
+
+
+def zero_first_scenario(args) -> dict:
+    """Each rank through ``utils.overwatch.local_zero_first``, appending
+    "enter <rank>" and "exit <rank>" to ``OUT/order.log`` (one write each,
+    O_APPEND) around its body; rank 0 stays ZERO_FIRST_HOLD_S inside."""
+    from vla_adapter_torch.utils.overwatch import local_zero_first
+
+    log = Path(args.out) / "order.log"
+
+    def note(what):
+        with open(log, "a") as f:
+            f.write(f"{what} {args.rank}\n")
+
+    with local_zero_first():
+        note("enter")
+        if args.rank == 0:
+            time.sleep(ZERO_FIRST_HOLD_S)
+        note("exit")
+    return {"rank": args.rank}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--scenario", choices=("train", "calvin",
-                                               "one_rank", "fsdp_layers"))
+                                               "one_rank", "fsdp_layers",
+                                               "zero_first"))
     parser.add_argument("--mode", choices=tuple(MODES), default="data")
     parser.add_argument("--world", type=int)
     parser.add_argument("--rank", type=int)
@@ -689,6 +715,8 @@ def main() -> None:
             result = train_scenario(args, init)
         elif args.scenario == "fsdp_layers":
             result = fsdp_layers_scenario(args)
+        elif args.scenario == "zero_first":
+            result = zero_first_scenario(args)
         else:
             result = calvin_scenario(args)
     torch.save(result, Path(args.out) / f"rank{args.rank}.pt")

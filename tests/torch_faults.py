@@ -1,5 +1,7 @@
 """Deliberately wrong attention backwards (no JAX), to show that a check
-of the finetune's gradients catches a faulty backward.
+of the finetune's gradients catches a faulty backward; and
+:func:`scaled_gradient`, one trainable tensor's gradient scaled by its
+backward.
 
 Each has the signature of ``ops.attention_kernel.attention_bwd`` (the
 forward's ``lse`` accepted and not used) and computes the vjp of
@@ -10,6 +12,8 @@ the group. Put one in place of ``ops.attention.attention_bwd`` (the
 kernel path) or ``ops.attention.attention_bwd_reference`` (the plain
 path) with ``monkeypatch.setattr``.
 """
+
+import contextlib
 
 import torch
 
@@ -63,3 +67,26 @@ def attention_bwd_without_gqa_sum(q, k, v, valid, dout, *, causal=False,
 
 FAULTS = {"without_d_term": attention_bwd_without_d_term,
           "without_gqa_sum": attention_bwd_without_gqa_sum}
+
+
+@contextlib.contextmanager
+def scaled_gradient(name: str, factor: float):
+    """Within the block every training state started by
+    ``train.step.init_train_state`` (``finetune``'s, and chip_smoke's own
+    runs') gets ``factor`` times the gradient of its tensor ``name`` (0:
+    lost, 0.5: halved) from autograd, through a hook on that tensor: a
+    backward that dropped or halved it."""
+    from vla_adapter_torch.train import loop, step
+
+    init = step.init_train_state
+
+    def faulty(*args, **kw):
+        state = init(*args, **kw)
+        state.trainable[name].register_hook(lambda g: g * factor)
+        return state
+
+    step.init_train_state = loop.init_train_state = faulty
+    try:
+        yield
+    finally:
+        step.init_train_state = loop.init_train_state = init

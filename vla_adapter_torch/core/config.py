@@ -339,3 +339,6 @@ class TrainConfig:
     run_id: Optional[str] = None
     val_freq: int = 10_000
     log_freq: int = 10
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)

@@ -210,6 +210,11 @@ class ImageProcessor:
         return mean, std
 
 
+def default_image_processor() -> ImageProcessor:
+    """The flagship's processor: DINOv2 and SigLIP at 224 px."""
+    return ImageProcessor()
+
+
 def image_processor_for(vision_cfg) -> ImageProcessor:
     """A processor matching a FusedVisionConfig (tower count and size),
     "resize-naive"; a zoo model's caller sets ``resize_strategy`` from its

@@ -57,6 +57,10 @@ class MockTokenizer:
     def encode(self, text: str, add_special_tokens: bool = True):
         return self(text).input_ids
 
+    def decode(self, ids):
+        """Each id as ``<id>``, joined by spaces (ids carry no words)."""
+        return " ".join(f"<{i}>" for i in ids)
+
 
 class TextToIds:
     """``text -> ids`` of a tokenizer (special tokens added), as an object

@@ -151,3 +151,9 @@ class VLABatchTransform:
             out["proprio"] = np.asarray(obs["proprio"],
                                         np.float32).reshape(-1)
         return out
+
+    def inference_ids(self, instruction: str
+                      ) -> Tuple[np.ndarray, np.int32, np.ndarray]:
+        """(input_ids, prompt_len, valid) for predict_action, with this
+        transform's config and tokenizer (:func:`inference_ids`)."""
+        return inference_ids(self.cfg, self.tokenize, instruction)
