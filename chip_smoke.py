@@ -26,8 +26,10 @@ Phases, in order; any failure exits non-zero:
    whole-decoder-layer kernel of the "mega" backend at the Qwen2 layer with
    the prompt's key padding. Each fused MLP and the layer kernel first
    print their plan (the 32-row tile, the panel split, the work items, the
-   persistent grid's CTAs and waves; :func:`mlp_plan`, :func:`megalayer_plan`).
-   The matmuls must equal their plain versions bit for bit, the fused MLPs
+   persistent grid's CTAs and waves; :func:`mlp_plan`, :func:`megalayer_plan`);
+   each matmul's line carries its plan (``w8a8_plan``: the narrow branch
+   up to 32 rows, else the Hopper branch's tiles, stages, grid and
+   pre-pass). The matmuls must equal their plain versions bit for bit, the fused MLPs
    agree within :func:`mlp_tolerance` (whether they are bit for bit is
    recorded), the layer kernel within :func:`check_megalayer`. The matmul is held both
    as the models call it (``w8a8_linear``: float x, the quantization
@@ -99,13 +101,16 @@ Phases, in order; any failure exits non-zero:
    version's, SDPA's backward (the yardstick) and the bound, and
    B1's forward with and without its lse output; the straight-through
    w8a8 product (forward and dx) bit
-   for bit with its plain version at every frozen-base shape; then
+   for bit with its plain version at every frozen-base shape, each B4
+   call (forward on bf16 x, dx on f32 dy * ws) timed with its plan beside
+   ``torch._int_mm`` and the bound, and B4's quantization pre-pass alone
+   (``w8a8_quantize``) bit for bit with ``quantize_rows``; then
    ``train.loop.finetune`` of the flagship recipe ("vla-adapter+libero-
    spatial": LoRA r=64 over the int8 base, remat of the towers and the
    decoder) at batch 16 for 8 steps over one repeated dummy batch with a
    checkpoint every 5, the main path: falling finite losses, frozen
-   tensors unchanged bit for bit, the launches of B1, B1-bwd and B4 per
-   step as :func:`expected_train_launches` derives them, s/step,
+   tensors unchanged bit for bit, the launches of B1, B1-bwd, B4 and its
+   pre-pass per step as :func:`expected_train_launches` derives them, s/step,
    samples/s and peak memory; each trainable tensor's gradient norm as
    the optimizer got it, at step 0 (a LoRA ``lora_a``, zero there, at
    step 1), against the plain path's own one-ulp spread
@@ -337,7 +342,8 @@ phase 18 step 2 of its runs without a group, on "data" and under FSDP2.
 
 Prints the card's name and power limit, one JSON line per kernel shape, a
 ``{"kernels": [...]}`` line (each kernel's ``launches`` on the bf16 or w8a8
-flagship path, B1-bwd's on the train path, and ``launches_by_path`` for
+flagship path, B1-bwd's and B4's pre-pass's on the train path, and
+``launches_by_path`` for
 every path), and as its last
 line
 ``{"ok": true, "device": {...}}``. ``launches_by_path`` also covers the
@@ -873,6 +879,56 @@ def phase_attention_bwd(shapes, card: str):
     return records
 
 
+BASE_OWNERS = ("fused_featurizer", "featurizer", "language_model",
+               "projector")
+
+
+def train_rows(cfg, batch: int, text: Optional[int] = None) -> dict:
+    """Rows each part of the VLA's base multiplies in a pass over ``batch``
+    samples: each tower's tokens of every image, the LLM's sequence
+    (patches and ``text`` ids, the config's max_text_tokens by default),
+    the projector's patches."""
+    v, n_img = cfg.vision, cfg.vision.num_images
+    text = cfg.max_text_tokens if text is None else text
+    rows = {"featurizer": batch * n_img * (v.primary.num_patches
+                                           + v.primary.num_prefix_tokens),
+            "language_model": batch * (cfg.num_patches + text),
+            "projector": batch * cfg.num_patches}
+    if v.fused is not None:
+        rows["fused_featurizer"] = batch * n_img * (
+            v.fused.num_patches + v.fused.num_prefix_tokens)
+    return rows
+
+
+def base_owner(name: str) -> str:
+    """The part of the base (:data:`BASE_OWNERS`) a module name is in."""
+    return next(o for o in BASE_OWNERS if o in name.split("."))
+
+
+def b4_call_launches(m: int, k: int, n: int, x_dtype="bf16",
+                     name: Optional[str] = None, layers: int = 1) -> dict:
+    """Kernel launches of one B4/B5 call of x (M, K) ("bf16", "f32" or
+    "int8") against ``layers`` weight layers (N, K): the product (counted
+    as ``name``, B4's by default) and, where its plan has one, the Hopper
+    branch's quantization pre-pass. The plan is the card's where there is
+    one (``card_plan``), else ``w8a8_plan``'s defaults."""
+    import torch
+
+    from vla_adapter_torch.ops import w8a8_matmul
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32,
+             "int8": torch.int8}[x_dtype]
+    out = torch.int32 if name == w8a8_matmul.INT32_KERNEL_NAME \
+        else torch.bfloat16
+    # on the card, its own plan (its SMs and narrow occupancy decide
+    # whether a split over K stays narrow)
+    plan = (w8a8_matmul.card_plan(m, n, k, layers, dtype, out,
+                                  torch.device("cuda"))
+            if torch.cuda.is_available()
+            else w8a8_matmul.w8a8_plan(m, n, k, layers, dtype, out))
+    return w8a8_matmul.plan_launches(plan, name or w8a8_matmul.KERNEL_NAME)
+
+
 def ste_shapes(cfg, batch: int):
     """Distinct (M, in, out) of the frozen base's w8a8 matmuls at the
     finetune's micro-batch (the towers see 2 images per sample)."""
@@ -882,20 +938,11 @@ def ste_shapes(cfg, batch: int):
 
     rt = build_runtime(TrainConfig(model=cfg, base_int8=True))
     model = VLAModel(cfg, rt, device="meta")
-    v, n_img = cfg.vision, cfg.vision.num_images
-    rows = {"featurizer": batch * n_img * (v.primary.num_patches
-                                           + v.primary.num_prefix_tokens),
-            "language_model": batch * (cfg.num_patches + cfg.max_text_tokens),
-            "projector": batch * cfg.num_patches}
-    if v.fused is not None:
-        rows["fused_featurizer"] = batch * n_img * (
-            v.fused.num_patches + v.fused.num_prefix_tokens)
+    rows = train_rows(cfg, batch)
     shapes = set()
     for name, mod in model.named_modules():
         if getattr(mod, "ste", False):
-            owner = next(o for o in ("fused_featurizer", "featurizer",
-                                     "language_model", "projector")
-                         if o in name.split("."))
+            owner = base_owner(name)
             shapes.add((owner, rows[owner], mod.in_features, mod.features))
     return sorted(shapes)
 
@@ -904,10 +951,14 @@ def phase_ste(shapes, card: str):
     """The straight-through w8a8 product on the card (kernel B4 forward,
     and B4 on the transposed int8 weight for dx) against its plain version
     at the frozen base's shapes: forward and dx bit for bit; the backward
-    timed (eager, one B4 launch and two elementwise passes)."""
+    timed (eager, one B4 call and two elementwise passes), and each B4 call
+    alone (device time under graph replay: the forward on bf16 x, dx on
+    f32 dy * ws with unit column scales) beside ``torch._int_mm`` on the
+    same int8 operands and the bound, with the plan of each."""
     import torch
 
     from vla_adapter_torch.models.layers import W8A8STE
+    from vla_adapter_torch.ops import w8a8_matmul as ops
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -941,21 +992,67 @@ def phase_ste(shapes, card: str):
                "forward_bitwise": True, "dx_bitwise": True,
                "dx_ms": eager_ms(backward("kernel"), reps=5, rounds=3),
                "dx_plain_ms": eager_ms(backward("plain"), reps=2, rounds=2)}
+        dys = dy.float() * ws
+        ones = torch.ones(k, device=dev)
+        for what, a, w, s, kk, nn in (("forward", x, wq, ws, k, n),
+                                      ("dx", dys, wqt, ones, n, k)):
+            aq, _ = ops.quantize_rows(a)
+            bound, bound_by, _, _ = w8a8_bound(
+                {"m": m, "k": kk, "n": nn},
+                x_bytes=a.element_size())
+            rec[what] = {
+                "plan": ops.card_plan(m, nn, kk, 1, a.dtype, torch.bfloat16,
+                                      dev),
+                "ms": device_ms(lambda: ops.w8a8_linear(a, w, s), reps=10,
+                                rounds=3),
+                "int_mm_ms": _int_mm_ms(aq, w)[0],
+                "bound_ms": bound, "bound_by": bound_by}
+            # the Hopper branch's pre-pass alone against quantize_rows
+            got_q, want_q = ops.w8a8_quantize(a), ops.quantize_rows(a)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got_q, want_q)):
+                raise AssertionError(f"STE {owner} ({m}, {kk}) {what}: the "
+                                     f"quantization pre-pass differs from "
+                                     f"quantize_rows")
+            rec[what]["prepass"] = {
+                "ms": device_ms(lambda: ops.w8a8_quantize(a), reps=10,
+                                rounds=3),
+                "plain_ms": device_ms(lambda: ops.quantize_rows(a), reps=3,
+                                      rounds=3),
+                "bound_ms": 1e3 * (a.numel() * (a.element_size() + 1)
+                                   + 4 * m) / PEAK_HBM_BYTES}
         print("ste_shape " + json.dumps(rec), flush=True)
         records.append(rec)
     return records
 
 
-def expected_train_launches(model) -> dict:
-    """Kernel launches per micro-batch of the finetune, from the training
-    model: B1 on every attention layer, twice where its stack ("vit",
-    "llm") recomputes; B1-bwd's three kernels once per attention layer; B4
-    once per frozen w8a8 matmul in the forward, again where it recomputes,
-    and once more for dx, except where no gradient reaches the matmul's
-    input (the first tower block's q/k/v read the patch embeddings, which
-    train nothing)."""
+def first_block_qkv(model) -> set:
+    """ids of the first tower block's q/k/v Denses, which no gradient's dx
+    reaches (they read the patch embeddings, which train nothing)."""
+    from vla_adapter_torch.models.vit import ViTBlock
+
+    out = set()
+    for tower in model.vision_backbone.children():
+        block0 = tower.blocks[0]
+        assert isinstance(block0, ViTBlock)
+        out |= {id(block0.attn.q_proj), id(block0.attn.k_proj),
+                id(block0.attn.v_proj)}
+    return out
+
+
+def expected_train_launches(model, batch: int = 16) -> dict:
+    """Kernel launches per micro-batch of ``batch`` samples (16 a rank in
+    every recipe the smoke trains over the int8 base) of the finetune,
+    from the training model: B1 on every attention layer, twice where its
+    stack ("vit", "llm") recomputes; B1-bwd's three kernels once per
+    attention layer; B4 once per frozen w8a8 matmul in the forward (bf16
+    x), again where it recomputes, and once more for dx (f32 dy * ws
+    against the (in, out) weight), except where no gradient reaches the
+    matmul's input (:func:`first_block_qkv`); and B4's quantization
+    pre-pass with each of those calls whose plan takes the Hopper branch
+    (:func:`b4_call_launches`, at the rows of :func:`train_rows`)."""
     from vla_adapter_torch.models.qwen2 import Qwen2Attention
-    from vla_adapter_torch.models.vit import ViTAttention, ViTBlock
+    from vla_adapter_torch.models.vit import ViTAttention
     from vla_adapter_torch.ops import w8a8_matmul
     from vla_adapter_torch.ops.attention_kernel import (
         BWD_KERNEL_NAME,
@@ -964,7 +1061,10 @@ def expected_train_launches(model) -> dict:
     )
 
     rt = model.rt
-    attn = b4 = 0
+    rows = train_rows(model.cfg, batch)
+    first = first_block_qkv(model)
+    attn = 0
+    b4 = collections.Counter({w8a8_matmul.KERNEL_NAME: 0})
     for name, mod in model.named_modules():
         stack = ("llm" if name.startswith("language_model") else
                  "vit" if name.startswith("vision_backbone") else None)
@@ -972,17 +1072,15 @@ def expected_train_launches(model) -> dict:
         if isinstance(mod, (Qwen2Attention, ViTAttention)):
             attn += twice
         if getattr(mod, "ste", False):
-            b4 += twice + 1
-    for tower in model.vision_backbone.children():
-        block0 = tower.blocks[0]
-        assert isinstance(block0, ViTBlock)
-        b4 -= sum(p.ste for p in (block0.attn.q_proj, block0.attn.k_proj,
-                                  block0.attn.v_proj))
+            m, k, n = rows[base_owner(name)], mod.in_features, mod.features
+            for _ in range(twice):
+                b4.update(b4_call_launches(m, k, n, "bf16"))
+            if id(mod) not in first:
+                b4.update(b4_call_launches(m, n, k, "f32"))
     layers = sum(isinstance(m, (Qwen2Attention, ViTAttention))
                  for m in model.modules())
     return {KERNEL_NAME: attn,
-            BWD_KERNEL_NAME: BWD_LAUNCHES_PER_CALL * layers,
-            w8a8_matmul.KERNEL_NAME: b4}
+            BWD_KERNEL_NAME: BWD_LAUNCHES_PER_CALL * layers, **b4}
 
 
 def expected_int8_gathers(model) -> dict:
@@ -1185,6 +1283,9 @@ TRAIN_PROFILE_GROUPS = (
     ("B1-bwd dq", ("attn_bwd_rows_kernel<", ", false>")),
     ("B1-bwd dk/dv", ("attn_bwd_dkdv_kernel",)),
     ("B1", ("fused_attention_kernel",)),
+    ("B4 pre-pass dx", ("w8a8_quantize", "<float")),
+    ("B4 pre-pass forward", ("w8a8_quantize",)),
+    ("B4 Hopper products", ("w8a8_hopper",)),
     ("B4 dx", ("w8a8_", "<float")),
     ("B4 forward", ("w8a8_",)),
     ("GEMMs (LoRA, head, float products)", ("gemm",)),
@@ -1578,6 +1679,33 @@ def attention_bwd_kernel_summary(records, launches):
     }]
 
 
+def quantize_kernel_summary(ste_records, launches):
+    """The kernels line's entry for B4's quantization pre-pass (the Hopper
+    branch's, on float x): phase 11's per-call times and bounds, one call
+    on x (forward, bf16) and one on dy * ws (dx, f32) at each finetune
+    shape, summed; bit for bit with quantize_rows at each."""
+    from vla_adapter_torch.ops import w8a8_matmul
+
+    calls = [r[what]["prepass"] for r in ste_records
+             for what in ("forward", "dx")]
+    return [{
+        "name": w8a8_matmul.QUANT_KERNEL_NAME, "route": "cuda",
+        "source": "vla_adapter_torch/csrc/w8a8_matmul.cu",
+        "replaces": "vla_adapter_tpu/ops/pallas_matmul.py:140",
+        "launches": launches.get(w8a8_matmul.QUANT_KERNEL_NAME, 0),
+        "max_abs_err": 0.0,
+        "ms": sum(c["ms"] for c in calls),
+        "plain_ms": sum(c["plain_ms"] for c in calls),
+        "bound_ms": sum(c["bound_ms"] for c in calls), "bound_by": "bytes",
+        "library_ms": None,
+        "per": f"sum of {len(calls)} calls, one at each of the "
+               f"{len(ste_records)} finetune shapes' forward (bf16 x) and "
+               "one at its dx (f32 dy * ws): kernel B4's "
+               "per-row quantization (the JAX Dense's quantize_rows before "
+               "B4), a launch of its own before the Hopper branch's "
+               "product"}]
+
+
 def build_flagship(seed: int):
     import torch
 
@@ -1906,33 +2034,50 @@ def dense_shapes(shapes):
 
 
 def expected_w8a8_launches(shapes, impl: str, batch: int = 1) -> dict:
-    """Launches of each w8a8 kernel in one forward of ``batch`` (1 or 4)
-    under a backend."""
+    """Launches of each w8a8 kernel in one forward of ``batch`` under a
+    backend; B4's quantization pre-pass with each B4/B5 call whose plan
+    takes the Hopper branch (:func:`b4_call_launches`)."""
     from vla_adapter_torch.ops import fused_mlp, megalayer, w8a8_matmul
 
     counts = collections.Counter()
+
+    def b4(m, k, n, per, name=w8a8_matmul.KERNEL_NAME, layers=1):
+        for kernel, c in b4_call_launches(m, k, n, "bf16", name,
+                                          layers).items():
+            counts[kernel] += c * per
+
     for sh in shapes:
         if sh["forward_batch"] != batch:
             continue
         if sh["kernel"] == megalayer.KERNEL_NAME:
             if impl == "mega":  # one launch per layer, the o-proj inside
                 counts[sh["kernel"]] += sh["launches_per_forward"]
-                counts[w8a8_matmul.KERNEL_NAME] -= sh["launches_per_forward"]
+                b4(sh["m"], sh["heads"] * sh["head_dim"], sh["k"],
+                   -sh["launches_per_forward"])
         elif impl == "mega" and sh["kernel"] == fused_mlp.GATED_KERNEL_NAME:
             continue  # the Qwen2 MLP runs inside the layer kernel
         elif "f" in sh and impl == "dense":
-            counts[w8a8_matmul.KERNEL_NAME] += sh["dense_matmuls"]
+            per = sh["launches_per_forward"]
+            b4(sh["m"], sh["k"], sh["f"], per * (2 if sh["gated"] else 1))
+            b4(sh["m"], sh["f"], sh["d"], per)
+        elif sh["kernel"] == w8a8_matmul.STACKED_KERNEL_NAME:
+            b4(sh["m"], sh["k"], sh["n"], sh["launches_per_forward"],
+               sh["kernel"], sh["layers"])
+        elif sh["kernel"] == w8a8_matmul.KERNEL_NAME:
+            b4(sh["m"], sh["k"], sh["n"], sh["launches_per_forward"])
         else:
             counts[sh["kernel"]] += sh["launches_per_forward"]
-    return dict(counts)
+    return {k: v for k, v in counts.items()
+            if v or k != w8a8_matmul.QUANT_KERNEL_NAME}
 
 
-def w8a8_bound(sh, xq_input: bool = False):
+def w8a8_bound(sh, xq_input: bool = False, x_bytes: int = 2):
     """(bound ms, bound_by, ops, bytes) of one call: int8 ops over the int8
     tensor-core peak against x, the int8 weights, scales, biases and the
     bf16 output, each counted once, over the HBM rate. A matmul reads x as
-    bf16 (the entry with the quantization inside), or with ``xq_input``
-    the int8 xq and its f32 row scales (the JAX B4/B5 signature)."""
+    bf16 (the entry with the quantization inside; ``x_bytes`` 4: f32), or
+    with ``xq_input`` the int8 xq and its f32 row scales (the JAX B4/B5
+    signature)."""
     m, k = sh["m"], sh["k"]
     if "f" in sh:
         f, d = sh["f"], sh["d"]
@@ -1943,8 +2088,8 @@ def w8a8_bound(sh, xq_input: bool = False):
     else:
         n, layers = sh["n"], sh.get("layers", 1)
         ops = 2 * layers * m * k * n
-        x_bytes = m * k + 4 * m if xq_input else 2 * m * k
-        nbytes = layers * (x_bytes + n * k + 4 * n + 2 * m * n)
+        x_in = m * k + 4 * m if xq_input else x_bytes * m * k
+        nbytes = layers * (x_in + n * k + 4 * n + 2 * m * n)
     t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
@@ -2077,17 +2222,19 @@ def _int_mm_ms(xq, w):
                               for i in range(xq.shape[0])]), m <= 16
 
 
-def matmul_record(sh, randn, weight):
+def matmul_record(sh, randn, weight, timing=(20, 5)):
     """The w8a8 matmul at one shape: the entry the models call
     (``w8a8_linear``, float x, the quantization inside) and the xq entry
     (``w8a8_matmul``/``_stacked``) against their plain versions, bit for
     bit in both output dtypes; times of both, of the two-step chain
     (``quantize_rows`` then the xq entry), of the plain version, of the
-    kernel with L2 flushed before each call, and of ``torch._int_mm``."""
+    kernel with L2 flushed before each call, and of ``torch._int_mm``;
+    ``timing``: (reps, rounds) of each :func:`device_ms`."""
     import torch
 
     from vla_adapter_torch.ops import w8a8_matmul as ops
 
+    reps, rounds = timing
     m, k, n, layers = sh["m"], sh["k"], sh["n"], sh.get("layers")
     lead = () if layers is None else (layers,)
     x = randn(*lead, m, k).bfloat16()
@@ -2105,7 +2252,8 @@ def matmul_record(sh, randn, weight):
             worst = max(worst, float((got.float() - want.float())
                                      .abs().max()))
             exact = exact and torch.equal(got, want)
-    rec = dict(sh)
+    rec = dict(sh, plan=ops.card_plan(m, n, k, layers or 1, torch.bfloat16,
+                                       torch.bfloat16, x.device))
     rec.update(max_abs_err=worst, bitwise_equal=exact)
     if not exact:
         raise AssertionError(f"{sh['kernel']} {sh['shape']} B="
@@ -2120,19 +2268,21 @@ def matmul_record(sh, randn, weight):
 
     lib_ms, padded = _int_mm_ms(xq, w)
     bound, bound_by, ops_n, nbytes = w8a8_bound(sh)
-    rec.update(ms=device_ms(kernel), cold_ms=device_ms_cold(kernel),
-               xq_ms=device_ms(lambda: xq_entry(xq, rs, w, ws)),
-               chain_ms=device_ms(chain),
+    rec.update(ms=device_ms(kernel, reps, rounds),
+               cold_ms=device_ms_cold(kernel, reps, rounds),
+               xq_ms=device_ms(lambda: xq_entry(xq, rs, w, ws), reps, rounds),
+               chain_ms=device_ms(chain, reps, rounds),
                plain_ms=device_ms(lambda: ops.w8a8_linear_reference(
-                   x, w, ws), reps=5),
+                   x, w, ws), min(reps, 5), rounds),
                int_mm_ms=lib_ms, int_mm_padded_to_24_rows=padded,
                bound_ms=bound, bound_by=bound_by, ops=ops_n, bytes=nbytes,
                xq_bound_ms=w8a8_bound(sh, xq_input=True)[0])
     return rec
 
 
-def phase_w8a8_kernels(shapes):
-    """Each w8a8 kernel at each shape against its plain version, timed."""
+def phase_w8a8_kernels(shapes, timing=(20, 5)):
+    """Each w8a8 kernel at each shape against its plain version, timed
+    (the matmuls' :func:`device_ms` at ``timing``: reps, rounds)."""
     import torch
 
     from vla_adapter_torch.models.quantize import quantize_weight
@@ -2164,7 +2314,7 @@ def phase_w8a8_kernels(shapes):
             records.append(rec)
             continue
         if "f" not in sh:
-            rec = matmul_record(sh, randn, weight)
+            rec = matmul_record(sh, randn, weight, timing)
             print("w8a8_shape " + json.dumps(rec), flush=True)
             records.append(rec)
             continue
@@ -2345,11 +2495,13 @@ def phase_w8a8(bf16_pred, shapes, rng, card: str):
         chunk_s, batch_s = _serve(pred, requests, [] if b1_only else batch)
         counts = dict(cuda_lib.LAUNCHES)
         impls = [resolve_w8a8_impl(pred.w8a8_impl, 1)] * len(requests)
+        sizes = [1] * len(requests)
         if not b1_only:
             impls += [resolve_w8a8_impl(pred.w8a8_impl, len(batch))] * 2
+            sizes += [len(batch)] * 2
         want = collections.Counter()
-        for impl in impls:
-            want.update(expected_w8a8_launches(shapes, impl))
+        for impl, size in zip(impls, sizes):
+            want.update(expected_w8a8_launches(shapes, impl, size))
             want[attention_kernel.KERNEL_NAME] += (
                 attn_per_forward - (n_llm if impl == "mega" else 0))
         if {k: v for k, v in counts.items() if v} != \
@@ -2662,8 +2814,10 @@ def phase_checkpoint(bf16_pred, rng, card: str):
 SERVER_CLIENTS = (1, 4, 16)
 # the buckets that only the server runs: no earlier phase forwards them
 SERVER_ONLY_BATCHES = (8, 16)
-SERVER_WINDOW_S = 1.5
+SERVER_WINDOW_S = 1.0
 SERVER_WARMUP_S = 0.5
+# (reps, rounds) of the server-only buckets' w8a8 timings (phase 3: 20, 5)
+SERVER_TIMING = (5, 3)
 
 
 def _server_request(cfg, seed):
@@ -2860,7 +3014,8 @@ def phase_server(bf16_pred, card: str):
     rec["attention_records"] = phase_kernel_vs_plain(attention_shapes(
         cfg, bf16_pred.tokenize, batches=SERVER_ONLY_BATCHES))
     rec["w8a8_records"] = phase_w8a8_kernels(dense_shapes(w8a8_shapes(
-        cfg, bf16_pred.tokenize, batches=SERVER_ONLY_BATCHES)))
+        cfg, bf16_pred.tokenize, batches=SERVER_ONLY_BATCHES)),
+        timing=SERVER_TIMING)
     launches = collections.Counter()
     for tier in ("bf16", "auto"):
         pred = Predictor(act_int8=tier == "auto", **common)
@@ -3213,16 +3368,19 @@ PRETRAIN_BATCH, PRETRAIN_TEXT, PRETRAIN_STEPS = 8, 128, 3
 TOKEN_TRAIN_STEPS = 4
 
 
-def llm_pass_launches(model, attention: bool) -> dict:
-    """Kernel launches of one pass of a decoder (Qwen2Model or PhiModel),
-    derived from the model: B1 once per layer on a full-sequence pass
-    (``attention``; a cached decode step attends in plain PyTorch), B2 once
-    per Qwen2 MLP under the fused backend, B4 once per other Dense that
-    runs w8a8 (both widths at least ``act_int8_min_dim``; Phi's untied
-    lm_head included)."""
+def llm_pass_launches(model, attention: bool, rows: int = 1,
+                      head_rows: int = 1) -> dict:
+    """Kernel launches of one pass of a decoder (Qwen2Model or PhiModel)
+    over ``rows`` tokens, derived from the model: B1 once per layer on a
+    full-sequence pass (``attention``; a cached decode step attends in
+    plain PyTorch), B2 once per Qwen2 MLP under the fused backend, B4 once
+    per other Dense that runs w8a8 (both widths at least
+    ``act_int8_min_dim``; Phi's untied lm_head included, on ``head_rows``
+    rows: the last positions), with its quantization pre-pass where the
+    call's plan takes the Hopper branch."""
     from vla_adapter_torch.models.layers import Dense
     from vla_adapter_torch.models.qwen2 import Qwen2MLP
-    from vla_adapter_torch.ops import fused_mlp, w8a8_matmul
+    from vla_adapter_torch.ops import fused_mlp
     from vla_adapter_torch.ops.attention_kernel import KERNEL_NAME
 
     rt = model.rt
@@ -3232,20 +3390,26 @@ def llm_pass_launches(model, attention: bool) -> dict:
         if isinstance(mod, Qwen2MLP) and rt.fused_mlp(*mod.dims):
             counts[fused_mlp.GATED_KERNEL_NAME] += 1
             fused |= {id(mod.gate_proj), id(mod.up_proj), id(mod.down_proj)}
-    for mod in model.modules():
+    for name, mod in model.named_modules():
         if (isinstance(mod, Dense) and id(mod) not in fused
                 and rt.act_int8 and rt.w8a8(mod.in_features, mod.features)):
-            counts[w8a8_matmul.KERNEL_NAME] += 1
+            counts.update(b4_call_launches(
+                head_rows if name == "lm_head" else rows, mod.in_features,
+                mod.features))
     if attention:
         counts[KERNEL_NAME] += len(model.layers)
     return dict(counts)
 
 
-def expected_generate_launches(model, new_tokens: int) -> dict:
-    """One ``greedy_generate_cached`` call: the prefill's pass and
-    ``new_tokens`` decode steps (the JAX package's loop runs every step)."""
-    total = collections.Counter(llm_pass_launches(model, attention=True))
-    for name, n in llm_pass_launches(model, attention=False).items():
+def expected_generate_launches(model, new_tokens: int, batch: int = 1,
+                               prompt: int = 1) -> dict:
+    """One ``greedy_generate_cached`` call on ``batch`` sequences: the
+    prefill's pass over ``prompt`` ids each and ``new_tokens`` decode steps
+    of one row a sequence (the JAX package's loop runs every step)."""
+    total = collections.Counter(llm_pass_launches(
+        model, attention=True, rows=batch * prompt, head_rows=batch))
+    for name, n in llm_pass_launches(model, attention=False, rows=batch,
+                                     head_rows=batch).items():
         total[name] += new_tokens * n
     return dict(total)
 
@@ -3507,7 +3671,7 @@ def generate_run(model, plain, buf, prompt: int, new: int, atol: float,
     torch.cuda.synchronize()
     graph_s = time.perf_counter() - t0
     launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
-    want = expected_generate_launches(model, new)
+    want = expected_generate_launches(model, new, b, prompt)
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, derived {want}")
     # --- eager, and the graphed step against the eager step ---
@@ -3539,7 +3703,8 @@ def generate_run(model, plain, buf, prompt: int, new: int, atol: float,
             torch.cuda.synchronize()
             steps_ms[mode].append(1e3 * (time.perf_counter() - t0))
             ends[mode] = s
-    per_step = llm_pass_launches(model, attention=False)
+    per_step = llm_pass_launches(model, attention=False, rows=b,
+                                 head_rows=b)
     if graphs.captures[key].launches != per_step:
         raise AssertionError(f"{what}: a decode step launches "
                              f"{graphs.captures[key].launches}, derived "
@@ -4055,7 +4220,7 @@ def phase_phi(card: str, seed: int) -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
-        per = llm_pass_launches(m, attention=True)
+        per = llm_pass_launches(m, attention=True, rows=PHI_PROMPT)
         want = {k: PHI_NEW * v for k, v in per.items()}
         if got != want:
             raise AssertionError(f"phi {backend}: launches {got}, derived "
@@ -4170,12 +4335,14 @@ def zoo_pixels(entry, cfg, batch: int, seed: int):
                      for i in range(batch)])[:, None]
 
 
-def vlm_pass_launches(vlm) -> dict:
+def vlm_pass_launches(vlm, batch: int, text: int) -> dict:
     """Kernel launches of one multimodal forward of a PrismaticVLM, derived
     from the model: B1 once per attention layer (towers and LLM); under the
     fused w8a8 backend B2 once per Qwen2 MLP and B3 once per ViT MLP and
     projector whose widths clear ``act_int8_min_dim``; B4 once per other
-    Dense that runs w8a8."""
+    Dense that runs w8a8, with its quantization pre-pass where the call's
+    plan takes the Hopper branch (``batch`` prompts of ``text`` ids:
+    :func:`train_rows`)."""
     from vla_adapter_torch.models.layers import Dense
     from vla_adapter_torch.models.projector import FusedProjector, Projector
     from vla_adapter_torch.models.qwen2 import Qwen2Attention, Qwen2MLP
@@ -4200,11 +4367,13 @@ def vlm_pass_launches(vlm) -> dict:
                else fused_mlp.KERNEL_NAME] += 1
         fused |= {id(m) for m in ((mod.gate_proj, mod.up_proj, mod.down_proj)
                                   if gated else (mod.fc1, mod.fc2))}
-    for mod in vlm.modules():
+    rows = train_rows(vlm.cfg, batch, text)
+    for name, mod in vlm.named_modules():
         if (isinstance(mod, Dense) and id(mod) not in fused
                 and getattr(mod, "weight_q", None) is not None
                 and rt.w8a8(mod.in_features, mod.features)):
-            counts[w8a8_matmul.KERNEL_NAME] += 1
+            counts.update(b4_call_launches(rows[base_owner(name)],
+                                           mod.in_features, mod.features))
     return dict(counts)
 
 
@@ -4270,7 +4439,7 @@ def zoo_logits(models, ids, valid, pixels, what: str) -> tuple:
             wall = time.perf_counter() - t0
             got = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
             lp = plain(*args)["logits"]
-        want = vlm_pass_launches(model)
+        want = vlm_pass_launches(model, *ids.shape)
         if got != want:
             raise AssertionError(f"{what} {backend}: launches {got}, "
                                  f"derived {want}")
@@ -5540,9 +5709,9 @@ def _free_port() -> int:
 
 # steps of each run of phase 18's training under a process group: of a
 # run's step times (read one step late) the first holds the set-up and
-# the last only the final read, so 4 are timed (3 of the FSDP2 run,
+# the last only the final read, so 2 are timed (1 of the FSDP2 run,
 # resumed at step 1)
-GROUP_TRAIN_STEPS = 6
+GROUP_TRAIN_STEPS = 4
 
 
 def _file_digest(path) -> str:
@@ -6015,33 +6184,45 @@ def tensor_split_modes(model, tensor: int) -> dict:
     return out
 
 
-def expected_tensor_launches(model, tensor: int) -> dict:
+def expected_tensor_launches(model, tensor: int, batch: int = 16) -> dict:
     """:func:`expected_train_launches` per rank of a ``tensor`` split: B1
     and B1-bwd as one process (each rank attends over its heads in one
     call); a column-split Dense runs its forward on B4 (twice where it
     recomputes) and its dx on B4's int32 output, a row-split one its
-    forward on the int32 output and its dx on B4."""
+    forward on the int32 output and its dx on B4; B4's pre-pass with each
+    float-x call whose plan takes the Hopper branch (the int32 output's
+    calls take xq)."""
     from vla_adapter_torch.ops import w8a8_matmul
 
-    out = dict(expected_train_launches(model))
+    out = dict(expected_train_launches(model, batch))
     modes = tensor_split_modes(model, tensor)
     rt = model.rt
+    rows = train_rows(model.cfg, batch)
     first = {f"{tower}.blocks.0.attn.{p}" for tower in (
         "vision_backbone.featurizer", "vision_backbone.fused_featurizer")
         for p in ("q_proj", "k_proj", "v_proj")}
-    b4 = i32 = 0
+    b4 = collections.Counter({w8a8_matmul.KERNEL_NAME: 0})
+    i32 = 0
     for name, mode in modes.items():
+        mod = model.get_submodule(name)
+        m, k, n = rows[base_owner(name)], mod.in_features, mod.features
         stack = ("llm" if name.startswith("language_model") else
                  "vit" if name.startswith("vision_backbone") else None)
         twice = 2 if stack and rt.remat_policy_of(stack) else 1
         dx = 0 if name in first else 1
         if mode is None:
-            b4 += twice + dx
+            fwd, back = [(m, k, n)] * twice, [(m, n, k)] * dx
         elif mode == "col":
-            b4, i32 = b4 + twice, i32 + dx
+            fwd, back, i32 = [(m, k, n // tensor)] * twice, [], i32 + dx
         else:
-            b4, i32 = b4 + dx, i32 + twice
-    out[w8a8_matmul.KERNEL_NAME] = b4
+            fwd, back, i32 = [], [(m, n, w8a8_matmul.padded_k(
+                k // tensor))] * dx, i32 + twice
+        for mm, kk, nn in fwd:
+            b4.update(b4_call_launches(mm, kk, nn, "bf16"))
+        for mm, kk, nn in back:
+            b4.update(b4_call_launches(mm, kk, nn, "f32"))
+    out.pop(w8a8_matmul.QUANT_KERNEL_NAME, None)
+    out.update(b4)
     out[w8a8_matmul.INT32_KERNEL_NAME] = i32
     return out
 
@@ -7733,6 +7914,7 @@ def main() -> int:
                + w8a8_kernel_summary(w8a8_records, w8a8_launches)
                + megalayer_kernel_summary(w8a8_records, w8a8_launches)
                + attention_bwd_kernel_summary(bwd_records, train_launches)
+               + quantize_kernel_summary(train["ste"], train_launches)
                + tensor_kernel_summary(tensor, tensor_launches))
     paths = {"flagship_bf16": launches, "flagship_w8a8": w8a8_launches,
              "server": server_launches, "original_film": original_launches,

@@ -186,8 +186,9 @@ def test_counters_stay_zero_across_graphs_in_turns(base, device):
 
 
 def test_cluster_launch_of_b4_captures(device):
-    """Kernel B4 with bf16 x at M > 32 launches a cluster of CTAs along N
-    (cudaLaunchKernelEx): captured and replayed, it gives the eager bits."""
+    """Kernel B4 with bf16 x at M > 32 (the Hopper branch: its quantization
+    pre-pass, then the product with its tensor maps as kernel parameters):
+    captured and replayed, it gives the eager bits."""
     gen = torch.Generator(device=device).manual_seed(3)
     x = torch.randn(640, 896, generator=gen, device=device).bfloat16()
     w = torch.randint(-127, 128, (896, 896), generator=gen, device=device,
@@ -205,6 +206,7 @@ def test_cluster_launch_of_b4_captures(device):
     x.copy_(torch.randn(640, 896, generator=gen, device=device))
     graph.replay()
     torch.cuda.synchronize()
-    assert launches == {w8a8_matmul.KERNEL_NAME: 1}
+    assert launches == {w8a8_matmul.QUANT_KERNEL_NAME: 1,
+                        w8a8_matmul.KERNEL_NAME: 1}
     assert torch.equal(captured, w8a8_matmul.w8a8_linear(x, w, ws))
     assert not torch.equal(captured, eager)

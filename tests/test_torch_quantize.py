@@ -161,7 +161,9 @@ def test_quantize_state_dict_rejects_unknown_entries(params):
 def test_chip_smoke_derives_the_flagship_w8a8_launches():
     """chip_smoke.py checks the w8a8 main path's launch counts against the
     ones it derives from VLAConfig(); these are the counts one flagship
-    forward made on the card, per backend."""
+    forward made on the card, per backend: every B4/B5 call above 32 rows
+    takes the Hopper branch, its quantization pre-pass a launch of its
+    own."""
     from vla_adapter_torch.core.config import VLAConfig
     from vla_adapter_torch.data.tokenization import MockTokenizer
 
@@ -169,14 +171,15 @@ def test_chip_smoke_derives_the_flagship_w8a8_launches():
     shapes = chip_smoke.w8a8_shapes(VLAConfig(), lambda t: tok(t).input_ids)
     assert chip_smoke.expected_w8a8_launches(shapes, "fused") == {
         "w8a8_gated_mlp": 24, "w8a8_mlp": 50, "w8a8_matmul": 367,
-        "w8a8_matmul_stacked": 4}
+        "w8a8_matmul_stacked": 4, "w8a8_quantize": 367 - 1 - 1 - 120 + 4}
     assert chip_smoke.expected_w8a8_launches(shapes, "dense") == {
-        "w8a8_matmul": 539, "w8a8_matmul_stacked": 4}
+        "w8a8_matmul": 539, "w8a8_matmul_stacked": 4,
+        "w8a8_quantize": 539 - 1 - 1 - 120 + 4}
     # "mega": one layer kernel per decoder layer, which absorbs the Qwen2
     # MLP and the o-projection's matmul
     assert chip_smoke.expected_w8a8_launches(shapes, "mega") == {
         "w8a8_qwen2_layer": 24, "w8a8_mlp": 50, "w8a8_matmul": 343,
-        "w8a8_matmul_stacked": 4}
+        "w8a8_matmul_stacked": 4, "w8a8_quantize": 343 - 1 - 1 - 120 + 4}
     # every shape is a multiple the kernels take: K % 16, N and F even
     for sh in shapes:
         assert sh["k"] % 16 == 0 and sh.get("n", 2) % 2 == 0
@@ -195,11 +198,16 @@ def test_chip_smoke_dense_shapes_cover_the_server_buckets(batch):
     shapes = chip_smoke.w8a8_shapes(VLAConfig(), lambda t: tok(t).input_ids,
                                     batches=(batch,))
     dense = chip_smoke.dense_shapes(shapes)
+    from vla_adapter_torch.ops import w8a8_matmul
+
     got = collections.Counter()
     for sh in dense:
         assert sh["forward_batch"] == batch and "f" not in sh
         assert sh["k"] % 16 == 0 and sh["n"] % 2 == 0
         got[sh["kernel"]] += sh["launches_per_forward"]
+        if w8a8_matmul.w8a8_plan(sh["m"], sh["n"], sh["k"],
+                                 sh.get("layers", 1))["prepass"]:
+            got[w8a8_matmul.QUANT_KERNEL_NAME] += sh["launches_per_forward"]
     assert dict(got) == chip_smoke.expected_w8a8_launches(shapes, "dense",
                                                           batch)
     assert len({(sh["kernel"], sh["m"], sh["k"], sh["n"])

@@ -442,7 +442,11 @@ def test_chip_smoke_derives_the_causal_path_launches():
     q and o (k and v, 896 -> 128, stay weight-only) and B2 per layer in the
     prefill and in each of the 64 steps (a bf16 step launches no
     hand-written kernel). Phi-2 under w8a8: B1 per layer and B4 at its six
-    Denses per layer and the untied lm_head, per uncached step. Pretraining:
+    Denses per layer and the untied lm_head, per uncached step; at one row
+    fc1, fc2 and the lm_head (splits over K too wide for the narrow
+    branch's CTAs to be resident) take the Hopper branch with its
+    quantization pre-pass, and at the 128-row prompt every Dense but the
+    lm_head (on the last row) does. Pretraining:
     B1 on the 73 attention layers, B1-bwd's three kernels on the 24 LLM
     layers in both stages, none on the frozen towers."""
     import chip_smoke
@@ -470,7 +474,12 @@ def test_chip_smoke_derives_the_causal_path_launches():
     phi = get_llm_backbone("phi-2-3b")
     assert chip_smoke.llm_pass_launches(
         PhiModel(phi, w8a8, device="meta"), attention=True) == {
-            KERNEL_NAME: 32, b4: 6 * 32 + 1}
+            KERNEL_NAME: 32, b4: 6 * 32 + 1,
+            w8a8_matmul.QUANT_KERNEL_NAME: 2 * 32 + 1}
+    assert chip_smoke.llm_pass_launches(
+        PhiModel(phi, w8a8, device="meta"), attention=True, rows=128) == {
+            KERNEL_NAME: 32, b4: 6 * 32 + 1,
+            w8a8_matmul.QUANT_KERNEL_NAME: 6 * 32 + 1}
     assert chip_smoke.llm_pass_launches(
         PhiModel(phi, bf16, device="meta"), attention=True) == {
             KERNEL_NAME: 32}

@@ -724,7 +724,8 @@ def test_chip_smoke_derives_the_flagship_train_launches():
     to counts it derives from the training model: B1 on the 73 attention
     layers twice (remat), B1-bwd's three kernels once, B4 forward twice
     (towers, decoder) or once (projector) and dx once, except the towers'
-    first q/k/v."""
+    first q/k/v; each of those B4 calls (8192 rows and more) on the Hopper
+    branch, after its quantization pre-pass."""
     import chip_smoke
     from vla_adapter_torch.ops import w8a8_matmul
     from vla_adapter_torch.ops.attention_kernel import (
@@ -737,7 +738,8 @@ def test_chip_smoke_derives_the_flagship_train_launches():
     model = VLAModel(tcfg.model, tloop.build_runtime(tcfg), device="meta")
     assert chip_smoke.expected_train_launches(model) == {
         KERNEL_NAME: 146, BWD_KERNEL_NAME: 3 * 73,
-        w8a8_matmul.KERNEL_NAME: 2 * 414 + 3 + 414 + 3 - 6}
+        w8a8_matmul.KERNEL_NAME: 2 * 414 + 3 + 414 + 3 - 6,
+        w8a8_matmul.QUANT_KERNEL_NAME: 2 * 414 + 3 + 414 + 3 - 6}
     shapes = chip_smoke.ste_shapes(tcfg.model, 16)
     assert len(shapes) == 12
     assert ("language_model", 10240, 896, 4864) in shapes

@@ -28,8 +28,11 @@ from vla_adapter_torch.ops.fused_mlp import (
     w8a8_mlp,
 )
 from vla_adapter_torch.ops.w8a8_matmul import (
+    INT32_KERNEL_NAME,
     KERNEL_NAME,
+    QUANT_KERNEL_NAME,
     STACKED_KERNEL_NAME,
+    card_plan,
     quantize_rows,
     w8a8_linear,
     w8a8_linear_reference,
@@ -100,9 +103,8 @@ def test_w8a8_matmul_stacked_matches_plain_exactly(device):
 
 # (M, K, N) beyond MATMUL_SHAPES for the entry with the quantization
 # inside: the head at B=4 (M = 32) and a small M, ragged M at B=1, the
-# B=4 Qwen2 q/o, a "dense" MLP down projection (x streamed), three K
-# slices at M <= 16 (their maxima exchanged) and 13 column tiles (no
-# cluster divides them: x streamed).
+# B=4 Qwen2 q/o, a "dense" MLP down projection (a long K), three K slices
+# at M <= 16 (their maxima exchanged) and 13 column tiles.
 LINEAR_SHAPES = MATMUL_SHAPES + [(4, 896, 896), (32, 896, 896),
                                  (523, 1024, 1024), (2560, 896, 896),
                                  (640, 4864, 896), (16, 1040, 896),
@@ -149,9 +151,9 @@ def _every_bf16(lo_exp: int, hi_exp: int) -> np.ndarray:
     return np.concatenate([pos, -pos])
 
 
-# (M, values, pad): every bf16 in [1, 64) (K = 1536: xq resident, the
-# quantization shared by a cluster), in [2^-6, 64) (K = 3088: x streamed;
-# at M = 8 split over K with the maxima exchanged).
+# (M, values, pad): every bf16 in [1, 64) (K = 1536) and in [2^-6, 64)
+# (K = 3088) through the Hopper branch's pre-pass, and at M = 8 on the
+# narrow branch, split over K with the maxima exchanged.
 @pytest.mark.parametrize("m,lo_exp,pad", [(256, 0, 0), (256, -6, 16),
                                           (8, -6, 16)],
                          ids=["resident", "streamed", "narrow"])
@@ -230,6 +232,132 @@ def test_w8a8_layers_quantize_inside_the_kernel(device, monkeypatch):
     plain = dataclasses.replace(rt, kernels="plain")
     dense.rt = stack.rt = plain
     assert torch.equal(dense(x), got[0]) and torch.equal(stack(xs), got[1])
+
+
+# (M, K, N) on the Hopper branch (TMA + wgmma): M and N tails (M not a
+# multiple of the 128-row tile, N of the 128-column one), K = 1088 and
+# 2160 (not multiples of the 128-byte stage: TMA's zero fill past K), a
+# narrow N (the LLM's k/v, 128 columns), a long K (the MLP down
+# projection), the fewest rows it takes (33) and a short K (16).
+HOPPER_SHAPES = [(1030, 1088, 1152), (1157, 2160, 1146), (1024, 896, 128),
+                 (1283, 4864, 896), (2088, 1024, 1024), (33, 896, 130),
+                 (200, 16, 96)]
+
+
+def _counted(fn):
+    before = dict(cuda_lib.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items()
+                 if v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32],
+                         ids=["out_bf16", "out_f32"])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32],
+                         ids=["x_bf16", "x_f32"])
+@pytest.mark.parametrize("shape", HOPPER_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_hopper_branch_matches_plain_exactly(device, shape, x_dtype,
+                                             out_dtype):
+    """Float x: the quantization pre-pass, then the product, two launches,
+    bit for bit; the xq entry (xq and rs given): the product alone."""
+    m, k, n = shape
+    assert card_plan(m, n, k, 1, x_dtype, out_dtype, device)["branch"] \
+        == "hopper"
+    rng = np.random.default_rng(m + 3 * k + n)
+    x = _activations(rng, (m, k), device, x_dtype)
+    w, ws = _int8(rng, (n, k), device), _scales(rng, (n,), device, 1e-3, 1e-2)
+    want = w8a8_linear_reference(x, w, ws, out_dtype=out_dtype)
+    got, launched = _counted(lambda: w8a8_linear(x, w, ws,
+                                                 out_dtype=out_dtype))
+    assert launched == {QUANT_KERNEL_NAME: 1, KERNEL_NAME: 1}
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, want)
+    xq, rs = quantize_rows(x)
+    got, launched = _counted(lambda: w8a8_matmul(xq, rs, w, ws,
+                                                 out_dtype=out_dtype))
+    assert launched == {KERNEL_NAME: 1}
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1088, 2160, 896])
+def test_hopper_branch_int32_output_is_the_exact_product(device, k):
+    """The split K's int32 accumulator (no dequant), K not a multiple of
+    128 among them."""
+    m, n = 1100, 1152
+    rng = np.random.default_rng(k)
+    xq = _int8(rng, (m, k), device)
+    w = _int8(rng, (n, k), device)
+    got, launched = _counted(lambda: w8a8_matmul(xq, None, w, None,
+                                                 out_dtype=torch.int32))
+    assert launched == {INT32_KERNEL_NAME: 1}
+    assert torch.equal(got, w8a8_matmul_reference(xq, None, w, None,
+                                                  out_dtype=torch.int32))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.int8, torch.bfloat16],
+                         ids=["xq", "x_bf16"])
+def test_hopper_branch_stacks_match_plain_exactly(device, x_dtype):
+    """A stack on the Hopper branch: x per layer (the head's K/V at B=16,
+    row blocks not a multiple of 128), one x shared by every layer, and one
+    layer of the stack by index."""
+    rng = np.random.default_rng(17)
+    num_l, m, k, n = 4, 1090, 896, 896
+    w, ws = _int8(rng, (num_l, n, k), device), _scales(rng, (num_l, n), device)
+    x = _activations(rng, (num_l, m, k), device, torch.bfloat16)
+    xq, rs = quantize_rows(x)
+    if x_dtype == torch.int8:
+        got = w8a8_matmul_stacked(xq, rs, w, ws)
+        one = w8a8_matmul_stacked(xq[1], rs[1], w, ws, layer=2)
+    else:
+        got = w8a8_linear(x, w, ws)
+        one = w8a8_linear(x[1], w, ws)  # x[1] against every layer
+    torch.cuda.synchronize()
+    assert torch.equal(got, w8a8_matmul_reference(xq, rs, w, ws))
+    if x_dtype == torch.int8:
+        assert torch.equal(one, w8a8_matmul_reference(xq[1], rs[1], w, ws,
+                                                      layer=2))
+    else:
+        assert one.shape == (num_l, m, n)
+        assert torch.equal(one, w8a8_linear_reference(x[1], w, ws))
+
+
+def test_hopper_branch_graph_replay_matches_eager(device):
+    """Captured in a CUDA graph (the tensor maps are kernel parameters, the
+    pre-pass's scratch from the graph's pool), replayed on new x: the eager
+    bits of the new x."""
+    rng = np.random.default_rng(5)
+    m, k, n = 1200, 1024, 1024
+    x = _activations(rng, (m, k), device, torch.bfloat16)
+    w, ws = _int8(rng, (n, k), device), _scales(rng, (n,), device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        w8a8_linear(x, w, ws)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = w8a8_linear(x, w, ws)
+    x.copy_(_activations(rng, (m, k), device, torch.bfloat16))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, w8a8_linear_reference(x, w, ws))
+
+
+def test_the_card_refuses_rather_than_falls_back(device):
+    """A plan the kernel cannot run (more ring stages than shared memory
+    holds) raises, naming the shape: no other branch takes the call."""
+    from vla_adapter_torch.ops import w8a8_matmul as ops
+
+    rng = np.random.default_rng(6)
+    x = _activations(rng, (1030, 896), device, torch.bfloat16)
+    w, ws = _int8(rng, (896, 896), device), _scales(rng, (896,), device)
+    plan = dict(card_plan(1030, 896, 896, 1, torch.bfloat16, torch.bfloat16,
+                          device), stages=64)
+    with pytest.raises(RuntimeError, match=r"\(1030, 896, 896\)"):
+        ops._launch(KERNEL_NAME, x, None, w, ws, torch.bfloat16, 0, 1,
+                    plan=plan)
 
 
 def _flip_bound(x, w1, s1, w2, s2, up_q, up_scale, b1, act):

@@ -95,6 +95,9 @@
 // masked instead of skipped). (c) lse of a row with no valid key (above).
 // (d) a wait that never ends traps after ~4 s instead of hanging the card.
 //
+// The mbarrier, TMA, wgmma-descriptor and tensor-map helpers are
+// hopper.cuh's, shared with B4's Hopper branch (w8a8_matmul.cu).
+//
 // Interface: a plain C function (bound with ctypes), launched on the
 // caller's stream; it returns the first error of cudaGetLastError() after
 // each launch, or of building the TMA descriptors.
@@ -107,7 +110,11 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace vla_hopper;
 
 // The softmax terms of a tile come in two forms, chosen per warp: without
 // masks (every key allowed for every row: most tiles) and with them. As one
@@ -176,47 +183,6 @@ struct Smem {
   static constexpr int kBytes = kMask + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------------------
-// mbarriers and TMA
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-// Wait until the phase of parity `parity` has completed; trap after ~4 s
-// (a wait that never ends is a bug: better a fault than a hung card).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  uint64_t start = 0;
-  for (int spin = 0;; ++spin) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if ((spin & 1023) == 0) {
-      const uint64_t now = global_ns();
-      if (start == 0) start = now;
-      else if (now - start > 4000000000ull) __trap();
-    }
-  }
-}
 // A 64-row tile at (row0, head, batch) of a 4-d (D, S, H, B) tensor map,
 // chunk by chunk, completing on `bar`.
 template <int DP>
@@ -233,23 +199,10 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
         : "memory");
   }
 }
-// `bytes` (a multiple of 16) from 16-byte aligned global memory.
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
 
 // ---------------------------------------------------------------------------
 // wgmma
 
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint64_t mode) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
-}
 // A tile read K-major (contracted over the head dim): k-step kk covers
 // dims 16kk .. 16kk + 15, in chunk 16kk / CW.
 template <int DP>
@@ -266,18 +219,6 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   return make_desc(tile + kk * 16 * T::kRowBytes, T::kRegion, T::kSbo, T::kMode);
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N of this warpgroup's committed product groups are
-// in flight (they complete in order).
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
 // Keep the compiler from moving accumulator registers across the async
 // product (CUTLASS's warpgroup_fence_operand).
 template <int N>
@@ -659,14 +600,6 @@ __device__ __forceinline__ void turn_wait(int wg) {
 }
 __device__ __forceinline__ void turn_pass(int wg) {
   asm volatile("bar.arrive %0, 256;\n" :: "r"(2 - wg) : "memory");
-}
-template <int N>
-__device__ __forceinline__ void set_max_regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-template <int N>
-__device__ __forceinline__ void set_max_regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
 // The key validity of batch row b as bits (word w: keys 32w .. 32w + 31; a
@@ -1207,26 +1140,6 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ---------------------------------------------------------------------------
 // Host side
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, reached through the runtime's entry
-// point query (no -lcuda at link time).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status) !=
-            cudaSuccess ||
-        status != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
 
 // A (D, S, H, B) map of a bf16 tensor with element strides (sb, sh, ss),
 // boxes of CW x 64 rows, the chunk width's swizzle, zeros out of bounds.

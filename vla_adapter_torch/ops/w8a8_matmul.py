@@ -12,14 +12,18 @@ Dense computes around them, ``models/layers.py:_w8a8_fwd_math``
 
 with W int8 in the PyTorch ``(out, in)`` layout (N, K), the int32 product
 exact, and the two float32 products taken in that order and rounded once.
-``csrc/w8a8_matmul.cu`` computes it with ``mma.sync`` int8 tensor-core
-products. :func:`w8a8_linear` gives it the float x and the kernel
-quantizes the rows itself (what the models call on the card);
+``csrc/w8a8_matmul.cu`` computes it on the int8 tensor cores, by the
+branch :func:`w8a8_plan` picks per shape: above 32 rows "hopper", 128 x
+128 tiles of ``wgmma`` fed by TMA through an mbarrier ring (float x first
+quantized per row by a pre-pass kernel, a launch of its own counted as
+``w8a8_quantize``); up to 32 rows "narrow", ``mma.sync`` with the weight
+on the tile's wide side and K split over CTAs. :func:`w8a8_linear` gives
+the kernel the float x (what the models call on the card);
 :func:`w8a8_matmul` and :func:`w8a8_matmul_stacked` keep the JAX B4/B5
-signatures (xq and rs given) and run the same kernel with the quantization
-step off. One kernel serves a flat weight (B4), one layer of a ``(L, N, K)``
-stack (B5 as the JAX function has it), and the head's ``BatchedDense``,
-where layer ``l`` of x meets layer ``l`` of the stack.
+signatures (xq and rs given) and skip the quantization. One kernel serves
+a flat weight (B4), one layer of a ``(L, N, K)`` stack (B5 as the JAX
+function has it), the head's ``BatchedDense``, where layer ``l`` of x
+meets layer ``l`` of the stack, and one x against every layer.
 
 On a CPU tensor the wrappers return the plain versions
 (:func:`w8a8_linear_reference`, :func:`w8a8_matmul_reference`); a CUDA
@@ -37,6 +41,7 @@ zero-padded: the weight once (:func:`pad_k`), x as it is quantized
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -46,9 +51,13 @@ from vla_adapter_torch.ops import cuda_lib
 KERNEL_NAME = "w8a8_matmul"
 STACKED_KERNEL_NAME = "w8a8_matmul_stacked"
 INT32_KERNEL_NAME = "w8a8_matmul_int32"
+# the Hopper branch's quantization pre-pass on float x (a launch of its own)
+QUANT_KERNEL_NAME = "w8a8_quantize"
 SOURCE = "w8a8_matmul.cu"
 _OUT_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int32: 2}
 _X_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+_DTYPE_NAMES = {torch.int8: "int8", torch.bfloat16: "bf16",
+                torch.float32: "f32", torch.int32: "int32"}
 # The kernel's split over K at M <= 32 adds int32 partials into a scratch
 # that it leaves zeroed, and its CTAs exchange their rows' slice maxima
 # there: one per device, made (and zeroed) once at first use, outside any
@@ -57,6 +66,115 @@ _X_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 _PART_CAP = 1 << 20   # int32 partials: layers * M * N
 _COUNT_CAP = 1 << 14  # int32 counters and maxima: layers * (ceil(N / 64) + 64)
 _SCRATCH: dict = {}
+
+# The plan (:func:`w8a8_plan`). SMS: an H100 SXM's, the default where no
+# card is asked. MAX_SMEM: the shared memory a block may use.
+SMS = 132
+MAX_SMEM = 232448
+# Above 32 rows every call takes the Hopper branch (TMA + wgmma): it was
+# faster than the mma.sync design it replaced at every shape timed
+# (csrc/w8a8_matmul.cu's header).
+HOPPER_ROWS = 128        # rows of x per tile (two warpgroups of 64)
+HOPPER_COLS = 128        # columns of W per tile
+HOPPER_STEP = 128        # bytes of K per ring stage
+HOPPER_GROUP = 8         # row tiles walked together (L2 reuse)
+# The narrow kernel's variants, (n8 tiles of rows, 64-byte k steps a
+# slice), and the CTAs of each resident on one SM while it quantizes: the
+# least an H100 gave for bf16 or f32 x (vla_w8a8_narrow_per_sm); on the
+# card the wrapper asks the card (card_plan).
+NARROW_VARIANTS = ((1, 16), (1, 8), (2, 8), (4, 8))
+NARROW_PER_SM = (2, 3, 2, 2)
+_BRANCH_CODES = {"narrow": 0, "hopper": 1}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _narrow_variant(m: int, k: int) -> tuple:
+    if m <= 8:
+        return (1, 16) if k <= 1024 else (1, 8)
+    return (2, 8) if m <= 16 else (4, 8)
+
+
+def _hopper_plan(m: int, n: int, k: int, layers: int, x_dtype,
+                 sms: int) -> dict:
+    """The Hopper branch: 128 x 128 tiles, as many ring stages as shared
+    memory holds, a persistent grid of at most one CTA per SM; float x
+    quantized by a pre-pass first."""
+    tiles = _cdiv(m, HOPPER_ROWS) * _cdiv(n, HOPPER_COLS) * layers
+    stage = (HOPPER_ROWS + HOPPER_COLS) * HOPPER_STEP
+    stages = (MAX_SMEM - 1024) // (stage + 16)
+    ctas = min(tiles, sms)
+    return {"branch": "hopper", "block_m": HOPPER_ROWS,
+            "block_n": HOPPER_COLS, "stages": stages, "group": HOPPER_GROUP,
+            "tiles": tiles, "ctas": ctas, "waves": tiles / ctas,
+            "smem_bytes": 1024 + stages * (stage + 16),
+            "prepass": x_dtype != torch.int8}
+
+
+@functools.lru_cache(maxsize=None)
+def w8a8_plan(m: int, n: int, k: int, layers: int = 1,
+              x_dtype=torch.bfloat16, out_dtype=torch.bfloat16,
+              sms: int = SMS, narrow_per_sm: tuple = NARROW_PER_SM, *,
+              branch: Optional[str] = None) -> dict:
+    """How ``csrc/w8a8_matmul.cu`` runs one call (cached per shape: do not
+    modify the result): x (layers or 1, M, K) of ``x_dtype`` (int8 with
+    row scales, or bf16/f32 quantized inside) against ``layers`` weight
+    layers (N, K), out in ``out_dtype``, on ``sms`` SMs.
+
+    * "narrow" (M <= 32): mma.sync with the weight on the tile's 16-row
+      side, K split over CTAs (``splits``). A quantizing split over more
+      than two slices needs all its CTAs resident (``narrow_per_sm`` per
+      SM, by variant of NARROW_VARIANTS); one that would not be (Phi-2's
+      lm_head at M = 1) takes the Hopper branch.
+    * "hopper": TMA + wgmma (:func:`_hopper_plan`), every other call;
+      ``prepass``: float x goes through the quantization pre-pass first (a
+      launch counted as QUANT_KERNEL_NAME).
+
+    ``branch`` forces one (to time the branches against each other).
+    Raises on a shape the kernels do not take: K % 16, an odd N, an int32
+    output from float x."""
+    if min(m, n, k, layers) < 1 or k % 16 or n % 2:
+        raise ValueError(f"w8a8_plan: (M, N, K, layers) = {(m, n, k, layers)}"
+                         f"; K must be a multiple of 16, N even")
+    if x_dtype not in _X_DTYPES or out_dtype not in _OUT_DTYPES or (
+            out_dtype == torch.int32 and x_dtype != torch.int8):
+        raise TypeError(f"w8a8_plan: x {x_dtype}, out {out_dtype}")
+    if branch not in (None, "narrow", "hopper"):
+        raise ValueError(f"w8a8_plan: branch {branch!r}")
+    base = {"m": m, "n": n, "k": k, "layers": layers,
+            "x_dtype": _DTYPE_NAMES[x_dtype],
+            "out_dtype": _DTYPE_NAMES[out_dtype]}
+    if branch == "narrow" or (branch is None and m <= 32):
+        tiles, steps = _narrow_variant(m, k)
+        splits = _cdiv(_cdiv(k, 64), steps)
+        ctas = _cdiv(n, 64) * splits
+        per_sm = narrow_per_sm[NARROW_VARIANTS.index((tiles, steps))]
+        if (branch == "narrow" or x_dtype == torch.int8 or splits <= 2
+                or ctas <= per_sm * sms):
+            slice_ = min(_cdiv(k, 64), steps) * 64
+            return {**base, "branch": "narrow", "tiles": tiles,
+                    "steps": steps, "splits": splits, "ctas": ctas * layers,
+                    "smem_bytes": 8 * tiles * (slice_ + 16)
+                    + (16 * tiles + 1) * 4, "prepass": False}
+    return {**base, **_hopper_plan(m, n, k, layers, x_dtype, sms)}
+
+
+def plan_codes(plan: dict) -> tuple:
+    """The plan as the C entry point reads it (``Branch`` in the source)."""
+    b = plan["branch"]
+    if b == "narrow":
+        rest = (plan["tiles"], plan["steps"])
+    else:
+        rest = (plan["block_n"], plan["stages"], plan["group"], plan["ctas"])
+    return (_BRANCH_CODES[b], *rest) + (0,) * (7 - len(rest))
+
+
+def plan_launches(plan: dict, name: str) -> dict:
+    """Kernel launches of one call of ``plan`` counted as ``name``: the
+    product, and the pre-pass where the plan has one."""
+    return {QUANT_KERNEL_NAME: 1, name: 1} if plan["prepass"] else {name: 1}
 
 
 def quantize_rows(x: torch.Tensor):
@@ -143,9 +261,74 @@ def _lib() -> ctypes.CDLL:
     if not fn.argtypes:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, i,
-                       i, p, p, ll, ll, p]
+                       i, p, p, ll, ll, ctypes.POINTER(ctypes.c_int), p, p,
+                       p]
         fn.restype = ctypes.c_int
+        lib.vla_w8a8_narrow_per_sm.argtypes = [i, i, i, i]
+        lib.vla_w8a8_narrow_per_sm.restype = ctypes.c_int
+        lib.vla_w8a8_map_encode_ns.argtypes = [p, i, i, i, i]
+        lib.vla_w8a8_map_encode_ns.restype = ctypes.c_double
+        lib.vla_w8a8_quantize.argtypes = [p, p, p, ll, i, i, p]
+        lib.vla_w8a8_quantize.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_occupancy(x_dtype, out_dtype) -> tuple:
+    """The card's CTAs of each narrow variant (NARROW_VARIANTS) resident
+    on one SM while quantizing x of ``x_dtype`` into ``out_dtype``."""
+    lib = _lib()
+    return tuple(lib.vla_w8a8_narrow_per_sm(
+        t, s, _X_DTYPES[x_dtype], _OUT_DTYPES[out_dtype])
+        for t, s in NARROW_VARIANTS)
+
+
+def card_plan(m: int, n: int, k: int, layers: int, x_dtype, out_dtype,
+              device) -> dict:
+    """:func:`w8a8_plan` for the card ``device``: its SMs and, quantizing,
+    its narrow occupancy."""
+    per_sm = (narrow_occupancy(x_dtype, out_dtype)
+              if x_dtype != torch.int8 and m <= 32 else NARROW_PER_SM)
+    return w8a8_plan(m, n, k, layers, x_dtype, out_dtype,
+                     cuda_lib.sm_count(device), per_sm)
+
+
+def map_encode_ns(m: int, n: int, k: int, reps: int = 10000) -> float:
+    """Host ns to encode the Hopper branch's two tensor maps of an (M, K)
+    x and an (N, K) weight: what each launch of that branch adds."""
+    dummy = torch.empty(16, dtype=torch.uint8, device="cuda")
+    return _lib().vla_w8a8_map_encode_ns(dummy.data_ptr(), m, n, k, reps)
+
+
+def w8a8_quantize(x: torch.Tensor):
+    """The Hopper branch's quantization pre-pass alone (what
+    :func:`w8a8_linear` launches before that branch's product): x (..., K)
+    bf16 or f32 -> (xq int8 (..., K), row scales f32 (..., 1)), bit for bit
+    :func:`quantize_rows` (its plain version, which a CPU tensor gets).
+    K % 16 == 0. Launches counted as QUANT_KERNEL_NAME."""
+    if x.device.type == "cpu":
+        return quantize_rows(x)
+    _check_device(QUANT_KERNEL_NAME, x)
+    if x.dtype not in (torch.bfloat16, torch.float32) or x.shape[-1] % 16:
+        raise ValueError(f"{QUANT_KERNEL_NAME}: x {x.dtype} "
+                         f"{tuple(x.shape)}: bf16 or f32, K % 16 == 0")
+    x = x.contiguous()
+    k = x.shape[-1]
+    rows = x.numel() // k
+    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    rs = torch.empty((*x.shape[:-1], 1), dtype=torch.float32,
+                     device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib().vla_w8a8_quantize(
+            x.data_ptr(), xq.data_ptr(), rs.data_ptr(), rows, k,
+            _X_DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{QUANT_KERNEL_NAME}: x {tuple(x.shape)} "
+                           f"{x.dtype}: the kernel was refused (cudaError "
+                           f"{err})")
+    cuda_lib.count_launch(QUANT_KERNEL_NAME)
+    return xq, rs
 
 
 def _scratch(device: torch.device):
@@ -159,11 +342,15 @@ def _scratch(device: torch.device):
     return _SCRATCH[key]
 
 
-def _launch(name, x, rs, w, ws, out_dtype, layer0: int,
-            batched: bool) -> torch.Tensor:
-    """One launch: x (M, K) against weight layer ``layer0`` or, batched,
-    x (L, M, K) row block z against weight layer z for every z. x is int8
-    with its row scales rs, or float (rs None) and quantized inside."""
+def _launch(name, x, rs, w, ws, out_dtype, layer0: int, layers: int,
+            plan: Optional[dict] = None) -> torch.Tensor:
+    """One call: x (M, K) against weight layer ``layer0`` (``layers`` 1),
+    or against each of ``layers`` weight layers from ``layer0`` (shared
+    x), or x (layers, M, K) row block z against weight layer z. x is int8
+    with its row scales rs, or float (rs None) and quantized inside. The
+    branch is :func:`card_plan`'s unless ``plan`` is given (to time one
+    branch against another). Raises where the kernel refuses: nothing
+    falls back to another branch."""
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"{name}: out_dtype {out_dtype} not in "
                         f"{list(_OUT_DTYPES)}")
@@ -185,8 +372,11 @@ def _launch(name, x, rs, w, ws, out_dtype, layer0: int,
         if t is not None and t.device != x.device:
             raise ValueError(f"{name}: operands on {t.device} and "
                              f"{x.device}")
-    layers = w.shape[0] if batched else 1
-    if m <= 32 and k > 512 and layers * m * n > _PART_CAP:
+    per_layer = x.dim() == 3
+    if plan is None:
+        plan = card_plan(m, n, k, layers, x.dtype, out_dtype, x.device)
+    if (plan["branch"] == "narrow" and plan["splits"] > 1
+            and layers * m * n > _PART_CAP):
         raise ValueError(f"{name}: {layers} x {m} x {n} int32 partials "
                          f"exceed the split-K scratch ({_PART_CAP})")
     x, w = x.contiguous(), w.contiguous()
@@ -194,22 +384,34 @@ def _launch(name, x, rs, w, ws, out_dtype, layer0: int,
         rs = rs.float().contiguous()
     if ws is not None:
         ws = ws.float().contiguous()
-    out = torch.empty((layers, m, n) if batched else (m, n),
+    out = torch.empty((layers, m, n) if layers > 1 or per_layer else (m, n),
                       dtype=out_dtype, device=x.device)
+    xq_buf = rs_buf = None
+    if plan["prepass"]:
+        rows = (layers if per_layer else 1) * m
+        xq_buf = torch.empty((rows, k), dtype=torch.int8, device=x.device)
+        rs_buf = torch.empty(rows, dtype=torch.float32, device=x.device)
+    codes = (ctypes.c_int * 8)(*plan_codes(plan))
     lib = _lib()
     with torch.cuda.device(x.device):
         part, count = _scratch(x.device)
         err = lib.vla_w8a8_matmul(
             x.data_ptr(), None if rs is None else rs.data_ptr(),
             w.data_ptr(), None if ws is None else ws.data_ptr(),
-            out.data_ptr(), m, n, k, layer0,
-            layers, m * k * batched, m * batched, n * k, n, m * n * batched,
-            _X_DTYPES[x.dtype], _OUT_DTYPES[out_dtype], part.data_ptr(),
-            count.data_ptr(), _PART_CAP, _COUNT_CAP,
+            out.data_ptr(), m, n, k, layer0, layers, m * k * per_layer,
+            m * per_layer, n * k, n, m * n, _X_DTYPES[x.dtype],
+            _OUT_DTYPES[out_dtype], part.data_ptr(), count.data_ptr(),
+            _PART_CAP, _COUNT_CAP, codes,
+            None if xq_buf is None else xq_buf.data_ptr(),
+            None if rs_buf is None else rs_buf.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
-    cuda_lib.count_launch(INT32_KERNEL_NAME if raw else name)
+        raise RuntimeError(
+            f"{name}: (M, N, K) = ({m}, {n}, {k}) x {layers} layers, "
+            f"x {x.dtype}, out {out_dtype}, plan {plan}: the kernel was "
+            f"refused (cudaError {err})")
+    for kernel in plan_launches(plan, INT32_KERNEL_NAME if raw else name):
+        cuda_lib.count_launch(kernel)
     return out
 
 
@@ -235,7 +437,7 @@ def w8a8_matmul(xq: torch.Tensor, rs: Optional[torch.Tensor],
         raise ValueError(f"{KERNEL_NAME}: shapes xq {tuple(xq.shape)} w "
                          f"{tuple(w.shape)}, rs and ws for "
                          f"out_dtype {out_dtype}")
-    return _launch(KERNEL_NAME, xq, rs, w, ws, out_dtype, 0, False)
+    return _launch(KERNEL_NAME, xq, rs, w, ws, out_dtype, 0, 1)
 
 
 def w8a8_matmul_stacked(xq: torch.Tensor, rs: torch.Tensor, w: torch.Tensor,
@@ -261,31 +463,34 @@ def w8a8_matmul_stacked(xq: torch.Tensor, rs: torch.Tensor, w: torch.Tensor,
             raise ValueError(f"{STACKED_KERNEL_NAME}: xq {tuple(xq.shape)} "
                              f"rs {tuple(rs.shape)} layer {layer} of {num_l}")
         return _launch(STACKED_KERNEL_NAME, xq, rs, w, ws, out_dtype,
-                       int(layer), False)
+                       int(layer), 1)
     if xq.dim() != 3 or xq.shape[0] != num_l \
             or rs.shape != (num_l, xq.shape[1], 1):
         raise ValueError(f"{STACKED_KERNEL_NAME}: xq {tuple(xq.shape)} rs "
                          f"{tuple(rs.shape)} for {num_l} layers")
-    return _launch(STACKED_KERNEL_NAME, xq, rs, w, ws, out_dtype, 0, True)
+    return _launch(STACKED_KERNEL_NAME, xq, rs, w, ws, out_dtype, 0, num_l)
 
 
 def w8a8_linear(x: torch.Tensor, w: torch.Tensor, ws: torch.Tensor, *,
                 out_dtype=torch.bfloat16) -> torch.Tensor:
     """The w8a8 product from the float activations, the JAX Dense's
-    ``_w8a8_fwd_math``: ``quantize_rows(x)`` and kernel B4 in one launch.
+    ``_w8a8_fwd_math``: ``quantize_rows(x)`` and kernel B4 (one launch, or
+    two on the Hopper branch: its quantization pre-pass, then the product).
 
     x (M, K) bf16 or f32 against w (N, K) int8, ws (N,) f32 -> (M, N)
-    (launches counted as ``w8a8_matmul``); or x (L, M, K) against a stack
-    w (L, N, K), ws (L, N), row block l against layer l -> (L, M, N)
-    (counted as ``w8a8_matmul_stacked``). K % 16 == 0, N even."""
+    (launches counted as ``w8a8_matmul``); or against a stack w (L, N, K),
+    ws (L, N): x (L, M, K), row block l against layer l, or one x (M, K)
+    against every layer -> (L, M, N) (counted as ``w8a8_matmul_stacked``).
+    K % 16 == 0, N even."""
     if x.device.type == "cpu":
         return w8a8_linear_reference(x, w, ws, out_dtype=out_dtype)
-    stacked = x.dim() == 3
+    stacked = w.dim() == 3
     name = STACKED_KERNEL_NAME if stacked else KERNEL_NAME
     _check_device(name, x)
-    if x.dim() not in (2, 3) or w.dim() != x.dim() \
-            or ws.shape != w.shape[:-1] \
-            or (stacked and x.shape[0] != w.shape[0]):
+    if x.dim() not in (2, 3) or w.dim() not in (2, 3) \
+            or ws.shape != w.shape[:-1] or x.dim() > w.dim() \
+            or (x.dim() == 3 and x.shape[0] != w.shape[0]):
         raise ValueError(f"{name}: shapes x {tuple(x.shape)} w "
                          f"{tuple(w.shape)} ws {tuple(ws.shape)}")
-    return _launch(name, x, None, w, ws, out_dtype, 0, stacked)
+    return _launch(name, x, None, w, ws, out_dtype, 0,
+                   w.shape[0] if stacked else 1)
