@@ -13,9 +13,11 @@ Phases, in order; any failure exits non-zero:
    heads, S=261, D=64; so400m 16 heads, S=256, D=72; for B=1 and B=2;
    and, on no serving path, the 7B full-train recipe's LLM attention:
    Vicuna-7B's 32/32 heads of D=128, non-causal, over 384 tokens with its
-   key padding, at 32 rows), print the kernel's plan (branch, warps and
-   CTAs, CTAs per SM, waves; every serving shape must take the one-pass
-   branch), hold the kernel
+   key padding, at 32 rows), and every other B1 shape of PERF.md's table
+   (:data:`B1_ROW_SHAPES`: the finetune's, tensor 2's, the prefill's,
+   Phi-2's, the 7B zoo's, the 384/336-px towers'), print the kernel's
+   plan (consumer warpgroups a CTA, ring stages, CTAs, CTAs per SM,
+   waves, shared memory, registers), hold the kernel
    against its plain PyTorch version and time the kernel, the plain
    version and ``scaled_dot_product_attention`` (a yardstick only: the
    port never calls it).
@@ -204,7 +206,7 @@ Phases, in order; any failure exits non-zero:
    spawn workers that see no CUDA device; every batch has the dummy
    batch's keys, shapes and dtypes and actions in [-1, 1]. The pipeline's
    host frames/s in this process and with the workers; then
-   ``train.loop.finetune`` trains the full-width flagship 4 steps at
+   ``train.loop.finetune`` trains the full-width flagship 3 steps at
    batch 16 on it as phase 11 sets it up, B1, B1-bwd and B4 launched per
    step as :func:`expected_train_launches` says; s/step and samples/s
    beside phase 11's dummy-data figure, the seconds the loop waits in
@@ -236,7 +238,7 @@ Phases, in order; any failure exits non-zero:
    the card (the group destroyed after), ``parity_check`` record then
    check from the exported directory (PASS at 0.0) and ``verify_smoke``
    in its own process (its latency line). Last, in a child process
-   (:func:`group_train_child`), the flagship recipe at batch 16 for 4
+   (:func:`group_train_child`), the flagship recipe at batch 16 for 3
    steps without a group and on a one-rank NCCL "data" mesh, and under
    FSDP2 on a one-rank "fsdp" mesh for a step, a checkpoint written
    under the group, and the rest resumed from it: losses and trained
@@ -331,7 +333,15 @@ its accumulation run 1 (were 2) and its float-base run for the merge 2
 (were 3), phases 12 and 16 generate 8 tokens (were 16), phase 17 trains
 4 steps, phase 16's pretraining runs 2 (were 3), phase 18's group runs
 4 (were 6), phase 19's tensor run 3 steps and 1 resumed (were 4 and 2),
-phase 20 1 step (were 2).
+phase 20 1 step (were 2). To hold the run within 900 s with B1's
+phase-2 rows (every shape of PERF.md's B1 rows, timed at 10 reps x 3
+rounds, the plain version at 2 reps), again depth, and two builds split
+over the cores (``cuda_lib.SPLIT_COMPILE``): B1-bwd's rows (phases 11,
+14, 16, 19, 21) time it and B1 at 10 reps x 3 rounds (were 20 x 5),
+phase 7 times 4 rounds at B=1 and 3 at B=2 and B=4 (were 6 and 4),
+phase 10 its B=1 latency 5 rounds (were 8), phase 17's loader drains 4
+batches and times 8 (were 8 and 12) and its run trains 3 steps (were
+4), phase 18's group runs 3 steps (were 4).
 
 With ``--profile`` phase 7 also profiles one B=1 request per tier, eager
 and replayed, and checks that the eager w8a8 tiers launch at least 3,000
@@ -617,7 +627,65 @@ def attention_shapes(cfg, tokenize, batches=(1, 2)):
     return shapes
 
 
-def phase_kernel_vs_plain(shapes):
+# Every B1 shape of PERF.md's table of kernels beyond the serving shapes
+# at B = 1 and 2 (:func:`attention_shapes`) and the 7B full-train recipe's
+# (:func:`seven_b_attention_shape`): (name, batch, heads, kv heads, seq,
+# head dim, padded keys, causal). The finetune's and full-train's LLM,
+# DINOv2 and so400m at micro-batch 16 and each rank's heads at tensor 2;
+# generation's causal prefill at B = 1, 4; Phi-2; the 7B zoo's causal
+# prompts (Llama-2 MHA, Mistral GQA 32/8) and prefill; the 384/336-px
+# towers at B = 1, 4. Padded: the first batch row's last seq // 16 keys
+# are invalid, as a shorter prompt's.
+B1_ROW_SHAPES = [
+    ("llm_train", 16, 14, 2, 640, 64, True, False),
+    ("llm_train_causal", 16, 14, 2, 640, 64, True, True),
+    ("dinov2_train", 32, 16, 16, 261, 64, False, False),
+    ("so400m_train", 32, 16, 16, 256, 72, False, False),
+    ("llm_tensor2", 16, 7, 1, 640, 64, True, False),
+    ("dinov2_tensor2", 32, 8, 8, 261, 64, False, False),
+    ("so400m_tensor2", 32, 8, 8, 256, 72, False, False),
+    ("llm_prefill_b1", 1, 14, 2, 128, 64, False, True),
+    ("llm_prefill_b4", 4, 14, 2, 128, 64, False, True),
+    ("phi2", 1, 32, 32, 136, 80, False, True),
+    ("llama2_7b_b1", 1, 32, 32, 857, 128, True, True),
+    ("llama2_7b_b4", 4, 32, 32, 857, 128, True, True),
+    ("mistral_7b_b1", 1, 32, 8, 704, 128, True, True),
+    ("mistral_7b_b4", 4, 32, 8, 704, 128, True, True),
+    ("llama2_7b_prefill", 1, 32, 32, 96, 128, False, True),
+    ("dinov2_384_b1", 1, 16, 16, 734, 64, False, False),
+    ("dinov2_384_b4", 4, 16, 16, 734, 64, False, False),
+    ("so400m_384_b1", 1, 16, 16, 729, 72, False, False),
+    ("so400m_384_b4", 4, 16, 16, 729, 72, False, False),
+    ("clip_l_336_b1", 1, 16, 16, 577, 64, False, False),
+    ("clip_l_336_b4", 4, 16, 16, 577, 64, False, False),
+]
+
+
+# reps and rounds of their timings (the serving shapes' 20 and 5)
+B1_ROW_TIMING = (10, 3)
+
+
+def b1_row_shapes(names=None) -> list:
+    """:data:`B1_ROW_SHAPES` (those named, or all) as
+    :func:`phase_kernel_vs_plain` takes them, on no flagship serving path
+    (0 calls a forward)."""
+    out = []
+    for name, b, h, hkv, s, d, padded, causal in B1_ROW_SHAPES:
+        if names and name not in names:
+            continue
+        valid = None
+        if padded:
+            valid = np.ones((b, s), np.int32)
+            valid[0, s - s // 16:] = 0
+        out.append((name, b, b, h, hkv, s, d, valid, causal, 0))
+    return out
+
+
+def phase_kernel_vs_plain(shapes, timing=(20, 5), plain_reps=5):
+    """B1 against its plain version at each of ``shapes`` (the tuples of
+    :func:`attention_shapes`), its plan printed, timed (reps and rounds
+    ``timing``, the plain version ``plain_reps`` reps) beside SDPA and the
+    bound."""
     import torch
     import torch.nn.functional as F
 
@@ -632,10 +700,7 @@ def phase_kernel_vs_plain(shapes):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     records = []
     for name, fwd_b, b, h, hkv, s, d, valid_np, causal, per_fwd in shapes:
-        plan = attention_plan(b, h, hkv, s, d, sms)
-        if plan["branch"] != "one-pass":
-            raise AssertionError(f"{name} b={b}: serving shape on the "
-                                 f"{plan['branch']} branch: {plan}")
+        plan = attention_plan(b, h, hkv, s, d, sms, causal)
         q = torch.randn(b, h, s, d, generator=gen, device=dev).bfloat16()
         k = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
         v = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
@@ -659,18 +724,19 @@ def phase_kernel_vs_plain(shapes):
         mask = None
         if valid is not None:
             mask = valid.bool()[:, None, None, :]
-            if causal:
-                mask = mask & torch.ones(s, s, dtype=torch.bool,
-                                         device=dev).tril()
+        if causal:
+            tril = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+            mask = tril if mask is None else mask & tril
+
         def kernel():
             fused_attention(q, k, v, valid, causal=causal)
 
-        ms = device_ms(kernel)
-        host_ms = eager_ms(kernel)
+        ms = device_ms(kernel, *timing)
+        host_ms = eager_ms(kernel, *timing)
         plain_ms = device_ms(lambda: attention_reference(
-            q, k, v, valid, causal=causal), reps=5)
+            q, k, v, valid, causal=causal), plain_reps, timing[1])
         lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            q, kx, vx, attn_mask=mask))
+            q, kx, vx, attn_mask=mask), *timing)
         key_valid = (np.ones((b, s), np.int32) if valid_np is None
                      else valid_np)
         bound, bound_by, flops, nbytes = attention_bound_ms(
@@ -769,6 +835,10 @@ def attention_bwd_bound_ms(b, h, hkv, s, d, valid, causal):
                                        else "bytes"), flops, nbytes
 
 
+# reps and rounds of phase 11's B1-bwd and B1 timings (were 20 and 5)
+BWD_TIMING = (10, 3)
+
+
 def phase_attention_bwd(shapes, card: str):
     """B1-bwd against its plain version at each shape: the plan, the
     relative error of dq, dk, dv, a rerun bit for bit, and the times of the
@@ -830,14 +900,15 @@ def phase_attention_bwd(shapes, card: str):
                             device=dev)
         ms = device_ms(lambda: attention_bwd(q, k, v, valid, dout,
                                              causal=causal, lse=lse,
-                                             stats=stats))
+                                             stats=stats), *BWD_TIMING)
         split_ms = {kn: device_ms(lambda kn=kn: attention_bwd(
             q, k, v, valid, dout, causal=causal, lse=lse, stats=stats,
-            kernels=(kn,))) for kn in BWD_KERNELS}
+            kernels=(kn,)), *BWD_TIMING) for kn in BWD_KERNELS}
         fwd_ms = device_ms(lambda: fused_attention(q, k, v, valid,
-                                                   causal=causal))
+                                                   causal=causal),
+                           *BWD_TIMING)
         fwd_lse_ms = device_ms(lambda: fused_attention(
-            q, k, v, valid, causal=causal, return_lse=True))
+            q, k, v, valid, causal=causal, return_lse=True), *BWD_TIMING)
         plain_ms = eager_ms(lambda: attention_bwd_reference(
             q, k, v, valid, dout, causal=causal), reps=3, rounds=3)
         # SDPA's backward: forward once outside the timed calls
@@ -2687,13 +2758,13 @@ def phase_graph(bf16_pred, rng, card: str, profile: bool = False):
              for im, p in _requests(cfg, rng, 1)]
     both = {f"{name} {mode}": (pred if mode == "graph" else eager[name])
             for name, pred in tiers.items() for mode in ("eager", "graph")}
-    times = _in_turns(both, rows1, 6)
+    times = _in_turns(both, rows1, 4)
     rec["b1"] = {name: _spread(v) for name, v in times.items()}
     for name in tiers:
         rec["b1"][f"{name} graph"]["faster_than_eager_pairs"] = sum(
             g < e for g, e in zip(times[f"{name} graph"],
                                   times[f"{name} eager"]))
-    for b, rounds in ((2, 4), (4, 4)):
+    for b, rounds in ((2, 3), (4, 3)):
         rows_b = [bf16_pred.preprocess(im, INSTRUCTION, p)
                   for im, p in _requests(cfg, rng, b)]
         times = _in_turns({name: tiers[name] for name in
@@ -3217,7 +3288,7 @@ def phase_original_film(bf16_pred, rng, card: str, seed: int):
 
     # --- B=1 under graphs, in turns ---
     rows1 = rows4[:1]
-    times = _in_turns(tiers, rows1, 8)
+    times = _in_turns(tiers, rows1, 5)
     rec["b1_graph"] = {name: _spread(v) for name, v in times.items()}
     print("original_film_b1 " + json.dumps(rec["b1_graph"]), flush=True)
     del tiers, auto, eager, plain
@@ -4889,7 +4960,7 @@ MIXTURE_FRAMES = 2000
 LOADER_WORKERS = 4
 # batches drawn from the loader before the workers' rate is timed (their
 # first wave and the prefetched queue), then the batches timed
-LOADER_DRAIN, LOADER_TIMED = 8, 12
+LOADER_DRAIN, LOADER_TIMED = 4, 8
 
 
 def libero_kwargs(name: str, trajs: list, **over) -> dict:
@@ -4987,7 +5058,7 @@ def rlds_mixture_shares(sources: dict, cfg, seed: int) -> dict:
 
 
 # steps of phase 17's finetune on RLDS batches
-RLDS_TRAIN_STEPS = 4
+RLDS_TRAIN_STEPS = 3
 
 
 def phase_finetune_rlds(card: str, seed: int,
@@ -5711,7 +5782,7 @@ def _free_port() -> int:
 # run's step times (read one step late) the first holds the set-up and
 # the last only the final read, so 2 are timed (1 of the FSDP2 run,
 # resumed at step 1)
-GROUP_TRAIN_STEPS = 4
+GROUP_TRAIN_STEPS = 3
 
 
 def _file_digest(path) -> str:
@@ -7823,6 +7894,7 @@ def main() -> int:
     print(f"flagship: {n_params / 1e9:.3f} B parameters in bf16", flush=True)
     records = phase_kernel_vs_plain(attention_shapes(cfg, predictor.tokenize)
                                     + [seven_b_attention_shape(args.seed)[0]])
+    records += phase_kernel_vs_plain(b1_row_shapes(), B1_ROW_TIMING, 2)
     lap("2 attention")
 
     # 3. the w8a8 kernels vs plain at the w8a8 main path's shapes

@@ -17,6 +17,7 @@ from vla_adapter_torch.ops import cuda_lib
 from vla_adapter_torch.ops.attention import dot_product_attention
 from vla_adapter_torch.ops.attention_kernel import (
     KERNEL_NAME,
+    attention_bwd_plan,
     attention_plan,
     attention_reference,
     fused_attention,
@@ -146,37 +147,111 @@ def test_other_devices_are_refused():
 
 
 # (batch, heads, kv heads, seq, head dim): the serving shapes of one B=1 and
-# one B=2 forward (Qwen2 14/2 heads, DINOv2 and so400m over 2 images each).
+# one B=2 forward (Qwen2 14/2 heads, DINOv2 and so400m over 2 images each),
+# and every other shape of PERF.md's B1 rows: the finetune's micro-batch
+# of 16 (and each rank's heads at tensor 2), the 7B full-train recipe's,
+# generation's prefill, Phi-2's, the 7B zoo's and the 384/336-px towers.
 SERVING_SHAPES = [(1, 14, 2, 640, 64), (2, 14, 2, 640, 64),
                   (2, 16, 16, 261, 64), (4, 16, 16, 261, 64),
-                  (2, 16, 16, 256, 72), (4, 16, 16, 256, 72)]
+                  (2, 16, 16, 256, 72), (4, 16, 16, 256, 72),
+                  (16, 14, 2, 640, 64), (32, 16, 16, 261, 64),
+                  (32, 16, 16, 256, 72), (16, 7, 1, 640, 64),
+                  (32, 32, 32, 384, 128), (1, 14, 2, 128, 64),
+                  (4, 14, 2, 128, 64), (1, 32, 32, 136, 80),
+                  (1, 32, 32, 857, 128), (4, 32, 32, 857, 128),
+                  (1, 32, 8, 704, 128), (4, 32, 8, 704, 128),
+                  (1, 32, 32, 96, 128), (1, 16, 16, 734, 64),
+                  (1, 16, 16, 729, 72), (1, 16, 16, 577, 64)]
+BLOCK_SMEM, SM_SMEM, SM_REGS = 232448, 233472, 65536
+
+
+def _fits(plan) -> None:
+    """The plan's CTAs fit an SM: shared memory a block and an SM may use,
+    and the registers of the producer and consumer warpgroups."""
+    assert plan["smem_bytes"] <= BLOCK_SMEM
+    assert plan["ctas_per_sm"] * (plan["smem_bytes"] + 1024) <= SM_SMEM
+    assert plan["ctas_per_sm"] * plan["threads"] * plan["launch_regs"] \
+        <= SM_REGS
+    assert 128 * (plan["producer_regs"] + plan["warpgroups"]
+                  * plan["consumer_regs"]) \
+        <= plan["threads"] * plan["launch_regs"]
+    assert 2 <= plan["stages"] <= 4 and plan["warpgroups"] in (1, 2, 3)
+    assert plan["ctas_per_sm"] < 3 or plan["dp"] <= 96
 
 
 @pytest.mark.parametrize("shape", SERVING_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_serving_shapes_take_the_one_pass_branch(shape):
-    """Every serving shape keeps its score block in shared memory, within
-    the 227 KB a block may use, with a warp for every 16 query rows."""
+    """Every serving and training shape runs the kernel's one pass over
+    the keys (the online softmax: no score stored) in a plan whose CTAs
+    fit an SM's shared memory and registers, with a 64-row unit for every
+    64 query rows of every head."""
     plan = attention_plan(*shape)
-    assert plan["branch"] == "one-pass"
-    assert 1 <= plan["warps"] <= 8 and plan["smem_bytes"] <= 232448
-    b, h, _, s, _ = shape
-    assert plan["ctas"] * plan["warps"] >= h * -(-s // 16) * b
+    _fits(plan)
+    b, h, hkv, s, _ = shape
+    assert "branch" not in plan
+    assert plan["units"] == (h // hkv) * -(-s // 64)
+    assert plan["ctas"] * plan["warpgroups"] >= b * hkv * plan["units"]
 
 
 def test_plan_qwen2_b1_fills_one_wave():
-    """The Qwen2 call at B=1 runs in one wave (a grid of 64-row CTAs would
-    be 140 CTAs of 4 warps on 132 SMs, 8 of them in a second wave)."""
+    """The Qwen2 call at B=1 (140 query tiles of 64 rows) fills at least
+    half of one wave of the card's 132 SMs and needs no second."""
     plan = attention_plan(1, 14, 2, 640, 64)
     assert plan["ctas"] <= 132 * plan["ctas_per_sm"]
     assert plan["waves"] >= 0.5
+    assert plan["ctas"] * plan["warpgroups"] == 140
 
 
-@pytest.mark.parametrize("seq,dim,branch", [
-    (1, 16, "one-pass"), (2048, 128, "one-pass"), (3000, 128, "one-pass"),
-    (3200, 128, "two-pass"), (4000, 64, "two-pass")])
-def test_plan_branch_is_chosen_by_seq(seq, dim, branch):
+@pytest.mark.parametrize("seq,dim", [(1, 128), (3000, 128), (3200, 128),
+                                     (4000, 128), (8192, 128)])
+def test_plan_branch_is_chosen_by_seq(seq, dim):
+    """No branch by S and no limit on it: at S = 1 and 8192 alike, the
+    plan is the same design, fits, and only its grid grows with S."""
     plan = attention_plan(1, 2, 1, seq, dim)
-    assert plan["branch"] == branch
-    assert plan["smem_bytes"] <= 232448
-    assert plan["warps"] <= -(-seq // 16) * 2
+    _fits(plan)
+    assert "branch" not in plan
+    assert plan["units"] == 2 * -(-seq // 64)
+    assert plan["keys_per_tile"] == 64 and not plan["persistent"]
+
+
+@pytest.mark.parametrize("dim,chunk", [(72, 16), (80, 16), (64, 64),
+                                       (128, 64), (96, 32)])
+def test_plan_takes_the_tma_chunk_of_the_head_dim(dim, chunk):
+    """D = 72 (so400m, padded to 80) and D = 80 (Phi-2) take 16-wide
+    swizzled column chunks, as B1-bwd's tiles do; 64 and 128 take 64."""
+    plan = attention_plan(2, 16, 16, 256, dim)
+    assert plan["chunk"] == chunk
+    assert plan["chunk"] == attention_bwd_plan(2, 16, 16, 256, dim)["chunk"]
+    _fits(plan)
+
+
+def _grid_units(b, h, hkv, s, plan):
+    """Each (batch, head, row tile) the kernel's grid runs, as
+    csrc/fused_attention.cu maps a CTA (x, kv head, batch) and its
+    warpgroup to a unit: the CTA's units follow on over (head of the kv
+    group, row tile)."""
+    groups, row_tiles, wgs = h // hkv, -(-s // 64), plan["warpgroups"]
+    units = groups * row_tiles
+    out = []
+    for z in range(b):
+        for y in range(hkv):
+            for x in range(plan["ctas"] // (b * hkv)):
+                for wg in range(min(wgs, units - x * wgs)):
+                    unit = x * wgs + wg
+                    out.append((z, y * groups + unit // row_tiles,
+                                unit % row_tiles))
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 14, 2, 640, 64), (2, 14, 2, 640, 64),
+                                   (2, 16, 16, 261, 64), (3, 6, 2, 65, 16),
+                                   (1, 32, 8, 704, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_plan_grid_covers_every_query_tile_once(shape):
+    b, h, hkv, s, d = shape
+    plan = attention_plan(*shape)
+    units = _grid_units(b, h, hkv, s, plan)
+    assert len(units) == len(set(units))
+    assert set(units) == {(z, hh, t) for z in range(b) for hh in range(h)
+                          for t in range(-(-s // 64))}

@@ -1,5 +1,5 @@
-// Fused softmax attention for Hopper (sm_90a), bf16 in / bf16 out: one
-// score product, K/V streamed through a cp.async ring.
+// Fused softmax attention for Hopper (sm_90a), bf16 in / bf16 out: TMA
+// copies paced by mbarriers, bf16 wgmma, the softmax in registers.
 //
 // Replaces vla_adapter_tpu/ops/pallas_attention.py:fused_attention (the
 // Pallas kernel _attn_kernel). Same arithmetic:
@@ -11,445 +11,548 @@
 //   l   = sum_k float(p)                 sum of the ROUNDED probabilities
 //   out = bf16((p @ v) / l)              fp32 accumulation, deferred 1/l
 //
+// Keys past S take -inf (they are not keys); a row with no valid key
+// therefore averages V over the S keys, as the plain version does.
 // When training (a non-null `lse`), it also writes each row's log-sum-exp
 // lse = m + log(sum_k exp(s - m)), fp32, the sum over the UNROUNDED
 // exponentials, so that the backward's exp(s - lse) is the exact softmax
-// (attention_bwd.cu). A null pointer leaves every other output bit as it
-// was: the extra sum feeds nothing else.
+// (attention_bwd.cu). The unrounded sum is kept whether or not it is
+// written, so a null pointer leaves every output bit as it was.
 //
-// Design. The unit of work is one warp: 16 query rows of one head against
-// every key, with mma.sync m16n8k16 (bf16 in, fp32 accumulate). A CTA holds
-// `warps` units (1..8) of one (batch, kv head), so the query heads of a
-// GQA group share its K/V tiles. K tiles, then V tiles, stream through a
-// two-slot ring in shared memory fed by cp.async (16-byte copies,
-// zero-filled past seq and dim): the next tile is in flight while the
-// tensor cores work on this one. (More slots, where the shared memory
-// beside the scores had room for them, gained at most 3% on an H100.) Fragments come from shared memory with
-// ldmatrix; V stays in its natural (key, d) layout and is read with
-// ldmatrix.trans.
+// Numerics: the TPU kernel's. p is rounded against the row's FINAL max, as
+// the TPU kernel and the plain version round it: a max pass over the K
+// tiles (q.k^T and a running max, no exponential) comes before the main
+// pass. The online form (a running max, the sums rescaled when it rises)
+// rounds the terms of every tile before the max's tile against another
+// max: each differs by a rounding (a relative 2^-9), but all of those
+// terms do, not the rare ones a summation order flips. It held every
+// kernel-vs-plain bound, but moved the step-0 loss of the 0.5B full-train
+// recipe by 1e-3 from the parent kernel's and ended its 6-step run above
+// its start (chip_smoke.py phase 21: 0.918 against 0.814; the parent's
+// kernel 0.729 against 0.813), where the max pass keeps the TPU kernel's
+// arithmetic; it costs one more q.k^T product a tile (PERF.md). The
+// exponentials are base 2 (ex2 of s * sm_scale * log2 e - m), the lse
+// converted back by ln 2, the output acc times the rounded 1 / l. Held
+// against the plain version within 2e-2 (bf16 out) and 1e-6 (lse) on the
+// card (tests/test_torch_attention_cuda.py, chip_smoke.py phase 2).
 //
-// One score product ("one-pass" branch). As the TPU kernel keeps the whole
-// (rows, S) score block in VMEM, each warp keeps its 16 x S fp32 scores in
-// shared memory (in mma fragment order, so every thread reads back its
-// own values): pass 1 over the K tiles computes s once, stores it and
-// takes the exact row max; pass 2 over the V tiles rounds
-// p = bf16(exp(s - m)) against that final max and accumulates l and p @ v.
-// No q.k is computed twice and p is never rounded against a running max.
-// That needs 4 KB per warp per 64 keys (40 KB at S = 640). Where not even
-// one warp's block fits (S > ~3000, chosen by S alone), the "two-pass"
-// branch of the same kernel streams K twice and recomputes s in pass 2
-// (bitwise the same: same mma order), with K and V of a tile in one slot.
+// What bounds it on this card: 4 H S^2 D operations. The Qwen2 call (S =
+// 640, 14 q / 2 kv heads, D = 64) does ~530 flop per byte of q/k/v/o,
+// above the H100's ~295 ridge: operations bound; the ViT calls (S ~ 256,
+// no GQA) ~130: bytes bound. At D = 64 the softmax terms (an exp, a bf16
+// rounding and a few flops per score) cost as much issue time as the two
+// products, so the design overlaps them with the products.
 //
-// The grid. ops/attention_kernel.py:attention_plan picks `warps` per shape:
-// among the CTA sizes whose score block fits in 227 KB, the one with the
-// fewest rounds of CTAs on the busiest SM, then the fewest warps run there,
-// then the most warps (fewer K/V re-reads from L2). At the serving shapes
-// (132 SMs) that gives:
-//   Qwen2 B=1 (14/2 heads, S=640, D=64): 5 warps, 112 CTAs, 1 per SM,
-//     one wave (64-row CTAs would be 140 of 4 warps: 1.06 waves);
-//   Qwen2 B=2: 5 warps, 224 CTAs, 1 per SM, 1.7 waves;
-//   DINOv2 B=1 (2 images, 16 heads, S=261, D=64): 5 warps, 128 CTAs;
-//   so400m B=1 (S=256, D=72): 4 warps, 128 CTAs, 2 fit per SM.
-// chip_smoke.py prints the plan of every serving shape.
+// Design: a CTA of one producer warpgroup (one thread issues every TMA
+// copy; setmaxnreg gives its registers to the others) and NWG = 1 to 3
+// consumer warpgroups of 64 query rows each. As the Pallas kernel folds the
+// query heads of a kv group into its rows, a CTA's units (64 query rows of
+// one head) are taken in order over (head of the group, row tile) of one kv
+// head, so the warpgroups of a CTA share every K/V tile. The Q tiles are
+// loaded once by TMA; the K tiles (the max pass), then the K and V tiles
+// (the main pass) of 64 or 128 keys stream through a ring of 2-4 stages
+// (`full` mbarriers count the bytes, `empty` the consumer warps done with
+// a stage). The max pass: s = q.k^T (wgmma, both operands in shared
+// memory, K-major), masked, into each row's max. Then per key tile, each
+// consumer warpgroup
+//   1. issues s = q.k^T again;
+//   2. waits for the previous tile's p @ v (which ran under step 1), frees
+//      its stage, then for s;
+//   3. masks s, forms p = 2^(s - m) and rounds it to bf16 in registers;
+//   4. issues acc += p @ v with p as wgmma's register A operand and the V
+//      tile read MN-major (the transpose bit), and goes on to the next tile.
+// With turns, the warpgroups of a CTA issue their score products in turn
+// (a ring of named barriers), so one's softmax terms run under the
+// others' products. No score is stored: one code path serves every S.
+// attention_plan (ops/attention_kernel.py) picks per shape the CTA's
+// warpgroups and how many CTAs an SM holds (which sets the registers),
+// the keys a tile, the stages and turns, from the times of every variant
+// on an H100 (b1_compare.py --variants). One
+// warpgroup and three CTAs an SM serve the large grids at D <= 64: a
+// CTA's fixed cost (barriers, the Q tile's first load from device memory,
+// ~2 us of a 7 us CTA at S = 256) runs under the others' products.
 //
-// Bound on this card: the work is 4*H*S^2*D flops. The Qwen2 call (S=640,
-// 14 q / 2 kv heads, D=64) does ~530 flop per byte of q/k/v/o, above the
-// H100's ~295 flop/byte ridge: operations bound, so the design removes the
-// second q.k product (a third of a two-pass kernel's tensor-core work) and keeps the
-// mma pipe fed from an asynchronous ring. The ViT calls (S~256, no GQA) do
-// ~130 flop/byte: bytes bound; each K/V tile is read once per CTA of up to
-// 128 query rows. D = 72 (so400m) pads to 80 in the fragments and in
-// shared memory (rows of 88 bf16: conflict-free ldmatrix), with mma.sync
-// throughout: wgmma's 128-byte swizzle rows do not fit an 80-wide tile.
+// Causal: a CTA streams the key tiles up to its last unit's diagonal, or
+// all of them if a row of its units has no valid key at or before itself
+// (such a row averages V over every key, past its diagonal too). Tiles past
+// a warpgroup's own diagonal run masked, not skipped: ptxas serializes
+// every wgmma of a kernel that waits on one in a branch it cannot prove
+// uniform (attention_bwd.cu, trap (b)), so every loop bound is the CTA's.
+//
+// Layouts and product chains: attention_wgmma.cuh (shared with B1-bwd):
+// 64-row tiles of the head dim padded to DP in TMA column chunks of 64, 32
+// or 16 bf16 with the matching swizzle, so D = 72 (so400m, padded to 80)
+// and D = 80 (Phi-2) take 16-wide chunks. TMA zero-fills rows past S and
+// dims past D.
 //
 // Interface: a plain C function (bound with ctypes), launched on the
-// caller's stream; it returns cudaGetLastError() after the launch.
+// caller's stream; it returns the error of building the tensor maps or
+// cudaGetLastError() after the launch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_wgmma.cuh"
+
 namespace {
 
-constexpr int kKeyTile = 64;
-constexpr int kMaxWarps = 8;
-constexpr float kNegInf = -2.0e9f;   // the Pallas kernel's NEG_INF
-constexpr int kMaxSmem = 232448;     // shared memory a block may use
+using namespace vla_attention;
+
+constexpr float kNegInf = -2.0e9f;            // the Pallas kernel's NEG_INF
+constexpr float kNegInf2 = kNegInf * kLog2e;  // in base-2 units
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kProducerRegs = 24;  // registers a producer thread after setmaxnreg
+constexpr int kMaxStages = 4;
+
+// A CTA of NWG consumer warpgroups and a producer warpgroup, PER_SM of them
+// resident on an SM: registers a thread at launch (the __launch_bounds__)
+// and a consumer thread's after setmaxnreg (the producer keeps 24).
+//   NWG 1, PER_SM 2: 128 at launch, 232 a consumer;
+//   NWG 1, PER_SM 3:  80, 136 (padded head dims up to 96);
+//   NWG 2, PER_SM 1: 168, 240;
+//   NWG 3, PER_SM 1: 128, 160.
+template <int NWG, int PER_SM>
+struct Cta {
+  static constexpr int kThreads = (NWG + 1) * 128;
+  static constexpr int kConsumerRegs =
+      NWG == 1 ? (PER_SM == 3 ? 136 : 232) : NWG == 2 ? 240 : 160;
+};
+
+// With turns, the consumer warpgroups issue their score products in turn,
+// around a ring of named barriers (1 + wg: warpgroup wg's turn; 256
+// threads, the waiter's and the passer's), so one's softmax terms run
+// under the others' products.
+__device__ __forceinline__ void ring_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void ring_pass(int wg, int nwg) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(1 + (wg + 1) % nwg) : "memory");
+}
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
   const int32_t* valid;  // (B, S) with row stride valid_sb; null = all valid
   __nv_bfloat16* o;
-  float* lse;  // (B, H, S) with strides lse_sb, lse_sh; null when serving
+  float* lse;            // (B, H, S) with strides lse_sb, lse_sh; null when serving
   int heads, kv_heads, seq, dim;
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
+  int seq_pad;           // seq rounded up to whole 64-row query tiles
+  int key_pad;           // seq rounded up to whole key tiles
+  int stages;            // ring stages (2..kMaxStages)
   long long o_sb, o_sh, o_ss;
   long long valid_sb;
   long long lse_sb, lse_sh;
   float sm_scale;
   int causal;
-  int warps;       // units (16 query rows of one head) per CTA
-  int row_blocks;  // ceil(seq / 16)
+  int turns;             // the consumer warpgroups issue their score products in turn
 };
 
-// Shared memory of one ring slot: a tile of 64 keys (K, or V in the
-// one-pass branch's pass 2), a second tile for V in the two-pass branch,
-// and the tile's 64 `valid` flags. DP is the head dim padded to a multiple
-// of 16; rows of DP + 8 bf16 keep ldmatrix free of bank conflicts.
-template <int DP>
-struct Ring {
-  static constexpr int kStride = DP + 8;
-  static constexpr int kTileBytes = kKeyTile * kStride * 2;
-  __host__ __device__ static constexpr int slot_bytes(bool one_pass) {
-    return (one_pass ? 1 : 2) * kTileBytes + kKeyTile * 4;
-  }
-};
-
-template <int DP>
-size_t smem_bytes(bool one_pass, int warps, int tiles) {
-  // two ring slots, then (one-pass) each warp's 16 x (64 tiles) fp32 scores
-  return 2 * static_cast<size_t>(Ring<DP>::slot_bytes(one_pass)) +
-         (one_pass ? static_cast<size_t>(warps) * tiles * kKeyTile * 16 * 4 : 0);
+// Shared memory (from a 1024-aligned base): the Q tiles of the NWG units,
+// the ring's stages (KH 64-key tiles of K, then KH of V), the barriers
+// (full[stages], empty[stages], the Q tiles'), the batch row's key mask
+// (key_pad / 8 bytes), and 1024 bytes of alignment slack.
+template <int DP, int NWG, int KH>
+size_t smem_bytes(int stages, int key_pad) {
+  return static_cast<size_t>(NWG + 2 * KH * stages) * Tile<DP>::kBytes +
+         8 * (2 * stages + 1) + key_pad / 8 + 1024;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// The kernel. DP: the head dim padded to a multiple of 16; NWG: consumer
+// warpgroups a CTA; PER_SM: CTAs an SM holds; KH: 64-key halves of a key
+// tile (a tile of 64 KH keys).
+template <int DP, int NWG, int PER_SM, int KH>
+__global__ void __launch_bounds__(Cta<NWG, PER_SM>::kThreads, PER_SM)
+fused_attention_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const Params p) {
+  using T = Tile<DP>;
+  constexpr int kThreads = Cta<NWG, PER_SM>::kThreads;
+  constexpr int kKeys = kTile * KH;  // keys per key tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const int stages = p.stages;
+  const uint32_t ring = base + NWG * T::kBytes;
+  constexpr int kStage = 2 * KH * T::kBytes;  // K halves, then V halves
+  const uint32_t bars = ring + stages * kStage;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (stages + s); };
+  const uint32_t q_bar = bars + 16 * stages;
+  uint32_t* key_mask =
+      reinterpret_cast<uint32_t*>(base_ptr + (q_bar + 8 - base));
 
-// 16 (or 4) bytes global -> shared, asynchronously; zeros where !pred.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Start copying keys [key0, key0 + 64) of `src` (row stride ss) into a
-// tile of shared memory: zeros past seq and past dim.
-template <int DP>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long ss, int key0, int seq,
-                                           int dim) {
-  constexpr int kChunks = DP / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < kKeyTile * kChunks; idx += blockDim.x) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const bool in = key0 + r < seq && c < dim;  // dim % 8 == 0: whole chunks
-    cp_async16(dst + r * Ring<DP>::kStride + c,
-               in ? src + (key0 + r) * ss + c : src, in);
-  }
-}
-
-template <int DP, bool ONE_PASS>
-__global__ void __launch_bounds__(kMaxWarps * 32)
-fused_attention_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kStride = Ring<DP>::kStride;
-  constexpr int kSlot = Ring<DP>::slot_bytes(ONE_PASS);
-  constexpr int kTileElems = kKeyTile * kStride;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // mma group: rows g and g + 8 of the warp's tile
-  const int t = lane % 4;  // thread in group: column pairs 2t, 2t + 1
   const int b = blockIdx.z;
   const int hk = blockIdx.y;
   const int groups = p.heads / p.kv_heads;
-  const int unit = blockIdx.x * p.warps + warp;
-  const bool active = unit < groups * p.row_blocks;
-  const int h = hk * groups + (active ? unit / p.row_blocks : 0);
-  const int row0 = (unit % p.row_blocks) * 16;
-  const int r_lo = row0 + g;
-  const int r_hi = row0 + g + 8;
-  const int tiles = (p.seq + kKeyTile - 1) / kKeyTile;
+  const int row_tiles = p.seq_pad / kTile;
+  const int units = groups * row_tiles;
+  const int unit0 = blockIdx.x * NWG;
+  const int active = min(NWG, units - unit0);
 
-  const __nv_bfloat16* kg = p.k + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* vg = p.v + b * p.v_sb + hk * p.v_sh;
-  const int32_t* valid = p.valid ? p.valid + b * p.valid_sb : nullptr;
-  float4* scores = reinterpret_cast<float4*>(smem + 2 * kSlot) +
-                   warp * tiles * (kKeyTile / 8) * 32;
-
-  // Item i of the stream: K tile i (i < tiles) with its valid flags, then
-  // tile i - tiles of V (one-pass) or of K and V with the flags (two-pass).
-  auto issue = [&](int item) {
-    unsigned char* slot = smem + (item & 1) * kSlot;
-    __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(slot);
-    int32_t* vs = reinterpret_cast<int32_t*>(slot + kSlot - kKeyTile * 4);
-    const bool second = item >= tiles;
-    const int key0 = (second ? item - tiles : item) * kKeyTile;
-    if (second && ONE_PASS) {
-      stage_tile<DP>(kt, vg, p.v_ss, key0, p.seq, p.dim);
-    } else {
-      stage_tile<DP>(kt, kg, p.k_ss, key0, p.seq, p.dim);
-      if (second) stage_tile<DP>(kt + kTileElems, vg, p.v_ss, key0, p.seq, p.dim);
-      if (valid != nullptr) {
-        for (int i = threadIdx.x; i < kKeyTile; i += blockDim.x) {
-          const int key = key0 + i;
-          cp_async4(vs + i, key < p.seq ? valid + key : valid, key < p.seq);
-        }
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * active);  // every warp of every active warpgroup
     }
-    cp_async_commit();
-  };
-
-  // q A-fragments of rows r_lo / r_hi, straight from device memory; rows
-  // >= seq and dims >= dim are zero. dim % 8 == 0, so d < dim implies
-  // d + 1 < dim.
-  uint32_t qa[DP / 16][4];
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the key validity of batch row b as bits (word w: keys 32w .. 32w + 31;
+  // a key past S is not valid), by every thread of the CTA
   {
-    const __nv_bfloat16* q = p.q + b * p.q_sb + h * p.q_sh;
-    const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-#pragma unroll
-    for (int c = 0; c < DP / 16; ++c) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = (i & 1) ? r_hi : r_lo;
-        const int d = c * 16 + 2 * t + ((i & 2) ? 8 : 0);
-        __nv_bfloat16 x0 = zero, x1 = zero;
-        if (active && r < p.seq && d < p.dim) {
-          const __nv_bfloat16* src = q + r * p.q_ss + d;
-          x0 = src[0];
-          x1 = src[1];
-        }
-        qa[c][i] = pack_bf16(x0, x1);
-      }
+    const int32_t* valid = p.valid ? p.valid + b * p.valid_sb : nullptr;
+    const int lane = threadIdx.x % 32;
+    for (int w = threadIdx.x / 32; w < p.key_pad / 32; w += kThreads / 32) {
+      const int key = 32 * w + lane;
+      bool ok = key < p.seq;
+      if (ok && valid != nullptr) ok = valid[key] > 0;
+      const uint32_t bits = __ballot_sync(0xffffffffu, ok);
+      if (lane == 0) key_mask[w] = bits;
     }
   }
+  __syncthreads();
 
-  // Scores of the warp's 16 rows against the 64 keys of tile `kt`; sc[j]
-  // holds keys 8j + 2t, 8j + 2t + 1 of rows r_lo (0, 1) and r_hi (2, 3).
-  // Straight-line code: each dim chunk's K fragments are loaded first, then
-  // eight independent mma; the bias is computed once per key, by selects.
-  auto tile_scores = [&](const __nv_bfloat16* kt, const int32_t* vs, int key0,
-                         float (&sc)[kKeyTile / 8][4]) {
-#pragma unroll
-    for (int j = 0; j < kKeyTile / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
-    // ldmatrix.x4 over keys 16jj..16jj+15 and dims 16c..16c+15: matrices
-    // (keys +0, d +0), (keys +0, d +8), (keys +8, d +0), (keys +8, d +8)
-    const int mi = lane / 8;
-    const __nv_bfloat16* base = kt + ((mi >> 1) * 8 + lane % 8) * kStride + (mi & 1) * 8;
-#pragma unroll
-    for (int c = 0; c < DP / 16; ++c) {
-      uint32_t kb[kKeyTile / 16][4];
-#pragma unroll
-      for (int jj = 0; jj < kKeyTile / 16; ++jj)
-        ldmatrix_x4(kb[jj], base + jj * 16 * kStride + c * 16);
-#pragma unroll
-      for (int jj = 0; jj < kKeyTile / 16; ++jj) {
-        mma_bf16(sc[2 * jj], qa[c], kb[jj][0], kb[jj][1]);
-        mma_bf16(sc[2 * jj + 1], qa[c], kb[jj][2], kb[jj][3]);
+  // Key tiles streamed: all; causal, up to the CTA's last diagonal, unless
+  // a row of its units comes before the first valid key (no valid key at
+  // or before it: it averages V over all S keys).
+  int tiles = p.key_pad / kKeys;
+  if (p.causal) {
+    int first = p.seq;
+    for (int w = 0; w < p.key_pad / 32; ++w) {
+      if (key_mask[w] != 0) {
+        first = 32 * w + __ffs(key_mask[w]) - 1;
+        break;
       }
     }
+    int last = 0, lowest = p.seq_pad;
+    for (int w = 0; w < active; ++w) {
+      const int rt = (unit0 + w) % row_tiles;
+      last = max(last, ((rt + 1) * kTile + kKeys - 1) / kKeys);
+      lowest = min(lowest, rt * kTile);
+    }
+    if (lowest >= first) tiles = min(tiles, last);
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp >= 4 * NWG) {
+    // ---- producer warpgroup: one thread issues every copy ----
+    set_max_regs_dec<kProducerRegs>();
+    if (warp == 4 * NWG && lane == 0) {
+      mbar_expect_tx(q_bar, active * T::kBytes);
+      for (int w = 0; w < active; ++w) {
+        const int unit = unit0 + w;
+        tma_tile<DP>(base + w * T::kBytes, &tq, (unit % row_tiles) * kTile,
+                     hk * groups + unit / row_tiles, b, q_bar);
+      }
+      // the K tiles (the max pass), then the K and V tiles (the main pass)
+      int s = 0, phase = 0;
+      for (int step = 0; step < 2 * tiles; ++step) {
+        const bool main_pass = step >= tiles;
+        const int it = main_pass ? step - tiles : step;
+        mbar_wait(empty(s), phase ^ 1);
+        mbar_expect_tx(full(s), main_pass ? kStage : kStage / 2);
+        const uint32_t stage = ring + s * kStage;
 #pragma unroll
-    for (int j = 0; j < kKeyTile / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kl = 8 * j + 2 * t + e;
-        const int flag = vs[kl];  // loaded whether or not `valid` is given
-        float bias = (valid == nullptr || flag > 0) ? 0.0f : kNegInf;
-        bias = key0 + kl < p.seq ? bias : -INFINITY;
-        sc[j][e] = sc[j][e] * p.sm_scale + bias;
-        sc[j][2 + e] = sc[j][2 + e] * p.sm_scale + bias;
+        for (int kh = 0; kh < KH; ++kh) {
+          tma_tile<DP>(stage + kh * T::kBytes, &tk, it * kKeys + kh * kTile, hk, b, full(s));
+          if (main_pass)
+            tma_tile<DP>(stage + (KH + kh) * T::kBytes, &tv, it * kKeys + kh * kTile, hk, b,
+                         full(s));
+        }
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1;
+        }
       }
     }
-    if (p.causal) {  // uniform: the whole grid takes it or skips it
+    return;
+  }
+
+  // ---- consumers: warpgroup wg, its unit's 64 query rows ----
+  set_max_regs_inc<Cta<NWG, PER_SM>::kConsumerRegs>();
+  const int wg = warp / 4;
+  if (wg >= active) return;
+  const bool turns = NWG > 1 && active == NWG && p.turns;
+  const int wi = warp % 4;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int unit = unit0 + wg;
+  const int h = hk * groups + unit / row_tiles;
+  const int row_min = (unit % row_tiles) * kTile + 16 * wi;  // the warp's first row
+  const int r_lo = row_min + g;
+  const int r_hi = r_lo + 8;
+  const uint32_t q_tile = base + wg * T::kBytes;
+  const float c2 = p.sm_scale * kLog2e;  // scores to base-2 exponents
+
+  uint64_t qd[DP / 16];
 #pragma unroll
-      for (int j = 0; j < kKeyTile / 8; ++j) {
+  for (int kk = 0; kk < DP / 16; ++kk) qd[kk] = desc_k<DP>(q_tile, kk);
+  // Element 4n + e of acc and of a 64-key half's scores: row r_lo (e < 2)
+  // or r_hi, column 8n + 2t + (e & 1).
+  int s = 0, phase = 0;  // ring stage and its parity, over both passes
+  auto advance = [&]() {
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1;
+    }
+  };
+  // s = q.k^T of key tile `it` from the stage `s` into sc: wgmma from
+  // shared memory, in turn with the other warpgroups
+  auto score_product = [&](float (&sc)[KH][32], bool pass_on) {
+    const uint32_t k_tile = ring + s * kStage;
+    if (turns) ring_wait(wg);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = key0 + 8 * j + 2 * t + (i & 1);
-          const int row = (i & 2) ? r_hi : r_lo;
-          if (key > row && key < p.seq) sc[j][i] = kNegInf;
+    for (int kh = 0; kh < KH; ++kh) fence_regs(sc[kh]);
+    wgmma_fence();
+#pragma unroll
+    for (int kh = 0; kh < KH; ++kh) {
+      uint64_t kd[DP / 16];
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) kd[kk] = desc_k<DP>(k_tile + kh * T::kBytes, kk);
+      WgmmaSS<DP / 16>::run(sc[kh], qd, kd);
+    }
+    wgmma_commit();
+    if (turns && pass_on) ring_pass(wg, NWG);
+  };
+  // The scores of key tile `it` in base-2 units, masked: keys past S -inf,
+  // invalid keys + bias, causal keys past the row -2e9 (before the bias
+  // is in, as the plain version's select). Open tiles (every key valid
+  // and allowed for every row of the warp) keep their raw scores: sm_scale
+  // > 0 keeps their order, and the main pass scales them inside its fma.
+  auto mask_scores = [&](float (&sc)[KH][32], int it) {
+    const int key0 = it * kKeys;
+#pragma unroll
+    for (int kh = 0; kh < KH; ++kh) {
+      const uint64_t bits = ((static_cast<uint64_t>(key_mask[2 * (KH * it + kh) + 1]) << 32) |
+                             key_mask[2 * (KH * it + kh)]) >>
+                            (2 * t);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[kh][4 * n + e] * c2;
+          const int key = key0 + kh * kTile + 8 * n + 2 * t + (e & 1);
+          if (key >= p.seq) {
+            x = -INFINITY;  // not a key
+          } else {
+            if (!((bits >> (8 * n + (e & 1))) & 1)) x += kNegInf2;
+            if (p.causal && key > ((e & 2) ? r_hi : r_lo)) x = kNegInf2;
+          }
+          sc[kh][4 * n + e] = x;
         }
       }
     }
   };
-
-  float m_lo = -INFINITY, m_hi = -INFINITY;
-  float acc[DP / 8][4];
+  auto is_open = [&](int it) {
+    bool all_valid = true;
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-  float l_lo = 0.0f, l_hi = 0.0f;
-  float e_lo = 0.0f, e_hi = 0.0f;  // sums of the unrounded exp(s - m)
+    for (int w = 0; w < 2 * KH; ++w) all_valid = all_valid && key_mask[2 * KH * it + w] == ~0u;
+    return all_valid && (!p.causal || it * kKeys + kKeys - 1 <= row_min);
+  };
 
-  issue(0);
-  for (int item = 0; item < 2 * tiles; ++item) {
-    cp_async_wait_all();  // this thread's copies of `item` have landed
-    __syncthreads();      // everyone's have, and `item - 1`'s slot is free
-    if (item + 1 < 2 * tiles) issue(item + 1);
-    if (!active) continue;
-    const unsigned char* slot = smem + (item & 1) * kSlot;
-    const __nv_bfloat16* kt = reinterpret_cast<const __nv_bfloat16*>(slot);
-    const int32_t* vs = reinterpret_cast<const int32_t*>(slot + kSlot - kKeyTile * 4);
+  if (turns && wg == NWG - 1) ring_pass(wg, NWG);  // warpgroup 0 issues first
+  mbar_wait(q_bar, 0);
 
-    if (item < tiles) {
-      // --- pass 1: scores once, the exact row max ---
-      float sc[kKeyTile / 8][4];
-      tile_scores(kt, vs, item * kKeyTile, sc);
+  // ---- the max pass: each row's max over all its keys, as the TPU kernel
+  // takes it before it rounds any p ----
+  float mx[2][4] = {{-INFINITY, -INFINITY, -INFINITY, -INFINITY},
+                    {-INFINITY, -INFINITY, -INFINITY, -INFINITY}};  // scaled
+  float mr[2][4] = {{-INFINITY, -INFINITY, -INFINITY, -INFINITY},
+                    {-INFINITY, -INFINITY, -INFINITY, -INFINITY}};  // raw, open tiles
+  for (int it = 0; it < tiles; ++it) {
+    mbar_wait(full(s), phase);
+    __syncwarp();  // converged again for the .aligned wgmma instructions
+    float sc[KH][32];
+    score_product(sc, true);
+    wgmma_wait<0>();
 #pragma unroll
-      for (int j = 0; j < kKeyTile / 8; ++j) {
-        m_lo = fmaxf(m_lo, fmaxf(sc[j][0], sc[j][1]));
-        m_hi = fmaxf(m_hi, fmaxf(sc[j][2], sc[j][3]));
-        if (ONE_PASS)
-          scores[(item * (kKeyTile / 8) + j) * 32 + lane] =
-              make_float4(sc[j][0], sc[j][1], sc[j][2], sc[j][3]);
-      }
-      if (item == tiles - 1) {
+    for (int kh = 0; kh < KH; ++kh) fence_regs(sc[kh]);
+    if (lane == 0) mbar_arrive(empty(s));  // the K tile is read
+    // four partial maxima a row: short dependency chains
+    auto max_into = [&](float (&m)[2][4]) {
 #pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, off));
-          m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, off));
+      for (int kh = 0; kh < KH; ++kh) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& m4 = m[e >> 1][(n & 1) * 2 + (e & 1)];
+            m4 = fmaxf(m4, sc[kh][4 * n + e]);
+          }
         }
       }
-      continue;
-    }
-
-    // --- pass 2: p = bf16(exp(s - m)), l = sum(p), acc += p @ v ---
-    const int tile = item - tiles;
-    float sc[kKeyTile / 8][4];
-    if (ONE_PASS) {
-#pragma unroll
-      for (int j = 0; j < kKeyTile / 8; ++j) {
-        const float4 s4 = scores[(tile * (kKeyTile / 8) + j) * 32 + lane];
-        sc[j][0] = s4.x;
-        sc[j][1] = s4.y;
-        sc[j][2] = s4.z;
-        sc[j][3] = s4.w;
-      }
+    };
+    if (is_open(it)) {
+      max_into(mr);
     } else {
-      tile_scores(kt, vs, tile * kKeyTile, sc);
+      mask_scores(sc, it);
+      max_into(mx);
     }
-    const __nv_bfloat16* vt = ONE_PASS ? kt : kt + kTileElems;
-    // ldmatrix.x4.trans over keys 16kk..16kk+15 and dims 16n2..16n2+15:
-    // matrices (keys +0, d +0), (keys +8, d +0), (keys +0, d +8), (keys +8, d +8)
-    const int mi = lane / 8;
-    const __nv_bfloat16* vbase = vt + ((mi & 1) * 8 + lane % 8) * kStride + (mi >> 1) * 8;
-#pragma unroll
-    for (int kk = 0; kk < kKeyTile / 16; ++kk) {
-      uint32_t vb[DP / 16][4];
-#pragma unroll
-      for (int n2 = 0; n2 < DP / 16; ++n2)
-        ldmatrix_x4_trans(vb[n2], vbase + kk * 16 * kStride + n2 * 16);
-      uint32_t pa[4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int j = 2 * kk + half;
-        // row g (keys 2t, 2t+1), then row g + 8, each pair rounded to bf16
-        // by one packed conversion; l sums the rounded values
-        const float x0 = expf(sc[j][0] - m_lo), x1 = expf(sc[j][1] - m_lo);
-        const float x2 = expf(sc[j][2] - m_hi), x3 = expf(sc[j][3] - m_hi);
-        e_lo += x0 + x1;
-        e_hi += x2 + x3;
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(x0, x1);
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(x2, x3);
-        const float2 lof = __bfloat1622float2(lo), hif = __bfloat1622float2(hi);
-        l_lo += lof.x + lof.y;
-        l_hi += hif.x + hif.y;
-        pa[2 * half + 0] = *reinterpret_cast<const uint32_t*>(&lo);
-        pa[2 * half + 1] = *reinterpret_cast<const uint32_t*>(&hi);
-      }
-#pragma unroll
-      for (int n2 = 0; n2 < DP / 16; ++n2) {
-        mma_bf16(acc[2 * n2], pa, vb[n2][0], vb[n2][1]);
-        mma_bf16(acc[2 * n2 + 1], pa, vb[n2][2], vb[n2][3]);
-      }
-    }
+    advance();
   }
-  if (!active) return;
+  float m_lo = fmaxf(fmaxf(fmaxf(mx[0][0], mx[0][1]), fmaxf(mx[0][2], mx[0][3])),
+                     c2 * fmaxf(fmaxf(mr[0][0], mr[0][1]), fmaxf(mr[0][2], mr[0][3])));
+  float m_hi = fmaxf(fmaxf(fmaxf(mx[1][0], mx[1][1]), fmaxf(mx[1][2], mx[1][3])),
+                     c2 * fmaxf(fmaxf(mr[1][0], mr[1][1]), fmaxf(mr[1][2], mr[1][3])));
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, off));
+    m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, off));
+  }
+  // key 0 is a key of every row, so the max is finite
+
+  // ---- the main pass: p = bf16(2^(s - m)), l = sum(p), acc += p @ v ----
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+  float l_lo = 0.0f, l_hi = 0.0f;  // sums of the rounded p (this thread's columns)
+  float e_lo = 0.0f, e_hi = 0.0f;  // and of the unrounded
+  uint32_t pa[KH][4][4];           // p of the tile in flight, as A fragments
+  int prev = 0;                    // the stage of the p @ v in flight
+  for (int it = 0; it < tiles; ++it) {
+    mbar_wait(full(s), phase);
+    __syncwarp();
+    const uint32_t v_tile = ring + s * kStage + KH * T::kBytes;
+    float sc[KH][32];
+    score_product(sc, !(wg == NWG - 1 && it == tiles - 1));
+    // the previous tile's p @ v: done, its stage free
+    wgmma_wait<1>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kh = 0; kh < KH; ++kh) fence_frags(pa[kh]);
+    if (it > 0 && lane == 0) mbar_arrive(empty(prev));
+    wgmma_wait<0>();
+#pragma unroll
+    for (int kh = 0; kh < KH; ++kh) fence_regs(sc[kh]);
+
+    auto softmax_terms = [&](auto masked) {
+      constexpr bool kMasked = decltype(masked)::value;
+      if (kMasked) mask_scores(sc, it);
+      // this tile's sums, two partial sums a row, added at its end
+      float ts[2][2][2] = {};  // [lo / hi][unrounded / rounded][partial]
+#pragma unroll
+      for (int kh = 0; kh < KH; ++kh) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+            const float m = (e & 2) ? m_hi : m_lo;
+            const float x0 = sc[kh][4 * n + e], x1 = sc[kh][4 * n + e + 1];
+            // p = 2^(s c2 - m): one fma on the raw score where no mask applies
+            const float p0 = kMasked ? ex2(x0 - m) : ex2(fmaf(x0, c2, -m));
+            const float p1 = kMasked ? ex2(x1 - m) : ex2(fmaf(x1, c2, -m));
+            const __nv_bfloat162 r = __floats2bfloat162_rn(p0, p1);
+            const float2 rf = __bfloat1622float2(r);
+            ts[e >> 1][0][n & 1] += p0 + p1;
+            ts[e >> 1][1][n & 1] += rf.x + rf.y;
+            pa[kh][n >> 1][(n & 1) * 2 + (e >> 1)] = *reinterpret_cast<const uint32_t*>(&r);
+          }
+        }
+      }
+      e_lo += ts[0][0][0] + ts[0][0][1];
+      l_lo += ts[0][1][0] + ts[0][1][1];
+      e_hi += ts[1][0][0] + ts[1][0][1];
+      l_hi += ts[1][1][0] + ts[1][1][1];
+    };
+    if (is_open(it)) softmax_terms(Open());
+    else softmax_terms(Masked());
+
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kh = 0; kh < KH; ++kh) {
+      uint64_t vb[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) vb[kk] = desc_mn<DP>(v_tile + kh * T::kBytes, kk);
+      WgmmaRS<DP>::run(acc, pa[kh], vb);
+    }
+    wgmma_commit();
+    prev = s;
+    advance();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int kh = 0; kh < KH; ++kh) fence_frags(pa[kh]);
+
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    e_lo += __shfl_xor_sync(0xffffffffu, e_lo, off);
+    e_hi += __shfl_xor_sync(0xffffffffu, e_hi, off);
   }
-  if (p.lse != nullptr) {  // uniform: the whole grid takes it or skips it
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      e_lo += __shfl_xor_sync(0xffffffffu, e_lo, off);
-      e_hi += __shfl_xor_sync(0xffffffffu, e_hi, off);
-    }
+  if (p.lse != nullptr && t == 0) {  // uniform: the whole grid takes it or skips it
     float* lse = p.lse + b * p.lse_sb + h * p.lse_sh;
-    if (t == 0 && r_lo < p.seq) lse[r_lo] = m_lo + logf(e_lo);
-    if (t == 0 && r_hi < p.seq) lse[r_hi] = m_hi + logf(e_hi);
+    if (r_lo < p.seq) lse[r_lo] = (m_lo + log2f(e_lo)) * kLn2;
+    if (r_hi < p.seq) lse[r_hi] = (m_hi + log2f(e_hi)) * kLn2;
   }
-
+  // out = acc / l, as acc times the correctly rounded 1 / l (one rounding
+  // more than the quotient: far inside the bf16 output's)
+  const float i_lo = __frcp_rn(l_lo), i_hi = __frcp_rn(l_hi);
   __nv_bfloat16* o = p.o + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int n = 0; n < DP / 8; ++n) {
     const int d = 8 * n + 2 * t;
     if (d >= p.dim) continue;
-    if (r_lo < p.seq) {
+    if (r_lo < p.seq)
       *reinterpret_cast<__nv_bfloat162*>(o + r_lo * p.o_ss + d) =
-          __floats2bfloat162_rn(acc[n][0] / l_lo, acc[n][1] / l_lo);
-    }
-    if (r_hi < p.seq) {
+          __floats2bfloat162_rn(acc[4 * n] * i_lo, acc[4 * n + 1] * i_lo);
+    if (r_hi < p.seq)
       *reinterpret_cast<__nv_bfloat162*>(o + r_hi * p.o_ss + d) =
-          __floats2bfloat162_rn(acc[n][2] / l_hi, acc[n][3] / l_hi);
-    }
+          __floats2bfloat162_rn(acc[4 * n + 2] * i_hi, acc[4 * n + 3] * i_hi);
   }
 }
 
-template <int DP, bool ONE_PASS>
-cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  auto kernel = fused_attention_kernel<DP, ONE_PASS>;
-  const int tiles = (p.seq + kKeyTile - 1) / kKeyTile;
-  const size_t smem = smem_bytes<DP>(ONE_PASS, p.warps, tiles);
+struct Operands {
+  const void *q, *k, *v;
+  int batch;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+};
+
+template <int DP, int NWG, int PER_SM, int KH>
+cudaError_t launch(Params p, const Operands& x, cudaStream_t stream) {
+  auto kernel = fused_attention_kernel<DP, NWG, PER_SM, KH>;
+  p.key_pad = (p.seq + kTile * KH - 1) / (kTile * KH) * (kTile * KH);
+  const size_t smem = smem_bytes<DP, NWG, KH>(p.stages, p.key_pad);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  // Once per instantiation, at its first (uncaptured) launch, to the most
-  // a block may use: every smaller size is then admitted, and later
-  // launches, inside a CUDA graph capture too, make no attribute call.
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = make_map<DP>(&tq, x.q, x.batch, p.heads, p.seq, p.dim, x.q_sb, x.q_sh,
+                          x.q_ss)) != cudaSuccess ||
+      (err = make_map<DP>(&tk, x.k, x.batch, p.kv_heads, p.seq, p.dim, x.k_sb, x.k_sh,
+                          x.k_ss)) != cudaSuccess ||
+      (err = make_map<DP>(&tv, x.v, x.batch, p.kv_heads, p.seq, p.dim, x.v_sb, x.v_sh,
+                          x.v_ss)) != cudaSuccess)
+    return err;
+  // Once per instantiation, at its first (uncaptured) launch, to the most a
+  // block may use: every smaller size is then admitted, and later launches,
+  // inside a CUDA graph capture too, make no attribute call.
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return attr;
-  const int units = (p.heads / p.kv_heads) * p.row_blocks;
-  dim3 grid((units + p.warps - 1) / p.warps, p.kv_heads, batch);
-  kernel<<<grid, p.warps * 32, smem, stream>>>(p);
+  const int units = (p.heads / p.kv_heads) * (p.seq_pad / kTile);
+  const dim3 grid((units + NWG - 1) / NWG, p.kv_heads, x.batch);
+  kernel<<<grid, Cta<NWG, PER_SM>::kThreads, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
+// The kernels attention_plan picks from, by (warpgroups, CTAs an SM, keys
+// a tile): (1, 2, 64 or 128), (1, 3, 64) for padded head dims up to 96,
+// (2, 1, 64), (3, 1, 64). Any other plan is refused.
 template <int DP>
-cudaError_t launch_branch(const Params& p, int batch, int one_pass, cudaStream_t s) {
-  return one_pass ? launch<DP, true>(p, batch, s) : launch<DP, false>(p, batch, s);
+cudaError_t launch_plan(const Params& p, const Operands& x, int warpgroups, int per_sm,
+                        int key_tile, cudaStream_t s) {
+  if (warpgroups == 1 && per_sm <= 2)
+    return key_tile == 128 ? launch<DP, 1, 2, 2>(p, x, s) : launch<DP, 1, 2, 1>(p, x, s);
+  if (key_tile != 64) return cudaErrorInvalidValue;
+  if (warpgroups == 1) {
+    if constexpr (DP <= 96) return launch<DP, 1, 3, 1>(p, x, s);
+    return cudaErrorInvalidValue;
+  }
+  return warpgroups == 2 ? launch<DP, 2, 1, 1>(p, x, s) : launch<DP, 3, 1, 1>(p, x, s);
 }
 
 }  // namespace
@@ -458,8 +561,10 @@ cudaError_t launch_branch(const Params& p, int batch, int one_pass, cudaStream_t
 // per (batch, head, position), the head dim contiguous. D % 8 == 0, D <= 128,
 // every stride a multiple of 8 and the pointers 16-byte aligned (the wrapper
 // checks). valid: (B, S) int32 or null. lse: (B, H, S) float32 (row stride
-// 1) or null. warps (1..8, units of 16 query rows per CTA) and one_pass come
-// from attention_plan. Returns a cudaError_t.
+// 1) or null. warpgroups (consumer warpgroups per CTA, 1 to 3),
+// ctas_per_sm (the CTAs an SM holds, which sets the registers), stages
+// (2..4), key_tile (keys per ring stage, 64 or 128) and turns come from
+// attention_plan. Returns a cudaError_t.
 extern "C" int vla_fused_attention_bf16(
     const void* q, const void* k, const void* v, const void* valid, void* o, void* lse,
     int batch, int heads, int kv_heads, int seq, int dim,
@@ -468,14 +573,12 @@ extern "C" int vla_fused_attention_bf16(
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     long long valid_sb, long long lse_sb, long long lse_sh, float sm_scale, int causal,
-    int warps, int one_pass, void* stream) {
-  if (warps < 1 || warps > kMaxWarps || seq < 1 || kv_heads < 1 ||
-      heads % kv_heads)
+    int warpgroups, int ctas_per_sm, int stages, int key_tile, int turns, void* stream) {
+  if (warpgroups < 1 || warpgroups > 3 || stages < 2 || stages > kMaxStages ||
+      (key_tile != 64 && key_tile != 128) || seq < 1 ||
+      batch < 1 || kv_heads < 1 || heads % kv_heads || dim < 8 || dim % 8 || dim > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
   p.valid = static_cast<const int32_t*>(valid);
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = static_cast<float*>(lse);
@@ -483,27 +586,26 @@ extern "C" int vla_fused_attention_bf16(
   p.kv_heads = kv_heads;
   p.seq = seq;
   p.dim = dim;
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
+  p.seq_pad = (seq + kTile - 1) / kTile * kTile;
+  p.stages = stages;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.valid_sb = valid_sb;
   p.lse_sb = lse_sb;
   p.lse_sh = lse_sh;
   p.sm_scale = sm_scale;
   p.causal = causal;
-  p.warps = warps;
-  p.row_blocks = (seq + 15) / 16;
+  p.turns = turns;
+  const Operands x{q, k, v, batch, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((dim + 15) / 16 * 16) {
-    case 16: return launch_branch<16>(p, batch, one_pass, s);
-    case 32: return launch_branch<32>(p, batch, one_pass, s);
-    case 48: return launch_branch<48>(p, batch, one_pass, s);
-    case 64: return launch_branch<64>(p, batch, one_pass, s);
-    case 80: return launch_branch<80>(p, batch, one_pass, s);
-    case 96: return launch_branch<96>(p, batch, one_pass, s);
-    case 112: return launch_branch<112>(p, batch, one_pass, s);
-    case 128: return launch_branch<128>(p, batch, one_pass, s);
+    case 16: return launch_plan<16>(p, x, warpgroups, ctas_per_sm, key_tile, s);
+    case 32: return launch_plan<32>(p, x, warpgroups, ctas_per_sm, key_tile, s);
+    case 48: return launch_plan<48>(p, x, warpgroups, ctas_per_sm, key_tile, s);
+    case 64: return launch_plan<64>(p, x, warpgroups, ctas_per_sm, key_tile, s);
+    case 80: return launch_plan<80>(p, x, warpgroups, ctas_per_sm, key_tile, s);
+    case 96: return launch_plan<96>(p, x, warpgroups, ctas_per_sm, key_tile, s);
+    case 112: return launch_plan<112>(p, x, warpgroups, ctas_per_sm, key_tile, s);
+    case 128: return launch_plan<128>(p, x, warpgroups, ctas_per_sm, key_tile, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

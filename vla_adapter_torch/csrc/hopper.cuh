@@ -36,18 +36,21 @@ __device__ __forceinline__ uint64_t global_ns() {
   return t;
 }
 // Wait until the phase of parity `parity` has completed; trap after ~4 s
-// (a wait that never ends is a bug: better a fault than a hung card).
+// (a wait that never ends is a bug: better a fault than a hung card). The
+// clock is read only once a wait has spun 4096 times: read at every short
+// wait's first spin, it took a share of B1's forward, which waits for
+// each key tile (PERF.md).
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
   uint64_t start = 0;
-  for (int spin = 0;; ++spin) {
+  for (uint32_t spin = 1;; ++spin) {
+    uint32_t done;
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
     if (done) return;
-    if ((spin & 1023) == 0) {
+    if ((spin & 4095) == 0) {
       const uint64_t now = global_ns();
       if (start == 0) start = now;
       else if (now - start > 4000000000ull) __trap();

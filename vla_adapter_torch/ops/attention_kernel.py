@@ -6,10 +6,12 @@ The kernel (``csrc/fused_attention.cu``) computes fp32 scores from bf16
 q/k, an additive 0 / -2e9 key bias from ``valid``, an optional causal mask,
 probabilities ``exp(s - max)`` rounded to bf16 *unnormalised* before
 ``p @ v``, and the 1/l normalisation (l summed from the rounded p) applied
-to the output. It computes each score once and keeps a warp's 16 x S score
-block in shared memory (the "one-pass" branch); :func:`attention_plan`
-chooses the CTA size per shape, and the "two-pass" branch (scores
-recomputed) only where not even one warp's block fits.
+to the output. It is a Hopper kernel: K/V tiles arrive by TMA through an
+mbarrier ring, both products are ``wgmma``, and p is rounded in registers
+against each row's final max, which a max pass over the K tiles takes
+first (as the TPU kernel rounds it). No score is stored, so one code path
+serves every S; :func:`attention_plan` picks the CTAs and the ring per
+shape.
 
 :func:`attention_reference` repeats that arithmetic in plain PyTorch. The
 CPU tests and CPU runs use it; :func:`fused_attention` takes it only for a
@@ -53,61 +55,105 @@ _MAX_HEAD_DIM = 128
 
 # H100 SXM: SMs (the default; the wrapper passes the device's count),
 # shared memory per SM (228 KB, 1 KB of it reserved per block) and per
-# block (227 KB), as the kernel's launch assumes them. The shared memory
-# layout below is the one csrc/fused_attention.cu:smem_bytes sizes, which
-# refuses a launch that would not fit.
+# block (227 KB), as the kernel's launch assumes them.
+# The shared memory layout below is the one csrc/fused_attention.cu:
+# smem_bytes sizes, which refuses a launch that would not fit.
 _SMS = 132
 _SM_SMEM = 233472
 _BLOCK_SMEM = 232448
 _KEY_TILE = 64
-_MAX_WARPS = 8
+# csrc/fused_attention.cu (Cta<NWG, PER_SM>): a CTA of 1-3 consumer
+# warpgroups (64 query rows each) and a producer warpgroup; registers a
+# thread at launch (the __launch_bounds__) and a consumer thread's after
+# setmaxnreg, by (warpgroups, CTAs an SM); ring stages 2..4. A CTA the
+# plan fits on fewer SMs than its kind (shared memory) keeps its registers.
+_FWD_LAUNCH_REGS = {(1, 3): 80, (1, 2): 128, (1, 1): 128, (2, 1): 168,
+                    (3, 1): 128}
+_FWD_CONSUMER_REGS = {(1, 3): 136, (1, 2): 232, (1, 1): 232, (2, 1): 240,
+                      (3, 1): 160}
+_FWD_PRODUCER_REGS = 24
+_FWD_STAGES = (4, 3, 2)
+
+
+def _tma_chunk(dp: int) -> int:
+    """TMA column chunk (bf16) of a tile of head dim ``dp``: the widest
+    swizzle row (128, 64 or 32 bytes) that divides it (both kernels'
+    ``Tile<DP>::kCW``, csrc/attention_wgmma.cuh)."""
+    return 64 if dp % 64 == 0 else 32 if dp % 32 == 0 else 16
 
 
 @functools.lru_cache(maxsize=None)
 def attention_plan(batch: int, heads: int, kv_heads: int, seq: int,
-                   dim: int, sms: int = _SMS) -> dict:
-    """How ``csrc/fused_attention.cu`` runs a shape on ``sms`` SMs
-    (cached per shape: do not modify the result): the branch
-    ("one-pass": each warp's 16 x S fp32 scores stay in shared memory;
-    "two-pass": recomputed, where not even one warp's block fits), warps
-    per CTA (units of 16 query rows of one head of a kv group), the grid's
-    CTAs, CTAs per SM, waves and shared memory per CTA.
+                   dim: int, sms: int = _SMS, causal: bool = False) -> dict:
+    """How ``csrc/fused_attention.cu`` runs a shape on ``sms`` SMs (cached
+    per shape: do not modify the result).
 
-    Among the CTA sizes whose score block fits, it takes the one with the
-    fewest rounds of CTAs on the busiest SM, then the fewest warps run
-    there in all, then the most warps per CTA (fewer re-reads of K/V from
-    L2). Registers are taken as <= 128 per thread. (On an H100 a second
-    round cost far more than a second warp on a sub-partition: at the
-    Qwen2 shape, 112 CTAs of 5 warps took 28 us, 140 of 4 took 45.)"""
+    A unit is 64 query rows of one head; a CTA of ``warpgroups`` consumer
+    warpgroups takes as many units in order over (head of the kv group,
+    row tile), so they share every K/V tile, and streams the kv head's keys
+    in tiles of ``keys_per_tile`` through a ring of ``stages``;
+    ``ctas_per_sm`` of them are resident on an SM. The head dim is padded
+    to ``dp`` (a multiple of 16) in TMA column chunks of ``chunk`` bf16.
+    The rule, from the times of every variant at every B1 shape of
+    PERF.md on an H100 (``b1_compare.py --variants``): where the grid's
+    units fit one round of the card, the smallest CTAs (one warpgroup, two
+    an SM) spread it widest, with 128-key tiles past S = 512; beyond one
+    round one warpgroup with three CTAs an SM (one CTA's prologue and
+    loads run under the others' products). At dp = 80 and 96, two
+    warpgroups that take turns, three past S = 512 on three rounds of
+    the card, one (two an SM) when causal. At dp >= 112, one warpgroup
+    (two an SM) when causal (CTAs of uneven length) or on less than three
+    rounds, else three that take turns. Then the most stages (of 4, 3, 2)
+    whose shared memory fits. The grid is not persistent: a CTA runs its units' whole key loop
+    and one store of the output. No per-row storage, so no limit on S but
+    the key mask's S/8 bytes. Also: the grid's CTAs, their waves, shared
+    memory and registers a CTA."""
     dp = -(-dim // 16) * 16
-    tiles = -(-seq // _KEY_TILE)
-    tile_bytes = _KEY_TILE * (dp + 8) * 2
-    slot = tile_bytes + 4 * _KEY_TILE  # a K or V tile and its valid flags
-    units = (heads // kv_heads) * -(-seq // 16)
+    tile_bytes = _KEY_TILE * dp * 2
+    seq_pad = -(-seq // _KEY_TILE) * _KEY_TILE
+    units = (heads // kv_heads) * (seq_pad // _KEY_TILE)
+    total = batch * kv_heads * units
 
-    def occupancy(warps, smem):
-        ctas = batch * kv_heads * -(-units // warps)
-        per_sm = min(_SM_SMEM // (smem + 1024), 64 // warps, 16 // warps, 32)
-        return ctas, per_sm
+    def smem(wgs, stages, keys):
+        key_pad = -(-seq // keys) * keys
+        return ((wgs + 2 * (keys // _KEY_TILE) * stages) * tile_bytes
+                + 8 * (2 * stages + 1) + key_pad // 8 + 1024)
 
-    best = None
-    for warps in range(1, min(_MAX_WARPS, units) + 1):
-        smem = 2 * slot + warps * tiles * 4096
-        if smem > _BLOCK_SMEM:
-            break
-        ctas, per_sm = occupancy(warps, smem)
-        busiest = -(-ctas // sms)  # CTAs the busiest SM runs
-        key = (-(-busiest // per_sm), busiest * warps, -warps)
-        if best is None or key < best[0]:
-            best = (key, warps, smem)
-    if best is None:  # K and V of a tile in each of the two slots
-        branch, warps, smem = "two-pass", 4, 2 * (slot + tile_bytes)
+    keys, turns = _KEY_TILE, False
+    if dp <= 64:
+        if total <= 2 * sms:
+            (wgs, per_sm), keys = (1, 2), 2 * _KEY_TILE if seq > 512 else keys
+        else:
+            wgs, per_sm = 1, 3
+    elif dp <= 96:
+        if causal:
+            wgs, per_sm = 1, 2
+        else:
+            wgs, per_sm, turns = (3 if seq > 512 and total >= 3 * sms
+                                  else 2), 1, True
+    elif causal or total < 3 * sms:
+        wgs, per_sm = 1, 2
     else:
-        branch, (_, warps, smem) = "one-pass", best
-    ctas, per_sm = occupancy(warps, smem)
-    return {"branch": branch, "warps": warps, "ctas": ctas,
-            "ctas_per_sm": per_sm, "waves": ctas / (sms * per_sm),
-            "smem_bytes": smem}
+        (wgs, per_sm), turns = (3, 1), True
+    fit = None
+    while fit is None and per_sm >= 1:
+        budget = min(_BLOCK_SMEM, _SM_SMEM // per_sm - 1024)
+        fit = next((st for st in _FWD_STAGES if smem(wgs, st, keys) <= budget),
+                   None)
+        if fit is None:
+            per_sm -= 1
+    if fit is None:
+        raise ValueError(f"fused_attention: seq {seq} at head dim {dim} "
+                         f"does not fit shared memory")
+    ctas = batch * kv_heads * -(-units // wgs)
+    return {"warpgroups": wgs, "threads": (wgs + 1) * 128,
+            "keys_per_tile": keys, "stages": fit, "turns": turns,
+            "persistent": False, "dp": dp, "chunk": _tma_chunk(dp),
+            "units": units, "ctas": ctas, "ctas_per_sm": per_sm,
+            "waves": ctas / (sms * per_sm), "smem_bytes": smem(wgs, fit, keys),
+            "launch_regs": _FWD_LAUNCH_REGS[wgs, per_sm],
+            "consumer_regs": _FWD_CONSUMER_REGS[wgs, per_sm],
+            "producer_regs": _FWD_PRODUCER_REGS}
 
 
 def attention_reference(
@@ -153,7 +199,7 @@ def _lib() -> ctypes.CDLL:
     if not fn.argtypes:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = ([p] * 6 + [i] * 5 + [ll] * 15
-                       + [ctypes.c_float, i, i, i, p])
+                       + [ctypes.c_float, i, i, i, i, i, i, p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -213,11 +259,22 @@ def fused_attention(
         valid = valid.to(torch.int32).contiguous()
     if sm_scale is None:
         sm_scale = d ** -0.5
+    plan = attention_plan(b, h, hkv, s, d, cuda_lib.sm_count(q.device),
+                          bool(causal))
+    return _launch(q, k, v, valid, causal, sm_scale, return_lse, plan)
+
+
+def _launch(q, k, v, valid, causal: bool, sm_scale: float, return_lse: bool,
+            plan: dict):
+    """One launch of the kernel on checked operands with ``plan`` (its
+    ``warpgroups`` and ``stages``; a timing script may pass another
+    feasible plan than :func:`attention_plan`'s)."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
     out = torch.empty((b, s, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    plan = attention_plan(b, h, hkv, s, d, cuda_lib.sm_count(q.device))
     lib = _lib()
     with torch.cuda.device(q.device):  # the launch goes to the current device
         err = lib.vla_fused_attention_bf16(
@@ -228,12 +285,14 @@ def fused_attention(
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], 0 if valid is None else valid.stride(0),
             *((0, 0) if lse is None else lse.stride()[:2]),
-            float(sm_scale), int(causal), plan["warps"],
-            int(plan["branch"] == "one-pass"),
+            float(sm_scale), int(causal), plan["warpgroups"],
+            plan["ctas_per_sm"], plan["stages"], plan["keys_per_tile"],
+            int(plan["turns"]),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_attention: kernel launch failed "
-                           f"(cudaError {err})")
+                           f"(cudaError {err}) at q {tuple(q.shape)}, "
+                           f"k {tuple(k.shape)}, plan {plan}")
     cuda_lib.count_launch(KERNEL_NAME)
     return (out, lse) if return_lse else out
 
@@ -250,12 +309,6 @@ _BWD_REGS = 168
 # dk/dv: both warpgroups of a CTA on one key block, items split between
 # them, from this many items (query tiles of the kv head's group) on
 _BWD_SPLIT_ITEMS = 16
-
-
-def _bwd_chunk(dp: int) -> int:
-    """TMA column chunk (bf16) of a tile of head dim ``dp``: the widest
-    swizzle row (128, 64 or 32 bytes) that divides it."""
-    return 64 if dp % 64 == 0 else 32 if dp % 32 == 0 else 16
 
 
 @functools.lru_cache(maxsize=None)
@@ -287,7 +340,7 @@ def attention_bwd_plan(batch: int, heads: int, kv_heads: int, seq: int,
     rows_ctas = batch * kv_heads * -(-items // _BWD_WARPGROUPS)
     dkdv_ctas = batch * kv_heads * (row_tiles if split else
                                     -(-row_tiles // _BWD_WARPGROUPS))
-    chunk = _bwd_chunk(dp)
+    chunk = _tma_chunk(dp)
     return {"chunk": chunk, "swizzle_bytes": 2 * chunk, "stages": stages,
             "warpgroups": _BWD_WARPGROUPS, "smem_bytes": smem,
             "ctas_per_sm": per_sm, "d_ctas": rows_ctas, "dq_ctas": rows_ctas,

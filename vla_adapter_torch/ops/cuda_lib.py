@@ -41,6 +41,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# Sources whose device code nvcc optimizes in parallel (one job per CPU):
+# each took the longest of the parallel builds (the fused MLPs 99.8 s alone,
+# 40.9 s split; the attention forward 46.1 s, 30.7 s; on the H100 machine's
+# 8 cores)
+SPLIT_COMPILE = frozenset({"fused_mlp_w8a8.cu", "fused_attention.cu"})
+
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -120,11 +126,18 @@ def _with_includes(name: str, seen: set) -> bytes:
                            for inc in _INCLUDE.findall(text))
 
 
+def nvcc_flags(source: str) -> tuple:
+    """nvcc's flags for ``csrc/<source>``."""
+    return NVCC_FLAGS + (("-split-compile=0",) if source in SPLIT_COMPILE
+                         else ())
+
+
 def library_path(source: str) -> Path:
     """Where ``csrc/<source>`` is built: named by a hash of the source, the
     headers it includes and the nvcc flags."""
     digest = hashlib.sha256(_with_includes(source, set())
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(nvcc_flags(source)).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
 
 
@@ -141,7 +154,7 @@ def load_library(source: str) -> ctypes.CDLL:
         if not lib_path.exists():
             tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
             proc = subprocess.run(
-                [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [find_nvcc(), *nvcc_flags(source), "-o", str(tmp), str(src)],
                 capture_output=True, text=True, check=False)
             BUILD_LOGS[source] = proc.stdout + proc.stderr
             if proc.returncode != 0:
