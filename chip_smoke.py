@@ -27,8 +27,9 @@ Phases, in order; any failure exits non-zero:
    every distinct non-MLP shape, the head's stacked matmul, and (B=1) the
    whole-decoder-layer kernel of the "mega" backend at the Qwen2 layer with
    the prompt's key padding. Each fused MLP and the layer kernel first
-   print their plan (the 32-row tile, the panel split, the work items, the
-   persistent grid's CTAs and waves; :func:`mlp_plan`, :func:`megalayer_plan`);
+   print their plan (the row tiles, the panel split, the K slices and
+   panel groups, the work items, the persistent grid's CTAs and waves;
+   :func:`mlp_plan`, :func:`megalayer_plan`);
    each matmul's line carries its plan (``w8a8_plan``: the narrow branch
    up to 32 rows, else the Hopper branch's tiles, stages, grid and
    pre-pass). The matmuls must equal their plain versions bit for bit, the fused MLPs
@@ -172,8 +173,9 @@ Phases, in order; any failure exits non-zero:
    generation's prefill), at the 384-px towers (DINOv2 S = 734, so400m
    S = 729) and CLIP-L/14 @ 336 (S = 577); B1-bwd at Mistral's
    pretraining shape (batch 8, causal); B2 at Llama-2 7B, Mistral 7B and
-   Llama-2 13B at a prefill's rows and M = 1, 2, 4 (the "streamed"
-   branch, bit for bit with plain; each plan's branch printed); B3 at
+   Llama-2 13B at a prefill's rows and M = 1, 2, 4 (K = 4096-5120 on
+   the one TMA path of every K, bit for bit with plain; each plan
+   printed); B3 at
    CLIP-L's and so400m@384's MLPs and both projectors; B4 at 4096^2 and
    at the lm_head's widths 4096 -> 32000 (bit for bit). Then
    ``prism-dinosiglip+7b`` (Llama-2 7B under the fused 384-px towers,
@@ -343,8 +345,9 @@ phase 10 its B=1 latency 5 rounds (were 8), phase 17's loader drains 4
 batches and times 8 (were 8 and 12) and its run trains 3 steps (were
 4), phase 18's group runs 3 steps (were 4).
 
-With ``--profile`` phase 7 also profiles one B=1 request per tier, eager
-and replayed, and checks that the eager w8a8 tiers launch at least 3,000
+With ``--profile`` phase 7 also profiles one B=1 request per tier and
+one B=4 request of the w8a8 "fused" and "dense" tiers, eager and
+replayed, and checks that the eager w8a8 tiers launch at least 3,000
 fewer kernels per request than before the quantization moved inside B4
 (``KERNELS_PER_REQUEST_BEFORE``); phase 11 profiles the third step of its
 main finetune run (device ms by kernel group, :class:`ProfiledStep`), and
@@ -1885,8 +1888,8 @@ def phase_flagship(predictor, rng, card: str):
 
 
 def profile_request(predictor, rows, label: str):
-    """One B=1 forward of ``rows`` (forward, copy back, unnormalization)
-    under torch.profiler: the device's busy time (sum of kernel durations
+    """One forward of ``rows`` (forward, copy back, unnormalization; B =
+    ``len(rows)``) under torch.profiler: the device's busy time (sum of kernel durations
     on the card) against the request's host wall time, and the kernels
     that take most of it. For a Predictor that serves through CUDA graphs
     also the device time of one bare replay of its graph (CUDA events);
@@ -1911,7 +1914,7 @@ def profile_request(predictor, rows, label: str):
         by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
     rec = {"tier": label, "mode": "graph" if predictor.graphs else "eager",
-           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "batch": len(rows), "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_kernels": len(kernels),
            "attention_kernel_ms": sum(v for k, v in by_name.items()
                                       if "fused_attention" in k),
@@ -2781,9 +2784,13 @@ def phase_graph(bf16_pred, rng, card: str, profile: bool = False):
         rec["profiles"] = [profile_request(pred, rows1, name)
                            for name in tiers
                            for pred in (eager[name], tiers[name])]
+        # rows_b: the B=4 rows timed in turns above
+        rec["profiles"] += [profile_request(pred, rows_b, name)
+                            for name in ("fused", "dense")
+                            for pred in (eager[name], tiers[name])]
         for prof in rec["profiles"]:
             before = KERNELS_PER_REQUEST_BEFORE.get(f"w8a8 {prof['tier']}")
-            if prof["mode"] == "eager" and before:
+            if prof["mode"] == "eager" and prof["batch"] == 1 and before:
                 prof["kernels_saved"] = before - prof["device_kernels"]
                 if prof["kernels_saved"] < KERNELS_SAVED:
                     raise AssertionError(
@@ -4637,8 +4644,12 @@ def phase_zoo_kernels(card: str) -> dict:
             raise AssertionError(f"{r['kernel']} {r['shape']} M={r['m']}: "
                                  f"not bit for bit with its plain version")
         if "plan" in r:
+            plan = r["plan"]  # B4's names a branch; B2/B3's its splits
+            route = plan.get("branch") or (
+                f"{plan['up_splits']} K slices x {plan['down_splits']} "
+                "panel groups")
             print(f"zoo {r['kernel']} {r['shape'][0]} M={r['m']}: branch "
-                  f"{r['plan']['branch']}, {r['plan']['smem_bytes']} B of "
+                  f"{route}, {plan['smem_bytes']} B of "
                   f"shared memory, {1e3 * r['ms']:.1f} us (plain "
                   f"{1e3 * r['plain_ms']:.1f}, bound "
                   f"{1e3 * r['bound_ms']:.2f}); card {card}", flush=True)
@@ -7775,8 +7786,10 @@ def main() -> int:
     parser.add_argument("--out", help="also write the results as JSON here")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one B=1 request per tier, eager "
-                             "and replayed (torch.profiler)")
+                        help="also profile one B=1 request per tier and "
+                             "one B=4 request of the w8a8 \"fused\" and "
+                             "\"dense\" tiers, eager and replayed "
+                             "(torch.profiler)")
     parser.add_argument("--only", default="",
                         help="comma-separated phases among 11-21 to run "
                              "after the build, skipping phases 2-10; such a "

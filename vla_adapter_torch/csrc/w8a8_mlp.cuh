@@ -1,5 +1,8 @@
-// The w8a8 MLP panel walk, spread over the card: the device code shared by
-// fused_mlp_w8a8.cu (kernels B2/B3) and megalayer_w8a8.cu (kernel B6).
+// The w8a8 MLP panel walk on mma.sync and cp.async, spread over the card:
+// the device code of megalayer_w8a8.cu's MLP stages (kernel B6), the only
+// kernel that runs this walk. Kernels B2/B3 (fused_mlp_w8a8.cu, their walk
+// in w8a8_mlp_wgmma.cuh) and B4 (w8a8_matmul.cu) take only its
+// quantization, activation and load helpers from here.
 //
 //   for each block_f-wide panel of F:
 //     g  = float(xq @ W1_panel^T) * rs * s1 (+ b1)
@@ -11,12 +14,11 @@
 // block_f = 512 is part of the numerics (h is re-quantized per panel), not
 // a tile size.
 //
-// Work items. The kernels run a persistent grid of 8-warp CTAs (one per
-// SM, two for the plain MLP below K ~ 1200) that take work items from an
-// atomic ticket, in
-// an order where every item waits only on items with earlier tickets:
-// those are already taken by running CTAs, so no wait can deadlock,
-// whether or not every CTA is resident. The MLP's items:
+// Work items. The kernel runs a persistent grid of 8-warp CTAs (one per
+// SM) that take work items from an atomic ticket, in an order where every
+// item waits only on items with earlier tickets: those are already taken
+// by running CTAs, so no wait can deadlock, whether or not every CTA is
+// resident. The MLP's items:
 // * up (32-row tile, panel): the tile's xq rows (written by an earlier
 //   item) resident in shared memory, the panel's up product(s) over the
 //   whole K, the dequantization and activation, the row absmax over the
@@ -36,19 +38,12 @@
 // Weight tiles (128 rows x 128 bytes of k) stream through a ring of 3 or 4
 // slots fed by cp.async, 2 or 3 steps ahead of the tensor cores; the up
 // item holds its 32 rows of xq for the whole K ("resident"), the down item
-// streams its 64 hq rows through the ring beside W2.
-// Where 32 x K bytes of xq and the ring do not fit a block's shared memory
-// (every 7B and 13B LLM: K = 4096-5120 wants 263-303 KB), the gated MLP's
-// up item streams its xq rows through the ring too, 32 rows x 128 bytes beside
-// each step's weight tiles ("streamed", the STREAM template argument):
-// each 128-column chunk of a panel reads its rows again, from L2 (32 x K
-// bytes against the chunk's 128 x K of each weight). The products, their
-// order and every rounding are the same, so both give the same bits. Shared-memory rows are 128 bytes
-// with the 16-byte units swizzled by (row % 8): conflict-free ldmatrix. An
-// up item walks its panel in chunks of 128 columns and keeps h (32 x 512
-// float32, 64 values a thread) in registers until the panel's row absmax
-// is known; hq is staged through the idle ring and written out in 16-byte
-// stores. Every row quantization (x, h, and B6's ctx and h2) takes the
+// streams its 64 hq rows through the ring beside W2. Shared-memory rows are
+// 128 bytes with the 16-byte units swizzled by (row % 8): conflict-free
+// ldmatrix. An up item walks its panel in chunks of 128 columns and keeps h
+// (32 x 512 float32, 64 values a thread) in registers until the panel's row
+// absmax is known; hq is staged through the idle ring and written out in
+// 16-byte stores. Every row quantization (x, h, and B6's ctx and h2) takes the
 // correctly rounded quotient without a division (quant_bits).
 //
 // What bounds it on an H100 (timed per item with %globaltimer stamps in a
@@ -388,36 +383,25 @@ struct MlpSmem {
   float* rs;          // kBM
 };
 
-// A ring slot holds an up step (128 rows of W1, and of Wu; streamed, also
-// the 32 rows of xq) or a down step (64 rows of hq and 128 rows of W2).
-__host__ __device__ constexpr int up_slot(bool gated, bool stream) {
-  return (gated ? 2 : 1) * kTileN * kStep + (stream ? kBM * kStep : 0);
-}
-__host__ __device__ constexpr int ring_slot(bool gated, bool stream = false) {
-  return up_slot(gated, stream) > (kBMd + kTileN) * kStep ? up_slot(gated, stream)
-                                                          : (kBMd + kTileN) * kStep;
+// A ring slot holds an up step (128 rows of W1, and of Wu) or a down step
+// (64 rows of hq and 128 rows of W2).
+__host__ __device__ constexpr int up_slot(bool gated) { return (gated ? 2 : 1) * kTileN * kStep; }
+__host__ __device__ constexpr int ring_slot(bool gated) {
+  return up_slot(gated) > (kBMd + kTileN) * kStep ? up_slot(gated) : (kBMd + kTileN) * kStep;
 }
 
-__host__ __device__ inline size_t mlp_smem_bytes(int kpad, int panels, bool gated,
-                                                 bool stream = false) {
-  return static_cast<size_t>(stream ? 0 : kBM) * kpad +
-         static_cast<size_t>(ring_depth(gated)) * ring_slot(gated, stream) +
+__host__ __device__ inline size_t mlp_smem_bytes(int kpad, int panels, bool gated) {
+  return static_cast<size_t>(kBM) * kpad +
+         static_cast<size_t>(ring_depth(gated)) * ring_slot(gated) +
          sizeof(float) * (static_cast<size_t>(kBMd) * panels + kWarps * kBM + kBM);
 }
 
-// Whether an MLP of these widths must stream xq: the resident form's
-// shared memory (and the 16 bytes the kernels keep after it) exceeds a
-// block's.
-__host__ __device__ inline bool mlp_streams_x(int kpad, int panels, bool gated) {
-  return mlp_smem_bytes(kpad, panels, gated) + 16 > static_cast<size_t>(kMaxSmem);
-}
-
 __device__ __forceinline__ MlpSmem carve_mlp(unsigned char* base, int kpad, int panels,
-                                             bool gated, bool stream = false) {
+                                             bool gated) {
   MlpSmem s;
   s.xq = base;
-  s.ring = s.xq + (stream ? 0 : kBM * kpad);
-  s.slot = ring_slot(gated, stream);
+  s.ring = s.xq + kBM * kpad;
+  s.slot = ring_slot(gated);
   s.hs = reinterpret_cast<float*>(s.ring + ring_depth(gated) * s.slot);
   s.red = s.hs + kBMd * panels;
   s.rs = s.red + kWarps * kBM;
@@ -491,12 +475,10 @@ __device__ __forceinline__ void leave(int* counters, int n) {
 // hq and hs of the panel for the tile's rows into the scratch, then one
 // more on p.ready_h[rt]. Warp w computes columns 16w .. 16w + 15 of each
 // 128-column chunk for all 32 rows. The tile's xq rows are resident in
-// shared memory for the whole K, or (STREAM) staged in each ring step
-// after its weight tiles. Every thread calls it.
-template <int ACT, bool GATED, bool STREAM = false>
+// shared memory for the whole K. Every thread calls it.
+template <int ACT, bool GATED>
 __device__ __forceinline__ void up_item(const Mlp& p, const MlpSmem& s, int rt, int panel) {
   constexpr int NW = GATED ? 2 : 1;
-  constexpr int kXAt = NW * kTileN * kStep;  // a streamed step's xq rows
   constexpr int kRing = ring_depth(GATED);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -510,7 +492,7 @@ __device__ __forceinline__ void up_item(const Mlp& p, const MlpSmem& s, int rt, 
   const uint32_t ring = smem_u32(s.ring);
   const uint32_t xq = smem_u32(s.xq);
 
-  auto load = [&](int st, bool rows) {
+  auto load = [&](int st) {
     if (st < steps) {
       const int c = st / ksteps;
       const int k0 = (st % ksteps) * kStep;
@@ -520,23 +502,16 @@ __device__ __forceinline__ void up_item(const Mlp& p, const MlpSmem& s, int rt, 
       const int rows_end = min(p.f, f0 + p.block_f);
       stage_w(slot, p.w1, p.k, n0, rows_end, k0, kStep, p.k);
       if (GATED) stage_w(slot + kTileN * kStep, p.wu, p.k, n0, rows_end, k0, kStep, p.k);
-      if (STREAM && rows) stage_rows(slot + kXAt, p.xq, p.kpad, row0, kBM, p.m, k0);
     }
     cp_async_commit();
   };
-  // weight steps before the wait; the tile's xq rows once they are in
-  // (resident: all of K; streamed: those of the steps already issued)
+  // weight steps before the wait; the tile's xq rows (all of K) once they
+  // are in
 #pragma unroll
-  for (int st = 0; st < kRing - 1; ++st) load(st, false);
+  for (int st = 0; st < kRing - 1; ++st) load(st);
   wait_count(p.ready_x + rt, 1);
-  if (STREAM) {
-    for (int st = 0; st < kRing - 1 && st < steps; ++st)
-      stage_rows(ring + (st % kRing) * s.slot + kXAt, p.xq, p.kpad, row0, kBM, p.m,
-                 (st % ksteps) * kStep);
-  } else {
-    for (int ks = 0; ks < ksteps; ++ks)
-      stage_rows(xq + ks * (kBM * kStep), p.xq, p.kpad, row0, kBM, p.m, ks * kStep);
-  }
+  for (int ks = 0; ks < ksteps; ++ks)
+    stage_rows(xq + ks * (kBM * kStep), p.xq, p.kpad, row0, kBM, p.m, ks * kStep);
   cp_async_commit();
   if (threadIdx.x < kBM) {
     const int r = threadIdx.x;
@@ -564,12 +539,12 @@ __device__ __forceinline__ void up_item(const Mlp& p, const MlpSmem& s, int rt, 
       else
         cp_async_wait<kRing - 2>();  // this thread's copies of step st landed
       __syncthreads();               // everyone's, and step st - 1 is done
-      load(st + kRing - 1, true);    // into the slot step st - 1 used
+      load(st + kRing - 1);          // into the slot step st - 1 used
       const uint32_t slot = ring + (st % kRing) * s.slot;
       uint32_t w[NW];
       w[0] = slot;
       if (GATED) w[NW - 1] = slot + kTileN * kStep;
-      step_mma<NW, 2>(STREAM ? slot + kXAt : xq + ks * (kBM * kStep), w, 16 * warp, acc);
+      step_mma<NW, 2>(xq + ks * (kBM * kStep), w, 16 * warp, acc);
     }
     // dequantize, bias, activation (* up); columns past the panel or F are
     // exact zeros

@@ -20,18 +20,19 @@ so400m's 4304 is masked inside the kernel). The JAX functions take one
 layer of an (L, K, F) stack; the port keeps each layer's weights in its own
 module, so the functions here take one layer's weights.
 
-The kernel splits the walk into work items, taken by a persistent grid
-from an atomic ticket: quantization items (32-row tile) write xq and the
-row scales to a scratch, up items (32-row tile, panel) hq and hs, down
-items (64-row tile, 128 output columns) sum the panels in order.
-:func:`mlp_plan` gives the split and the grid for a shape,
-:func:`mlp_work_items` the items in ticket order, as the kernel takes
-them, and :func:`up_item_steps` the ring steps of one up item. An up item
-keeps its 32 rows of xq resident in shared memory for the whole K where
-that fits beside the ring (the plan's "resident" branch: every flagship
-shape), else, in the gated MLP, streams them through the ring beside the
-weight tiles ("streamed": K = 4096-5120, every 7B and 13B LLM), with the
-same products, order and bits.
+The kernel (``csrc/fused_mlp_w8a8.cu``, its walk in
+``csrc/w8a8_mlp_wgmma.cuh``) runs a persistent grid that takes work items
+from an atomic ticket: quantization items (64-row tile) write xq and the
+row scales to a scratch, up items (64-row tile, panel, slice of K) hq and
+hs, down items (128-row tile, 128 output columns, group of panels) sum the
+panels in order. Its products are int8 ``wgmma`` on operands that TMA
+brings in, at every K. :func:`mlp_plan` gives the split and the grid for a
+shape: above :data:`DECODE_ROWS` rows one slice and one group; at a decode
+step's rows the up items split K (their exact int32 partials meet by
+atomics) and the down items split the panels (their float terms are summed
+in panel order by the last to arrive), so that every SM streams weights.
+:func:`mlp_work_items` lists the items in ticket order, as the kernel
+takes them, and :func:`up_item_steps` the ring steps of one up item.
 
 :func:`fused_mlp_reference` repeats the arithmetic in plain PyTorch. The
 wrappers take it only for a CPU tensor; a CUDA tensor always goes to the
@@ -56,121 +57,141 @@ BLOCK_F = 512
 ACTIVATIONS = ("silu", "gelu", "gelu_tanh", "quick_gelu")
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
-# The kernel's tiling (csrc/w8a8_mlp.cuh): rows per quantization and up
-# item, rows per down item, output columns per down item (and panel columns
-# per up-item chunk), bytes of k per ring step and warps per CTA; H100 SXM
-# SMs (the default; the wrapper passes the device's count) and shared
-# memory per SM and per block.
-ROW_TILE = 32
-DOWN_ROW_TILE = 64
+# The kernel's tiling (csrc/w8a8_mlp_wgmma.cuh): rows per quantization and
+# up item, rows per down item, output columns per down item (and panel
+# columns per up stage), bytes of k per ring step; the rows at and below
+# which a call is a decode step (K and panels split); H100 SXM SMs (the
+# default; the wrapper passes the device's count) and shared memory per
+# block.
+ROW_TILE = 64
+DOWN_ROW_TILE = 128
 COL_TILE = 128
 K_STEP = 128
-WARPS = 8
+DECODE_ROWS = 32
 SMS = 132
-SM_SMEM = 233472
 BLOCK_SMEM = 232448
 # The ticket and the ready counters live in a per-device int32 scratch that
-# the kernels leave zeroed: 2 + 4 ceil(M / 32) of them at most (B6).
+# the kernels leave zeroed (B6 takes 2 + 4 ceil(M / 32) of them).
 COUNTER_CAP = 1 << 16
+# The up items' split sums, (2, M, F) int32, in a per-device scratch the
+# kernel leaves zeroed: a decode step splits K where they fit.
+SUMS_CAP = 1 << 20
 _COUNTERS: dict = {}
+_SUMS: dict = {}
 
 
 def _round_up(n: int, to: int) -> int:
     return -(-n // to) * to
 
 
-def ring_depth(gated: bool) -> int:
-    """Ring slots (csrc/w8a8_mlp.cuh:ring_depth): 4 for the gated MLP, 3
-    for the plain one, whose CTAs then fit two to an SM."""
-    return 4 if gated else 3
+def ring_stages(gated: bool) -> int:
+    """Ring stages (csrc/w8a8_mlp_wgmma.cuh:ring_stages): 4 of 40 KB for
+    the gated MLP (64 rows of xq, 128 of W1 and of Wu), 5 of 32 KB for the
+    plain one (a down step, 128 rows of hq and of W2, is the larger)."""
+    return 4 if gated else 5
 
 
-def mlp_smem_bytes(kpad: int, panels: int, gated: bool,
-                   streamed: bool = False) -> int:
-    """Shared memory of an MLP stage (csrc/w8a8_mlp.cuh:mlp_smem_bytes):
-    the resident 32 rows of xq (none when ``streamed``), the ring (a slot
-    holds an up step, 128 rows of W1 and of Wu, and when ``streamed`` the
-    step's 32 rows of xq, or a down step, 64 rows of hq and 128 of W2), the
-    down item's panel scales, the cross-warp absmax and the row scales."""
-    up = (2 if gated else 1) * COL_TILE * K_STEP + (
-        ROW_TILE * K_STEP if streamed else 0)
-    slot = max(up, (DOWN_ROW_TILE + COL_TILE) * K_STEP)
-    return (0 if streamed else ROW_TILE * kpad) + ring_depth(gated) * slot \
-        + 4 * (DOWN_ROW_TILE * panels + WARPS * ROW_TILE + ROW_TILE)
+def smem_bytes(gated: bool) -> int:
+    """Shared memory of a CTA (csrc/w8a8_mlp_wgmma.cuh:smem_bytes): the
+    alignment slack, the ring, the staged hq tile (64 x 512 bytes), the
+    staged column vectors (3 x 512 floats), the two warpgroups' row
+    maxima, the barriers, the item ids and a flag."""
+    stage = max(ROW_TILE * K_STEP + (2 if gated else 1) * COL_TILE * K_STEP,
+                (DOWN_ROW_TILE + COL_TILE) * K_STEP)
+    stages = ring_stages(gated)
+    return 1024 + stages * stage + ROW_TILE * BLOCK_F + 4 * 3 * BLOCK_F \
+        + 2 * ROW_TILE * 4 + 8 * (2 * stages + 4) + 16
 
 
-def ctas_per_sm(smem: int, gated: bool) -> int:
-    """CTAs of 8 warps one SM holds at ``smem`` bytes each: the gated
-    kernels (and B6) are built for one, the plain one for up to two (its
-    launch bounds cap it at 128 registers a thread)."""
-    return 1 if gated else max(1, min(SM_SMEM // (smem + 1024), 2))
-
-
-def _mlp_split(m: int, f: int, d: int, block_f: int) -> dict:
-    panels = -(-f // block_f)
-    return {"row_tile": ROW_TILE, "row_tiles": -(-m // ROW_TILE),
-            "panels": panels, "panel_width": block_f,
-            "last_panel_columns": f - (panels - 1) * block_f,
-            "down_row_tile": DOWN_ROW_TILE,
-            "down_row_tiles": -(-m // DOWN_ROW_TILE), "col_tile": COL_TILE,
-            "col_tiles": -(-d // COL_TILE)}
+def _slice(steps: int, parts: int) -> int:
+    """Steps a part when ``steps`` are split into at most ``parts``, every
+    part non-empty."""
+    return -(-steps // max(1, min(steps, parts)))
 
 
 @functools.lru_cache(maxsize=None)
 def mlp_plan(m: int, k: int, f: int, d: int, *, gated: bool,
              block_f: int = BLOCK_F, sms: int = SMS) -> dict:
     """How ``csrc/fused_mlp_w8a8.cu`` runs one MLP on ``sms`` SMs (cached
-    per shape: do not modify the result): the row tiles (32 rows for the
-    quantization of x and the up items, 64 for the down items), the panel
+    per shape: do not modify the result): the row tiles (64 rows for the
+    quantization of x and the up items, 128 for the down items), the panel
     split (panels, the last one's real columns), the column tile of the
-    down items, the items of each kind, the branch ("resident" where 32
-    rows of xq fit beside the ring in a block's shared memory, else, for
-    the gated MLP, "streamed"), the persistent grid (CTAs, CTAs per SM,
-    items per CTA as "waves") and shared memory per CTA (above
-    ``BLOCK_SMEM`` the wrapper refuses the shape)."""
-    plan = _mlp_split(m, f, d, block_f)
-    kpad = _round_up(k, K_STEP)
-    streamed = gated and (mlp_smem_bytes(kpad, plan["panels"], gated) + 16
-                          > BLOCK_SMEM)
-    smem = mlp_smem_bytes(kpad, plan["panels"], gated, streamed) + 16
-    counts = {"quant_items": plan["row_tiles"],
-              "up_items": plan["row_tiles"] * plan["panels"],
-              "down_items": plan["down_row_tiles"] * plan["col_tiles"]}
+    down items, the up items' K slices (128-byte steps a slice) and the
+    down items' panel groups (panels a group), the items of each kind, the
+    persistent grid (CTAs, one per SM, and items per CTA as "waves"), the
+    ring's stages, shared memory per CTA and the counters the launch takes. At
+    :data:`DECODE_ROWS` rows or fewer the slices and groups are cut so that
+    each kind has about one item per SM."""
+    panels = -(-f // block_f)
+    k_steps = -(-k // K_STEP)
+    row_tiles = -(-m // ROW_TILE)
+    down_tiles = -(-m // DOWN_ROW_TILE)
+    col_tiles = -(-d // COL_TILE)
+    up_slice, down_slice = k_steps, panels
+    if m <= DECODE_ROWS:
+        if 2 * m * f <= SUMS_CAP:
+            up_slice = _slice(k_steps, -(-sms // (row_tiles * panels)))
+        down_slice = _slice(panels, -(-sms // (down_tiles * col_tiles)))
+    up_splits = -(-k_steps // up_slice)
+    down_splits = -(-panels // down_slice)
+    counts = {"quant_items": row_tiles,
+              "up_items": panels * row_tiles * up_splits,
+              "down_items": down_tiles * col_tiles * down_splits}
     items = sum(counts.values())
-    per_sm = ctas_per_sm(smem, gated)
-    ctas = min(items, sms * per_sm)
-    return {**plan, **counts, "k_steps": kpad // K_STEP,
-            "branch": "streamed" if streamed else "resident", "ctas": ctas,
-            "ctas_per_sm": per_sm, "waves": items / ctas, "smem_bytes": smem}
+    ctas = min(items, sms)
+    return {"row_tile": ROW_TILE, "row_tiles": row_tiles, "panels": panels,
+            "panel_width": block_f,
+            "last_panel_columns": f - (panels - 1) * block_f,
+            "down_row_tile": DOWN_ROW_TILE, "down_row_tiles": down_tiles,
+            "col_tile": COL_TILE, "col_tiles": col_tiles, "k": k,
+            "k_steps": k_steps, "up_slice": up_slice,
+            "up_splits": up_splits, "down_slice": down_slice,
+            "down_splits": down_splits, **counts,
+            "stages": ring_stages(gated),
+            "ctas": ctas, "waves": items / ctas,
+            "smem_bytes": smem_bytes(gated),
+            "counters": 2 + row_tiles * (1 + 2 * panels)
+            + down_tiles * col_tiles}
 
 
 def mlp_work_items(plan: dict) -> list:
-    """The MLP's work items of a plan in ticket order, as the kernels
-    decode their tickets: ("quant", row tile) where the plan has them (the
-    rows of x quantized once), ("up", row tile, panel) for every panel of
-    every 32-row tile, then ("down", 64-row tile, column tile, the panels
-    in the order it sums them)."""
-    items = [("quant", t) for t in range(plan.get("quant_items", 0))]
-    items += [("up", t // plan["panels"], t % plan["panels"])
-              for t in range(plan["up_items"])]
-    order = tuple(range(plan["panels"]))
-    return items + [("down", t // plan["col_tiles"], t % plan["col_tiles"],
-                     order) for t in range(plan["down_items"])]
+    """The work items of a plan in ticket order, as the kernel decodes its
+    tickets: ("quant", row tile), then ("up", row tile, panel, (first, end)
+    128-byte K step) panel by panel, each panel's row tiles and their
+    slices in order, then ("down", 128-row tile, column tile, the panels it
+    reads in the order it sums them), each tile's groups in order."""
+    items = [("quant", t) for t in range(plan["quant_items"])]
+    us, sl = plan["up_splits"], plan["up_slice"]
+    per_panel = plan["row_tiles"] * us
+    for u in range(plan["up_items"]):
+        r, split = u % per_panel, u % us
+        items.append(("up", r // us, u // per_panel,
+                      (split * sl, min(plan["k_steps"], (split + 1) * sl))))
+    ds, dsl = plan["down_splits"], plan["down_slice"]
+    for u in range(plan["down_items"]):
+        tile, split = u // ds, u % ds
+        items.append(("down", tile // plan["col_tiles"],
+                      tile % plan["col_tiles"],
+                      tuple(range(split * dsl,
+                                  min(plan["panels"], (split + 1) * dsl)))))
+    return items
 
 
-def up_item_steps(plan: dict, panel: int) -> list:
-    """The ring steps of an up item of ``panel``, in order, as
-    ``csrc/w8a8_mlp.cuh:up_item`` stages them: (first column of F, columns,
-    first byte of K, bytes) of each step's W1 (and Wu) tile and, on the
-    "streamed" branch, of its 32 rows of xq the same K window; the chunks
-    of 128 columns of the panel in order, each over every 128-byte step of
-    K. Columns past F and bytes past K are zeros in the tile."""
+def up_item_steps(plan: dict, panel: int, k_range=None) -> list:
+    """The ring steps of an up item of ``panel`` over ``k_range`` (its
+    first and end 128-byte K step; all of K when None), in order, as
+    ``csrc/w8a8_mlp_wgmma.cuh:producer`` issues them: (first column of F,
+    columns, first byte of K, bytes) of each step's W1 (and Wu) tile and
+    its 64 rows of xq over the same K window; the 128-column chunks of the
+    panel in order, each over the slice's steps. Columns past F and bytes
+    past K arrive as zeros."""
+    lo, hi = (0, plan["k_steps"]) if k_range is None else k_range
     f0 = panel * plan["panel_width"]
     width = (plan["last_panel_columns"] if panel == plan["panels"] - 1
              else plan["panel_width"])
-    return [(f0 + c, min(COL_TILE, width - c), ks * K_STEP, K_STEP)
-            for c in range(0, width, COL_TILE)
-            for ks in range(plan["k_steps"])]
+    return [(f0 + c, min(COL_TILE, width - c), ks * K_STEP,
+             min(K_STEP, plan["k"] - ks * K_STEP))
+            for c in range(0, width, COL_TILE) for ks in range(lo, hi)]
 
 
 def _sigmoid(x):
@@ -237,7 +258,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.vla_fused_mlp_w8a8
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 15 + [i] * 8 + [p]
+        fn.argtypes = [p] * 17 + [i] * 10 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -254,6 +275,14 @@ def scratch(device: torch.device, sizes):
     return buf, [buf.data_ptr() + o for o in offsets]
 
 
+def _zeroed(store: dict, cap: int, device: torch.device) -> torch.Tensor:
+    key = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if key not in store:
+        store[key] = torch.zeros(cap, dtype=torch.int32, device=device)
+    return store[key]
+
+
 def counters(device: torch.device, needed: int) -> torch.Tensor:
     """The device's ticket and ready counters (zeroed once, at first use,
     outside any CUDA graph capture; the kernels leave them zeroed). Calls
@@ -261,12 +290,14 @@ def counters(device: torch.device, needed: int) -> torch.Tensor:
     if needed > COUNTER_CAP:
         raise ValueError(f"{needed} counters exceed the scratch's "
                          f"{COUNTER_CAP}: too many rows")
-    key = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if key not in _COUNTERS:
-        _COUNTERS[key] = torch.zeros(COUNTER_CAP, dtype=torch.int32,
-                                     device=device)
-    return _COUNTERS[key]
+    return _zeroed(_COUNTERS, COUNTER_CAP, device)
+
+
+def split_sums(device: torch.device) -> torch.Tensor:
+    """The device's zeroed int32 scratch of :data:`SUMS_CAP` entries for
+    the up items' split sums (zeroed once, at first use; the kernel leaves
+    it zeroed)."""
+    return _zeroed(_SUMS, SUMS_CAP, device)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -275,20 +306,22 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def launch_plan(name: str, m: int, k: int, f: int, d: int, *, gated: bool,
                 block_f: int = BLOCK_F, sms: int = SMS) -> dict:
-    """:func:`mlp_plan`, or a ValueError naming the shape where its branch
-    needs more shared memory than a block has (a gated F past ~160,000, a
-    plain MLP's K past ~4,900)."""
+    """:func:`mlp_plan`, or a ValueError naming the shape where its
+    counters exceed the scratch's :data:`COUNTER_CAP` (about 1.2 million
+    rows at Qwen2's F)."""
     plan = mlp_plan(m, k, f, d, gated=gated, block_f=block_f, sms=sms)
-    if plan["smem_bytes"] > BLOCK_SMEM:
+    if plan["counters"] > COUNTER_CAP:
         raise ValueError(
-            f"{name}: M={m}, K={k}, F={f}, D={d} needs {plan['smem_bytes']} "
-            f"bytes of shared memory per block on the {plan['branch']} "
-            f"branch; a block has {BLOCK_SMEM}")
+            f"{name}: M={m}, K={k}, F={f}, D={d} needs {plan['counters']} "
+            f"ready counters; the scratch has {COUNTER_CAP}")
     return plan
 
 
 def _launch(name, x, w1, s1, up_q, up_scale, b1, w2, s2, b2, act, out_dtype,
-            block_f) -> torch.Tensor:
+            block_f, plan: Optional[dict] = None) -> torch.Tensor:
+    """Launch the kernel on :func:`mlp_plan`'s plan for the card, or on
+    ``plan`` (another plan of the same shape, with other slices or groups:
+    ``mlp_compare.py --variants``)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if act not in ACTIVATIONS:
@@ -320,22 +353,27 @@ def _launch(name, x, w1, s1, up_q, up_scale, b1, w2, s2, b2, act, out_dtype,
     up_q = None if up_q is None else up_q.contiguous()
     s1, s2, up_scale, b1, b2 = (None if v is None else v.float().contiguous()
                                 for v in vecs)
-    plan = launch_plan(name, m, k, f, d, gated=up_q is not None,
-                       block_f=block_f, sms=cuda_lib.sm_count(x.device))
+    if plan is None:
+        plan = launch_plan(name, m, k, f, d, gated=up_q is not None,
+                           block_f=block_f, sms=cuda_lib.sm_count(x.device))
     panels = plan["panels"]
-    count = counters(x.device, 2 + 2 * plan["row_tiles"])
+    mpad = _round_up(m, DOWN_ROW_TILE)
+    count = counters(x.device, plan["counters"])
+    sums = split_sums(x.device) if plan["up_splits"] > 1 else None
     out = torch.empty((m, d), dtype=out_dtype, device=x.device)
-    buf, (xq, rs, hq, hs) = scratch(x.device, [
-        m * _round_up(k, K_STEP), 4 * m,
-        m * panels * _round_up(block_f, K_STEP), 4 * m * panels])
+    terms = 4 * panels * m * d if plan["down_splits"] > 1 else 16
+    buf, (xq, rs, hq, hs, terms) = scratch(x.device, [
+        m * k, 4 * mpad, m * panels * _round_up(block_f, K_STEP),
+        4 * panels * mpad, terms])
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.vla_fused_mlp_w8a8(
             x.data_ptr(), w1.data_ptr(), s1.data_ptr(), _ptr(up_q),
             _ptr(up_scale), _ptr(b1), w2.data_ptr(), s2.data_ptr(), _ptr(b2),
-            out.data_ptr(), xq, rs, hq, hs, count.data_ptr(), m, k, f, d,
-            block_f, ACTIVATIONS.index(act), _DTYPES[x.dtype], plan["ctas"],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            out.data_ptr(), xq, rs, hq, hs, _ptr(sums), terms,
+            count.data_ptr(), m, k, f, d, block_f, ACTIVATIONS.index(act),
+            _DTYPES[x.dtype], plan["ctas"], plan["up_slice"],
+            plan["down_slice"], torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
     cuda_lib.count_launch(name)

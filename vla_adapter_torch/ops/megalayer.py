@@ -21,7 +21,8 @@ The kernel runs a persistent grid that takes work items in dependency
 order from an atomic ticket: attention (kv head, up to 8 units of 16 rows
 of one query head), o-projection (32-row tile, 128 columns), RMSNorm2 and
 the quantization of h2 (32-row tile), then the gated MLP's up and down
-items (``ops/fused_mlp.py``).
+items of ``csrc/w8a8_mlp.cuh``'s ``mma.sync`` walk, which B6 alone runs
+(its tiles and shared memory are described here).
 :func:`megalayer_plan` gives the items and the grid for a shape and
 :func:`megalayer_work_items` the items in ticket order. A warp keeps its
 16 x M attention scores in shared memory, so M is at most
@@ -67,6 +68,50 @@ _KEY_TILE = 64
 MAX_TOKENS = 3072
 
 
+# The MLP walk of csrc/w8a8_mlp.cuh: rows per up item (and per norm and
+# o-projection item), rows per down item, output columns per down item (and
+# panel columns per up-item chunk), bytes of k per ring step, warps per CTA
+# and ring slots (two weights a step); shared memory per block on an H100.
+ROW_TILE = 32
+DOWN_ROW_TILE = 64
+COL_TILE = 128
+K_STEP = 128
+WARPS = 8
+RING_DEPTH = 4
+BLOCK_SMEM = 232448
+
+
+def _mlp_split(m: int, f: int, d: int, block_f: int) -> dict:
+    panels = -(-f // block_f)
+    return {"row_tile": ROW_TILE, "row_tiles": -(-m // ROW_TILE),
+            "panels": panels, "panel_width": block_f,
+            "last_panel_columns": f - (panels - 1) * block_f,
+            "down_row_tile": DOWN_ROW_TILE,
+            "down_row_tiles": -(-m // DOWN_ROW_TILE), "col_tile": COL_TILE,
+            "col_tiles": -(-d // COL_TILE)}
+
+
+def _mlp_smem_bytes(kpad: int, panels: int) -> int:
+    """csrc/w8a8_mlp.cuh:mlp_smem_bytes of the gated walk with its rows of
+    xq resident: 32 rows of xq, the ring (a slot holds an up step, 128 rows
+    of W1 and of Wu, or a down step, 64 rows of hq and 128 of W2), the down
+    item's panel scales, the cross-warp absmax and the row scales."""
+    slot = max(2 * COL_TILE * K_STEP, (DOWN_ROW_TILE + COL_TILE) * K_STEP)
+    return ROW_TILE * kpad + RING_DEPTH * slot \
+        + 4 * (DOWN_ROW_TILE * panels + WARPS * ROW_TILE + ROW_TILE)
+
+
+def _mlp_work_items(plan: dict) -> list:
+    """The MLP's work items of a plan in ticket order: ("up", row tile,
+    panel) for every panel of every 32-row tile, then ("down", 64-row tile,
+    column tile, the panels in the order it sums them)."""
+    items = [("up", t // plan["panels"], t % plan["panels"])
+             for t in range(plan["up_items"])]
+    order = tuple(range(plan["panels"]))
+    return items + [("down", t // plan["col_tiles"], t % plan["col_tiles"],
+                     order) for t in range(plan["down_items"])]
+
+
 def _attention_smem(warps: int, m: int, dh: int) -> int:
     """csrc/attention_core.cuh:smem_bytes: two ring slots (64 keys in rows
     of dh + 8 bf16, their valid flags), then each warp's scores."""
@@ -83,16 +128,16 @@ def megalayer_plan(m: int, d: int, heads: int, kv_heads: int, dh: int,
     warps (the most, up to 8, whose scores fit beside the MLP stages in one
     block's shared memory), the o-projection items (32-row tile, 128
     columns), the norm items (32-row tile), the MLP's up and down items
-    (:func:`fused_mlp.mlp_plan`), the persistent grid and shared memory per
-    CTA."""
-    plan = fused_mlp._mlp_split(m, f, d, block_f)
-    kpad = max(fused_mlp._round_up(heads * dh, fused_mlp.K_STEP),
-               fused_mlp._round_up(d, fused_mlp.K_STEP))
-    mlp = fused_mlp.mlp_smem_bytes(kpad, plan["panels"], True)
+    (32-row tile, panel; 64-row tile, 128 columns), the persistent grid
+    (one CTA per SM) and shared memory per CTA."""
+    plan = _mlp_split(m, f, d, block_f)
+    kpad = max(fused_mlp._round_up(heads * dh, K_STEP),
+               fused_mlp._round_up(d, K_STEP))
+    mlp = _mlp_smem_bytes(kpad, plan["panels"])
     units = heads // kv_heads * -(-m // 16)  # of each kv head
     warps = 0
-    for w in range(1, min(fused_mlp.WARPS, units) + 1):
-        if max(mlp, _attention_smem(w, m, dh)) + 16 <= fused_mlp.BLOCK_SMEM:
+    for w in range(1, min(WARPS, units) + 1):
+        if max(mlp, _attention_smem(w, m, dh)) + 16 <= BLOCK_SMEM:
             warps = w
     if not warps:
         raise ValueError(f"{KERNEL_NAME}: M={m}, D={d}, F={f}: the stages "
@@ -104,18 +149,17 @@ def megalayer_plan(m: int, d: int, heads: int, kv_heads: int, dh: int,
               "up_items": plan["row_tiles"] * plan["panels"],
               "down_items": plan["down_row_tiles"] * plan["col_tiles"]}
     items = sum(counts.values())
-    per_sm = fused_mlp.ctas_per_sm(smem, True)
-    ctas = min(items, sms * per_sm)
+    ctas = min(items, sms)
     return {**plan, "attention_warps": warps,
             "attention_units": kv_heads * units, **counts, "ctas": ctas,
-            "ctas_per_sm": per_sm, "waves": items / ctas, "smem_bytes": smem}
+            "ctas_per_sm": 1, "waves": items / ctas, "smem_bytes": smem}
 
 
 def megalayer_work_items(plan: dict, heads: int, kv_heads: int) -> list:
     """The work items of a plan in ticket order, as the kernel decodes its
     tickets: ("attention", kv head, [(query head, first row), ...] of its
     warps), ("oproj", row tile, column tile), ("norm", row tile), then the
-    MLP's (:func:`fused_mlp.mlp_work_items`)."""
+    MLP's up and down items."""
     groups = heads // kv_heads
     warps = plan["attention_warps"]
     units = plan["attention_units"] // kv_heads  # of each kv head
@@ -128,7 +172,7 @@ def megalayer_work_items(plan: dict, heads: int, kv_heads: int) -> list:
     items += [("oproj", t // plan["col_tiles"], t % plan["col_tiles"])
               for t in range(plan["oproj_items"])]
     items += [("norm", t) for t in range(plan["norm_items"])]
-    return items + fused_mlp.mlp_work_items(plan)
+    return items + _mlp_work_items(plan)
 
 
 def megalayer_reference(x, q, k, v, valid, norm2, o_q, o_scale, gate_q,
@@ -229,8 +273,8 @@ def _launch(x, q, k, v, valid, norm2, o_q, o_scale, gate_q, gate_scale, up_q,
     # f32, hq (M, panels * round128(block_f)) int8, hs (M, panels) f32
     buf, (ctx, xa, xq, rs, hq, hs) = fused_mlp.scratch(x.device, [
         2 * m * heads * dh, 2 * m * d,
-        m * fused_mlp._round_up(d, fused_mlp.K_STEP), 4 * m,
-        m * panels * fused_mlp._round_up(block_f, fused_mlp.K_STEP),
+        m * fused_mlp._round_up(d, K_STEP), 4 * m,
+        m * panels * fused_mlp._round_up(block_f, K_STEP),
         4 * m * panels])
     lib = _lib()
     with torch.cuda.device(x.device):
